@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``multi_agent_solver_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, drives
 the main path -- the batched single-track lane-follow iLQR solve of
 ``bench.py`` -- through ``solve_ilqr_batched`` at full width, checks the
-solve's cost distribution and the kernels' launch counts, and times it.
+solve's cost distribution and the kernels' launch counts, and times it;
+then does the same for the fused loop's other branches (K4, K5) and the
+circular-track agent sweep of ``scripts/bench_multi_agent.py``.
 
 Phases, each reported on its own lines:
 
@@ -23,7 +25,26 @@ Phases, each reported on its own lines:
    anchors of docs/BENCHMARKS.md, launch counts K3 = 1, K2 = 1 + iterations,
    K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
    kernels' times per launch;
-6. one JSON line listing every ported kernel;
+and, run after phase 5 and before 6 and 7:
+
+8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
+   boxqp and the circular-track instantiations of K2 / K3 / K4 against
+   their plain versions at B = 8192 (T = 80, and T = 10 on the track),
+   with the number of stage solves whose box-QP (K5) active set differs;
+9. boxqp end to end at B = 4096, kernels against plain versions;
+10. the three K4 branches of the main path at B = 262,144
+   (stationary_fusedlin=False; quadratic_cost with stationary_cost=False;
+   quadratic_cost=False), each on the anchors of phase 5 with its launch
+   counts, and 5 timed warm solves each; the boxqp main path at 262,144,
+   its launch counts and 5 timed solves;
+11. the circular-track sweep through ``solve_ilqr_batched`` at 4,096
+   (256 agents x 16 scenarios; kernels against plain versions) and
+   262,144 (256 x 1,024), the per-agent cost on its anchor, launch counts,
+   and the median of 5 warm sweeps each;
+12. the new kernels' times per launch and bounds at 262,144 and 524,288
+   (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
+   with and without Hessians; K2 at 10 candidates; K1 with boxqp);
+6. one JSON line listing every ported kernel (K1-K5), printed after them;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
@@ -44,6 +65,26 @@ ANCHORS = {"median": (157.19426, 1e-4), "p99": (436.50748, 1e-3), "max": (499.59
 MAIN_BATCH, BENCH_BATCH = 262_144, 524_288
 CHECK_BATCH, E2E_BATCH, T = 8192, 4096, 80
 TIMED_SOLVES = 5
+# Circular-track sweep: (agents, scenarios) of scripts/bench_multi_agent.py's
+# largest row, and the scenario count that fills the card.
+SWEEP_SMALL, SWEEP_BIG = (256, 16), (256, 1024)
+T_SWEEP = 10
+# Per-agent cost of the sweep: every agent of the JAX package's f32 fused
+# path (solve_ilqr_batched, Pallas in interpret mode, on the CPU) at 256
+# agents x 1 scenario with ILQRConfig(max_iterations=100, tolerance=1e-5)
+# costs 1.87613844871521 after 6 iterations (min = max = mean).
+SWEEP_ANCHOR, SWEEP_RTOL, SWEEP_ITERATIONS = 1.87613844871521, 1e-5, 6
+# Box-QP end to end: the exact KKT comparisons of K5 make a problem's
+# path knife-edge where a constraint gradient is near zero -- a 1e-7
+# relative change of x0 moves the JAX package's own converged controls by
+# up to 2.1e-3 at equal cost (tests/test_torch_riccati_backward.py), and
+# on an H100 2 of 4,096 problems took another path through the kernels
+# than through the plain versions (PERF.md) -- so at least
+# 99.5% of the problems are held to cost rtol 1e-5 and controls atol
+# 1e-4, every cost to rtol 1e-3, and the knife-edge is measured: the share
+# of problems whose kernel solve moves by more than 1e-4 when x0 moves by
+# one ulp.
+BOXQP_COST_RTOL, BOXQP_CTRL_ATOL, BOXQP_SHARE, BOXQP_COST_RTOL_ALL = 1e-5, 1e-4, 0.995, 1e-3
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 ops/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -55,6 +96,11 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # K3 work with second-order duals.
 OPS_RK4, OPS_DUAL_STAGE, OPS_STAGE_CORE = 80, 932, 818
 OPS_COST, OPS_CONTROL, OPS_K3 = 24, 28, 3300
+# The box-QP stage solve (K5) at nu = 2, counted from csrc/riccati.cu:
+# 9 configurations (one 2x2 and four 1x1 Gauss-Jordan solves, gradients,
+# KKT tests, selects) and the clipped Newton fallback.  It replaces the
+# stage core's own 2x2 solve and negations (51 of OPS_STAGE_CORE).
+OPS_BOXQP, OPS_CLAMP_SOLVE = 382, 51
 
 
 def log(msg: str = "") -> None:
@@ -210,54 +256,474 @@ def check_end_to_end(ilqr, entry):
         fail("end-to-end solve through the kernels disagrees with the plain versions (phase 4)")
 
 
-def solve_and_check(ilqr, entry, stats):
-    """Phase 5a: the main path once at MAIN_BATCH, anchors and launch counts."""
+def active_sets(k, lb, ub):
+    """Per (stage, problem): which gain rows of a box-QP solve sit at the
+    lower / upper delta bound, as one integer code."""
+    code = 0
+    for i in range(k.shape[1]):
+        code = code * 3 + (k[:, i] == lb[:, i]).long() + 2 * (k[:, i] == ub[:, i]).long()
+    return code
+
+
+def circular_inputs(spec, B, seed, horizon):
+    """Circular-track inputs: the sweep's x0 (agents around the circle),
+    controls drawn inside the +-0.5 box."""
     import torch
-    log(f"[5] main path, B={MAIN_BATCH}")
-    specs = entry.bench_specs(MAIN_BATCH, device=DEVICE)
-    for s in stats.values():
-        s.reset()
-    result = ilqr.solve_ilqr_batched(specs, entry.BENCH_CONFIG, device=DEVICE)
+    from multi_agent_solver_tpu_torch import entry
+    rng = np.random.RandomState(seed)
+    dev = spec.initial_state.device
+    x0 = torch.as_tensor(entry.circular_sweep_x0(B // 8, 8).T.copy(), device=dev)   # [nx, B]
+    us = torch.as_tensor(rng.uniform(-0.5, 0.5, (horizon, 2, B)), dtype=torch.float32,
+                         device=dev).contiguous()
+    return x0, us
+
+
+def check_backward_kernels(spec, circ_spec):
+    """Phase 8: K4, K5 (inside K1 and K4) and the circular-track
+    instantiations against their plain versions at B = CHECK_BATCH."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B = CHECK_BATCH
+    levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor, BENCH_CONFIG.reg_levels)
+    errs, ok = {}, True
+
+    def record(kernel, results):
+        nonlocal ok
+        for good, max_abs, max_rel in results:
+            ok = ok and good
+            a, r = errs.get(kernel, (0.0, 0.0))
+            errs[kernel] = (max(a, max_abs), max(r, max_rel))
+
+    def backward_pair(tag, sp, lin, xT, bounds, kernel="K4"):
+        k_k, K_k = k1.riccati_backward(sp, *lin, xT, levels, *bounds)
+        k_p, K_p = k1.riccati_backward_plain(sp, *lin, xT, levels, *bounds)
+        gain_pair(tag, k_k, K_k, k_p, K_p, bounds, kernel)
+
+    def gain_pair(tag, k_k, K_k, k_p, K_p, bounds, kernel, atol=1e-5):
+        results = [compare(f"{tag} k", k_k, k_p, 1e-4, atol), compare(f"{tag} K", K_k, K_p, 1e-4, atol)]
+        record(kernel, results)
+        if bounds[0] is not None:
+            record("K5", results)
+            a_k, a_p = active_sets(k_k, *bounds), active_sets(k_p, *bounds)
+            log(f"  {tag}: {int((a_k != a_p).sum())} of {a_k.numel()} stage solves differ in their "
+                f"K5 active set; {int((a_p > 0).sum())} have a row at the box")
+
+    log(f"[8] K4 / K5 checks, B={B}, T={T} (lane follow) and T={T_SWEEP} (circular track)")
+    x0, us, lb, ub, active = main_path_inputs(spec, B, seed=3)
+    xs_tail, cost = k2.rollout_cost_plain(spec, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    lin = k3.linearize_plain(spec, xs, us, True)
+    for hess in (True, False):
+        lin_k = k3.linearize(spec, xs, us, hess)
+        record("K3", [compare(f"K3 full-T hessians={hess} {n}", a, b, 1e-5, 1e-5)
+                      for n, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), lin_k, lin)])
+    box = ((lb[None] - us).contiguous(), (ub[None] - us).contiguous())
+    tconst = lin[:4] + tuple(h[:1].contiguous() for h in lin[4:])
+    for mode, stacks in (("per-stage", lin), ("hess_tconst", tconst)):
+        for bounds in ((None, None), box):
+            backward_pair(f"K4 {mode} {'boxqp' if bounds[0] is not None else 'clamp'}",
+                          spec, stacks, xT, bounds)
+    hess = [h[0] for h in tconst[4:]]
+    k_k, K_k = k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels, *box)
+    k_p, K_p = k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels, *box)
+    # K1 linearizes in the kernel: its CUDA sinf / cosf / tanf against
+    # PyTorch's leave absolute gain errors of 1e-5 to 4e-5 (1.34e-5 in
+    # clamp mode, phase 3), which boxqp's O(1) gains do not scale: atol 1e-4.
+    gain_pair("K1 boxqp", k_k, K_k, k_p, K_p, box, "K1", atol=1e-4)
+
+    # The circular track: K2 (rollout, select at the reference ladder), K3
+    # and K4 at the sweep's horizon.  Its cost subtracts the radius 20 from
+    # sqrt(x^2 + y^2) (one ulp of 20 is 1.9e-6), so a cost carries an
+    # absolute error of about 2 |d| 1e-6 a stage: atol 1e-4 over 10 stages.
+    x0c, usc = circular_inputs(circ_spec, B, seed=4, horizon=T_SWEEP)
+    xs_k, cost_k = k2.rollout_cost(circ_spec, x0c, usc)
+    xs_p, cost_p = k2.rollout_cost_plain(circ_spec, x0c, usc)
+    record("K2", [compare("K2 circular rollout xs", xs_k, xs_p, 1e-5, 1e-5),
+                  compare("K2 circular rollout cost", cost_k, cost_p, 1e-5, 1e-4)])
+    xsc = torch.cat([x0c[None], xs_p[:-1]], 0).contiguous()
+    xTc = xs_p[-1].clone()
+    linc = k3.linearize_plain(circ_spec, xsc, usc, True)
+    linc_k = k3.linearize(circ_spec, xsc, usc, True)
+    record("K3", [compare(f"K3 circular {n}", a, b, 1e-5, 1e-5)
+                  for n, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), linc_k, linc)])
+    boxc = ((-0.5 - usc).contiguous(), (0.5 - usc).contiguous())
+    for bounds in ((None, None), boxc):
+        backward_pair(f"K4 circular {'boxqp' if bounds[0] is not None else 'clamp'}",
+                      circ_spec, linc, xTc, bounds)
+    k_c, K_c = k1.riccati_backward_plain(circ_spec, *linc, xTc, levels)
+    ladder = _alpha_ladder_floats(BENCH_CONFIG.alpha_min)
+    lbc = torch.full((2, B), -0.5, device=xsc.device)
+    ubc = torch.full((2, B), 0.5, device=xsc.device)
+    outs = {}
+    for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
+        bufs = [xsc.clone(), usc.clone(), xTc.clone()]
+        merit, accept = fn(circ_spec, *bufs, k_c, K_c, cost_p, active, lbc, ubc, ladder)
+        outs[name] = bufs + [merit, accept]
+    kx, ku, kT, km, ka = outs["kernel"]
+    px, pu, pT, pm, pa = outs["plain"]
+    n_diff = int((ka != pa).sum())
+    log(f"  K2 circular select A={len(ladder)}: {int(ka.sum())} of {B} accepted, {n_diff} differ")
+    # The random controls drive agents up to ~10 off the track over 10 RK4
+    # steps of dt = 0.5; the two rollouts drift apart by ~2e-4 on positions
+    # of ~30 (5e-6 relative), which enters u through K and each stage cost
+    # through its gradient 2 |d|: atol 5e-4 on states and controls, 1e-3 and
+    # rtol 1e-4 on the merit.
+    record("K2", [compare("K2 circular select xs", kx, px, 1e-4, 5e-4),
+                  compare("K2 circular select us", ku, pu, 1e-4, 5e-4),
+                  compare("K2 circular select xT", kT, pT, 1e-4, 5e-4),
+                  compare("K2 circular select merit", km, pm, 1e-4, 1e-3),
+                  (n_diff == 0, 0.0, 0.0)])
     torch.cuda.synchronize()
-    launches = {name: s.launches for name, s in stats.items()}
+    if not ok:
+        fail("a kernel disagrees with its plain version (phase 8)")
+    return errs
+
+
+def check_boxqp_end_to_end(ilqr, entry):
+    """Phase 9: the boxqp solve through the kernels against the plain
+    versions at E2E_BATCH, and its sensitivity to a one-ulp change of x0."""
+    import dataclasses
+    import torch
+    config = dataclasses.replace(entry.BENCH_CONFIG, bound_mode="boxqp")
+    log(f"[9] boxqp end to end, B={E2E_BATCH}: kernels vs plain versions on the card")
+    specs = entry.bench_specs(E2E_BATCH, device=DEVICE)
+    rk = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    rp = ilqr.solve_ilqr_batched_fused(specs, config, ilqr.PLAIN_OPS)
+    x0 = specs.initial_state.clone()
+    x0[:, 1] = torch.nextafter(x0[:, 1], torch.full_like(x0[:, 1], np.inf))
+    rn = ilqr.solve_ilqr_batched(specs.replace(initial_state=x0), config, device=DEVICE)
+    log(f"  iterations {int(rk.iterations[0])} / {int(rp.iterations[0])}")
+
+    def apart(a, b):
+        cost_rel = ((a.cost - b.cost).abs() / b.cost.abs()).double().cpu().numpy()
+        ctrl = (a.controls - b.controls).abs().amax((1, 2)).double().cpu().numpy()
+        return cost_rel, ctrl, (cost_rel > BOXQP_COST_RTOL) | (ctrl > BOXQP_CTRL_ATOL)
+
+    cost_rel, ctrl, off = apart(rk, rp)
+    _, ctrl_n, off_n = apart(rn, rk)
+    share = 1.0 - float(np.mean(off))
+    log(f"  kernels vs plain: {int(off.sum())} of {E2E_BATCH} problems beyond cost rtol "
+        f"{BOXQP_COST_RTOL:g} or controls atol {BOXQP_CTRL_ATOL:g} (share within {share:.4f}, "
+        f"required {BOXQP_SHARE}); max cost rel {cost_rel.max():.3e} (all within "
+        f"{BOXQP_COST_RTOL_ALL:g}), max controls {ctrl.max():.3e}, within the others "
+        f"{ctrl[~off].max() if (~off).any() else 0.0:.3e}")
+    log(f"  knife-edge: x0[1] one ulp up moves {int(off_n.sum())} of {E2E_BATCH} kernel solves "
+        f"beyond the same tolerances (max controls {ctrl_n.max():.3e}); "
+        f"{int((off & off_n).sum())} of them among the kernel-vs-plain outliers")
+    in_box = bool(((rk.controls >= specs.input_lower_bounds[:, None] - 1e-6)
+                   & (rk.controls <= specs.input_upper_bounds[:, None] + 1e-6)).all())
+    log(f"  every control inside its box: {in_box}")
+    if not (share >= BOXQP_SHARE and cost_rel.max() <= BOXQP_COST_RTOL_ALL and in_box
+            and int(rk.iterations[0]) == int(rp.iterations[0])):
+        fail("boxqp solve through the kernels disagrees with the plain versions (phase 9)")
+
+
+def run_branches(ilqr, entry, stats):
+    """Phase 10: the K4 branches and the boxqp path of the main path at
+    MAIN_BATCH, each solved once with its launch counts, then timed."""
+    import dataclasses
+    cfg = entry.BENCH_CONFIG
+    branches = {
+        # name: (config, expected launches for `it` iterations)
+        "stationary_fusedlin=False": (
+            dataclasses.replace(cfg, stationary_fusedlin=False),
+            lambda it: {"K1": 0, "K2": 1 + it, "K3": 1 + it, "K4": it, "K5": 0}),
+        "quadratic_cost=True, stationary_cost=False": (
+            dataclasses.replace(cfg, quadratic_cost=True, stationary_cost=False),
+            lambda it: {"K1": 0, "K2": 1 + it, "K3": 1 + it, "K4": it, "K5": 0}),
+        "quadratic_cost=False": (
+            dataclasses.replace(cfg, quadratic_cost=False),
+            lambda it: {"K1": 0, "K2": 1 + it, "K3": it, "K4": it, "K5": 0}),
+    }
+    out = {}
+    for name, (config, want_of) in branches.items():
+        launches, got, it = solve_and_check(ilqr, entry, stats, config, want_of, what=name, phase=10)
+        rate = time_solves(ilqr, entry, MAIN_BATCH, config)
+        out[name] = {"launches": launches, "iterations": it, "solves_per_s": rate, "cost": got}
+
+    name = "bound_mode=boxqp"
+    config = dataclasses.replace(cfg, bound_mode="boxqp")
+    log(f"[10] {name}, B={MAIN_BATCH}")
+    specs = entry.bench_specs(MAIN_BATCH, device=DEVICE)
+    reset_counts(stats)
+    result = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    launches = read_counts(stats)
     it = int(result.iterations[0])
-    costs = result.cost.double().cpu().numpy()
-    if result.states.shape != (MAIN_BATCH, T + 1, 4) or result.controls.shape != (MAIN_BATCH, T, 2):
-        fail(f"result shapes {tuple(result.states.shape)} {tuple(result.controls.shape)}")
-    if not (np.all(np.isfinite(costs)) and torch.isfinite(result.controls).all()):
-        fail("non-finite costs or controls")
+    costs = check_result(result, MAIN_BATCH, T, name)
+    in_box = bool(((result.controls >= specs.input_lower_bounds[:, None] - 1e-6)
+                   & (result.controls <= specs.input_upper_bounds[:, None] + 1e-6)).all())
+    log(f"  iterations {it}; cost median {float(np.median(costs))!r} p99 "
+        f"{float(np.percentile(costs, 99))!r} max {float(np.max(costs))!r}; controls in box {in_box}")
+    if not in_box:
+        fail("boxqp controls outside their box")
+    check_counts(launches, {"K1": it, "K2": 1 + it, "K3": 1, "K4": 0, "K5": it}, name)
+    rate = time_solves(ilqr, entry, MAIN_BATCH, config)
+    out[name] = {"launches": launches, "iterations": it, "solves_per_s": rate}
+    return out
+
+
+def circular_sweep(ilqr, entry, stats):
+    """Phase 11: the circular-track agent sweep through solve_ilqr_batched."""
+    cfg = entry.SWEEP_CONFIG
+    out = {}
+    for agents, scenarios in (SWEEP_SMALL, SWEEP_BIG):
+        B = agents * scenarios
+        log(f"[11] circular-track sweep, {agents} agents x {scenarios} scenarios = {B}")
+        specs = entry.circular_sweep_specs(agents, scenarios, device=DEVICE)
+        reset_counts(stats)
+        result = ilqr.solve_ilqr_batched(specs, cfg, device=DEVICE)
+        launches = read_counts(stats)
+        it = int(result.iterations[0])
+        costs = check_result(result, B, T_SWEEP, "circular sweep")
+        per_agent = {"mean": float(np.mean(costs)), "min": float(np.min(costs)),
+                     "max": float(np.max(costs))}
+        for key, val in per_agent.items():
+            rel = abs(val - SWEEP_ANCHOR) / SWEEP_ANCHOR
+            log(f"  per-agent cost {key:4s} {val!r} anchor {SWEEP_ANCHOR} rel {rel:.3e} "
+                f"(rtol {SWEEP_RTOL:g}) {'OK' if rel <= SWEEP_RTOL else 'MISMATCH'}")
+            if rel > SWEEP_RTOL:
+                fail(f"circular sweep: per-agent cost {key} {val} is off the anchor")
+        log(f"  iterations {it} (anchor {SWEEP_ITERATIONS}), converged "
+            f"{int(result.converged.sum())} of {B}")
+        if it != SWEEP_ITERATIONS:
+            fail(f"circular sweep: {it} iterations, the anchor took {SWEEP_ITERATIONS}")
+        check_counts(launches, {"K1": 0, "K2": 1 + it, "K3": it, "K4": it, "K5": 0},
+                     "circular sweep")
+        if (agents, scenarios) == SWEEP_SMALL:
+            rp = ilqr.solve_ilqr_batched_fused(specs, cfg, ilqr.PLAIN_OPS)
+            good = [compare("sweep cost vs plain", result.cost, rp.cost, 1e-5, 0.0)[0],
+                    compare("sweep controls vs plain", result.controls, rp.controls, 0.0, 2e-4)[0],
+                    int(rp.iterations[0]) == it]
+            if not all(good):
+                fail("circular sweep through the kernels disagrees with the plain versions")
+        rate = time_solves(ilqr, entry, B, cfg, specs=specs, label="agent-solves")
+        out[B] = {"agents": agents, "scenarios": scenarios, "launches": launches,
+                  "iterations": it, "agent_solves_per_s": rate, "per_agent_cost": per_agent}
+        if (agents, scenarios) == SWEEP_BIG:
+            kms = time_sweep_kernels(specs)
+            in_kernels = (kms["K2_rollout"] + launches["K3"] * kms["K3_hess"]
+                          + launches["K4"] * kms["K4"] + (launches["K2"] - 1) * kms["K2_A10"])
+            solve_ms = B / rate * 1e3
+            log(f"  B={B}: kernel time per sweep {in_kernels:.3f} ms (launch counts x ms per "
+                f"launch) of {solve_ms:.3f} ms median sweep, {100 * in_kernels / solve_ms:.1f}%")
+    return out
+
+
+def time_sweep_kernels(specs):
+    """Per-launch device time of the sweep's kernels at its shapes (T = 10,
+    iteration-1 inputs: the agents' x0, zero controls)."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import SWEEP_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B = specs.initial_state.shape[0]
+    x0 = specs.initial_state.T.contiguous()
+    us = torch.zeros((T_SWEEP, 2, B), dtype=torch.float32, device=x0.device)
+    lb = specs.input_lower_bounds.T.contiguous()
+    ub = specs.input_upper_bounds.T.contiguous()
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+    levels = k1.reg_ladder(SWEEP_CONFIG.reg_init, SWEEP_CONFIG.reg_factor, SWEEP_CONFIG.reg_levels)
+    ladder = _alpha_ladder_floats(SWEEP_CONFIG.alpha_min)
+    xs_tail, cost = k2.rollout_cost(specs, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    lin = k3.linearize(specs, xs, us, True)
+    k, K = k1.riccati_backward(specs, *lin, xT, levels)
+    reps = 5
+    sel_bufs = [[xs.clone(), us.clone(), xT.clone()] for _ in range(reps)]
+    ms = {
+        "K2_rollout": event_ms([lambda: k2.rollout_cost(specs, x0, us)] * reps),
+        "K3_hess": event_ms([lambda: k3.linearize(specs, xs, us, True)] * reps),
+        "K4": event_ms([lambda: k1.riccati_backward(specs, *lin, xT, levels)] * reps),
+        "K2_A10": event_ms([lambda b=b: k2.forward_select(specs, *b, k, K, cost, active, lb, ub,
+                                                          ladder) for b in sel_bufs]),
+    }
+    log(f"  B={B}, T={T_SWEEP}: sweep kernel ms/launch "
+        f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}")
+    return ms
+
+
+def bound_of(bytes_, ops):
+    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_new_kernels(spec, B, with_plain):
+    """Phase 12: per-launch device time of K4 (both Hessian modes, clamp
+    and boxqp), K3 over the whole horizon (with and without Hessians), K2
+    at the reference's 10 candidates and K1 with boxqp, at the main path's
+    shapes with iteration-1 inputs; bounds from these inputs; optionally
+    the plain versions' times."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    x0, us0, lb, ub, _ = main_path_inputs(spec, B, seed=2)
+    us0.zero_()                                   # the main path's warm start
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+    levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor, BENCH_CONFIG.reg_levels)
+    ladder = _alpha_ladder_floats(BENCH_CONFIG.alpha_min)
+    xs_tail, cost = k2.rollout_cost(spec, x0, us0)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    lin = k3.linearize(spec, xs, us0, True)
+    tconst = lin[:4] + tuple(h[:1].contiguous() for h in lin[4:])
+    hess = [h[0] for h in tconst[4:]]
+    box = ((lb[None] - us0).contiguous(), (ub[None] - us0).contiguous())
+    none = (None, None)
+    k, K = k1.riccati_backward(spec, *lin, xT, levels)
+    fresh = lambda: [xs.clone(), us0.clone(), xT.clone()]
+    _, accept = k2.forward_select(spec, *fresh(), k, K, cost, active, lb, ub, ladder)
+    n_acc = int(accept.sum())
+
+    reps = 5
+    lin_h = lambda: k3.linearize(spec, xs, us0, True)
+    lin_n = lambda: k3.linearize(spec, xs, us0, False)
+    stacks = {"per_stage": lin, "hess_tconst": tconst}
+    ms = {"K3_full_hess": event_ms([lin_h] * reps), "K3_full": event_ms([lin_n] * reps)}
+    for mode, st in stacks.items():
+        for tag, bounds in (("", none), ("_boxqp", box)):
+            ms[f"K4_{mode}{tag}"] = event_ms(
+                [lambda st=st, bounds=bounds: k1.riccati_backward(spec, *st, xT, levels, *bounds)] * reps)
+    ms["K1_boxqp"] = event_ms([lambda: k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels, *box)] * reps)
+    sel_bufs = [fresh() for _ in range(reps)]
+    ms["K2_A10"] = event_ms([lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, lb, ub, ladder)
+                             for b in sel_bufs])
+    del sel_bufs
+    plain = {}
+    if with_plain:
+        b = fresh()
+        plain = {
+            "K3_full_hess": event_ms([lambda: k3.linearize_plain(spec, xs, us0, True)]),
+            "K3_full": event_ms([lambda: k3.linearize_plain(spec, xs, us0, False)]),
+            "K4_per_stage": event_ms([lambda: k1.riccati_backward_plain(
+                spec, *stacks["per_stage"], xT, levels)]),
+            "K4_hess_tconst": event_ms([lambda: k1.riccati_backward_plain(spec, *tconst, xT, levels)]),
+            "K4_per_stage_boxqp": event_ms([lambda: k1.riccati_backward_plain(
+                spec, *stacks["per_stage"], xT, levels, *box)]),
+            "K1_boxqp": event_ms([lambda: k1.riccati_fusedlin_plain(
+                spec, xs, us0, *hess, xT, levels, *box)]),
+            "K2_A10": event_ms([lambda: k2.forward_select_plain(spec, *b, k, K, cost, active,
+                                                                lb, ub, ladder)]),
+        }
+    del stacks, lin, tconst
+
+    nx, nu, f = 4, 2, 4
+    per_stage_in = nx * nx + nx * nu + nx + nu          # A, B, lx, lu
+    hess_in = nx * nx + nu * nu + nu * nx               # lxx, luu, lux
+    gains_out = nu * (1 + nx)                           # k, K
+    A10 = len(ladder)
+    bytes_ = {
+        "K3_full_hess": B * f * T * ((nx + nu) + per_stage_in + hess_in),
+        "K3_full": B * f * T * ((nx + nu) + per_stage_in),
+        "K4_per_stage": B * f * (T * (per_stage_in + hess_in + gains_out) + nx),
+        "K4_hess_tconst": B * f * (T * (per_stage_in + gains_out) + hess_in + nx),
+        "K1_boxqp": B * f * (T * (nx + nu + 2 * nu + gains_out) + hess_in + nx),
+        "K2_A10": B * f * (T * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
+                  + n_acc * f * (T * (nx + nu) + nx),
+    }
+    bytes_["K4_per_stage_boxqp"] = bytes_["K4_per_stage"] + B * f * T * 2 * nu
+    bytes_["K4_hess_tconst_boxqp"] = bytes_["K4_hess_tconst"] + B * f * T * 2 * nu
+    box_ops = OPS_BOXQP - OPS_CLAMP_SOLVE
+    ops = {
+        "K3_full_hess": B * T * OPS_K3,
+        "K3_full": B * T * OPS_DUAL_STAGE,
+        "K4_per_stage": B * T * OPS_STAGE_CORE,
+        "K4_hess_tconst": B * T * OPS_STAGE_CORE,
+        "K4_per_stage_boxqp": B * T * (OPS_STAGE_CORE + box_ops),
+        "K4_hess_tconst_boxqp": B * T * (OPS_STAGE_CORE + box_ops),
+        "K1_boxqp": B * T * (OPS_DUAL_STAGE + OPS_STAGE_CORE + box_ops),
+        "K2_A10": B * T * A10 * (OPS_CONTROL + OPS_COST + OPS_RK4) + n_acc * T * (OPS_CONTROL + OPS_RK4),
+    }
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
+    log(f"  B={B}: kernel ms/launch {json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; "
+        f"K2 (A={A10}) accepted {n_acc} of {B}")
+    if plain:
+        log(f"  B={B}: plain ms/call {json.dumps({k_: round(v, 6) for k_, v in plain.items()})}")
+    log(f"  B={B}: bound ms {json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}")
+    return ms, plain, bound
+
+
+def reset_counts(stats):
+    for st in stats.values():
+        st.reset()
+
+
+def read_counts(stats):
+    import torch
+    torch.cuda.synchronize()
+    return {name: st.launches for name, st in stats.items()}
+
+
+def check_counts(launches, want, what):
+    log(f"  launches {launches} expected {want}")
+    missing = [k for k, n in want.items() if n > 0 and launches.get(k, 0) == 0]
+    if missing:
+        fail(f"{what}: kernels {missing} of the path were not launched")
+    if launches != want:
+        fail(f"{what}: launch counts {launches} != {want}")
+
+
+def check_anchors(costs, what):
     got = {"median": float(np.median(costs)), "p99": float(np.percentile(costs, 99)),
            "max": float(np.max(costs))}
-    log(f"  iterations {it}, converged {int(result.converged.sum())} of {MAIN_BATCH}")
     for key, (anchor, rtol) in ANCHORS.items():
         rel = abs(got[key] - anchor) / anchor
         log(f"  cost {key:6s} {got[key]!r} anchor {anchor} rel {rel:.3e} (rtol {rtol:g}) "
             f"{'OK' if rel <= rtol else 'MISMATCH'}")
         if rel > rtol:
-            fail(f"cost {key} {got[key]} is off the anchor {anchor}")
-    want = {"K3": 1, "K2": 1 + it, "K1": it}
-    log(f"  launches {launches} expected {want}")
-    if launches != want:
-        fail(f"launch counts {launches} != {want}")
+            fail(f"{what}: cost {key} {got[key]} is off the anchor {anchor}")
+    return got
+
+
+def check_result(result, B, horizon, what):
+    import torch
+    costs = result.cost.double().cpu().numpy()
+    if result.states.shape != (B, horizon + 1, 4) or result.controls.shape != (B, horizon, 2):
+        fail(f"{what}: result shapes {tuple(result.states.shape)} {tuple(result.controls.shape)}")
+    if not (np.all(np.isfinite(costs)) and torch.isfinite(result.controls).all()):
+        fail(f"{what}: non-finite costs or controls")
+    return costs
+
+
+def solve_and_check(ilqr, entry, stats, config=None, want_of=None, what="main path", phase=5):
+    """Phase 5a (and 10): one solve at MAIN_BATCH with the counts set to 0
+    just before it, anchors and launch counts read just after."""
+    config = config or entry.BENCH_CONFIG
+    want_of = want_of or (lambda it: {"K1": it, "K2": 1 + it, "K3": 1, "K4": 0, "K5": 0})
+    log(f"[{phase}] {what}, B={MAIN_BATCH}")
+    specs = entry.bench_specs(MAIN_BATCH, device=DEVICE)
+    reset_counts(stats)
+    result = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    launches = read_counts(stats)
+    it = int(result.iterations[0])
+    costs = check_result(result, MAIN_BATCH, T, what)
+    log(f"  iterations {it}, converged {int(result.converged.sum())} of {MAIN_BATCH}")
+    got = check_anchors(costs, what)
+    check_counts(launches, want_of(it), what)
     return launches, got, it
 
 
-def time_solves(ilqr, entry, B):
+def time_solves(ilqr, entry, B, config=None, specs=None, label="solves"):
     """Phase 5b: median wall time of TIMED_SOLVES warm solves (CUDA events)."""
     import torch
-    specs = entry.bench_specs(B, device=DEVICE)
-    ilqr.solve_ilqr_batched(specs, entry.BENCH_CONFIG, device=DEVICE)   # warm-up
+    config = config or entry.BENCH_CONFIG
+    specs = specs if specs is not None else entry.bench_specs(B, device=DEVICE)
+    ilqr.solve_ilqr_batched(specs, config, device=DEVICE)   # warm-up
     torch.cuda.synchronize()
     result = {}
 
     def solve():
-        result["r"] = ilqr.solve_ilqr_batched(specs, entry.BENCH_CONFIG, device=DEVICE)
+        result["r"] = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
 
     times = [t / 1e3 for t in event_times(solve, TIMED_SOLVES)]
     r = result["r"]
     med = float(np.median(times))
     log(f"  B={B}: solve times {[round(t, 6) for t in times]} s, median {med:.6f} s, "
-        f"{B / med:.1f} solves/s, iterations {int(r.iterations[0])}")
+        f"{B / med:.1f} {label}/s, iterations {int(r.iterations[0])}")
     # Host time of the solver's per-call cost-structure probe (tiny
     # torch.func evaluations and device-to-host copies), one part of the
     # solve time spent outside the kernels.
@@ -265,7 +731,7 @@ def time_solves(ilqr, entry, B):
                         initial_controls=specs.initial_controls[0])
     t0 = time.perf_counter()
     for _ in range(TIMED_SOLVES):
-        ilqr.resolve_cost_structure(one, entry.BENCH_CONFIG)
+        ilqr.resolve_cost_structure(one, config)
     torch.cuda.synchronize()
     log(f"  B={B}: cost-structure probe {(time.perf_counter() - t0) / TIMED_SOLVES * 1e3:.3f} ms "
         f"host time per solve")
@@ -388,7 +854,8 @@ def main() -> None:
     errs = check_kernels(spec)
     check_end_to_end(ilqr, entry)
 
-    stats = {"K1": k1.STATS, "K2": k2.STATS, "K3": k3.STATS}
+    stats = {"K1": k1.STATS, "K2": k2.STATS, "K3": k3.STATS, "K4": k1.BACKWARD_STATS,
+             "K5": k1.BOXQP_STATS}
     launches, got, it = solve_and_check(ilqr, entry, stats)
     rates = {B: time_solves(ilqr, entry, B) for B in (MAIN_BATCH, BENCH_BATCH)}
     timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
@@ -402,8 +869,49 @@ def main() -> None:
         log(f"  B={B}: kernel time per solve {in_kernels:.3f} ms (launch counts x ms per "
             f"launch) of {solve_ms:.3f} ms median solve, {100 * in_kernels / solve_ms:.1f}%")
 
+    # Phases 8-12: the other fused-loop branches and the circular sweep.
+    circ_spec = entry.circular_sweep_specs(1, 1, device=DEVICE)
+    for key, (a, r) in check_backward_kernels(spec, circ_spec).items():
+        a0, r0 = errs.get(key, (0.0, 0.0))
+        errs[key] = (max(a0, a), max(r0, r))
+    check_boxqp_end_to_end(ilqr, entry)
+    branches = run_branches(ilqr, entry, stats)
+    sweep = circular_sweep(ilqr, entry, stats)
+    log(f"[12] new kernel modes per launch, T={T}")
+    new_timing = {B: time_new_kernels(spec, B, with_plain=(B == MAIN_BATCH))
+                  for B in (MAIN_BATCH, BENCH_BATCH)}
+    # Kernel time per solve of each branch at MAIN_BATCH from the per-launch
+    # times of phases 5c and 12: the rollout, the Hessian hoist, and per
+    # iteration the branch's kernels and K2 select.
+    kms, nkms = timing[MAIN_BATCH][0], new_timing[MAIN_BATCH][0]
+    parts = {   # name: (hoist, one iteration's kernels besides K2 select)
+        "stationary_fusedlin=False": (kms["K3"], nkms["K3_full"] + nkms["K4_hess_tconst"]),
+        "quadratic_cost=True, stationary_cost=False": (
+            nkms["K3_full_hess"], nkms["K3_full"] + nkms["K4_per_stage"]),
+        "quadratic_cost=False": (0.0, nkms["K3_full_hess"] + nkms["K4_per_stage"]),
+        "bound_mode=boxqp": (kms["K3"], nkms["K1_boxqp"]),
+    }
+    for name, v in branches.items():
+        hoist, per_iteration = parts[name]
+        in_kernels = kms["K2_rollout"] + hoist + v["iterations"] * (per_iteration + kms["K2"])
+        solve_ms = MAIN_BATCH / v["solves_per_s"] * 1e3
+        log(f"  {name}, B={MAIN_BATCH}: kernel time per solve {in_kernels:.3f} ms (launch counts "
+            f"x ms per launch) of {solve_ms:.3f} ms median solve, {100 * in_kernels / solve_ms:.1f}%")
+    log(f"  card {card}: " + "; ".join(f"{n} {v['solves_per_s']:.1f} solves/s"
+                                        for n, v in branches.items())
+        + "; " + "; ".join(f"sweep {v['agents']}x{v['scenarios']} {v['agent_solves_per_s']:.1f} "
+                           f"agent-solves/s" for v in sweep.values()))
+
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
+    nms, nplain, nbound = new_timing[MAIN_BATCH]
+    nms_big = new_timing[BENCH_BATCH][0]
+    paths = {"main path": launches, **{n: v["launches"] for n, v in branches.items()},
+             **{f"circular sweep {v['agents']}x{v['scenarios']}": v["launches"]
+                for v in sweep.values()}}
+    by_path = lambda key: {n: c[key] for n, c in paths.items()}
+    general = branches["quadratic_cost=False"]["launches"]
+    boxqp = branches["bound_mode=boxqp"]["launches"]
     meta = {
         "K1": ("K1 riccati_fusedlin", "multi_agent_solver_tpu_torch/csrc/riccati.cu",
                "multi_agent_solver_tpu/ops/riccati_pallas.py:526"),
@@ -419,12 +927,56 @@ def main() -> None:
             "launches": launches[key], "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
             "ms": ms[key], "plain_ms": plain[key], "bound_ms": bound[key][0],
             "bound_by": bound[key][1], "library_ms": None,
-            "batch": MAIN_BATCH, "ms_at_524288": ms_big[key],
+            "batch": MAIN_BATCH, "ms_at_524288": ms_big[key], "launches_by_path": by_path(key),
         }
+        if key == "K1":
+            entry_.update(ms_boxqp=nms["K1_boxqp"], plain_ms_boxqp=nplain["K1_boxqp"],
+                          bound_ms_boxqp=nbound["K1_boxqp"][0],
+                          ms_boxqp_at_524288=nms_big["K1_boxqp"])
         if key == "K2":
             entry_["ms_rollout_mode"] = ms["K2_rollout"]
             entry_["ms_rollout_mode_at_524288"] = ms_big["K2_rollout"]
+            entry_.update(ms_select_A10=nms["K2_A10"], plain_ms_select_A10=nplain["K2_A10"],
+                          bound_ms_select_A10=nbound["K2_A10"][0],
+                          ms_select_A10_at_524288=nms_big["K2_A10"])
+        if key == "K3":
+            for mode in ("K3_full_hess", "K3_full"):
+                tag = "full_T_hessians" if mode == "K3_full_hess" else "full_T"
+                entry_.update({f"ms_{tag}": nms[mode], f"plain_ms_{tag}": nplain[mode],
+                               f"bound_ms_{tag}": nbound[mode][0], f"bound_by_{tag}": nbound[mode][1],
+                               f"ms_{tag}_at_524288": nms_big[mode]})
         kernels.append(entry_)
+    k4 = {
+        "name": "K4 riccati_backward", "route": "cuda",
+        "source": "multi_agent_solver_tpu_torch/csrc/riccati.cu",
+        "replaces": "multi_agent_solver_tpu/ops/riccati_pallas.py:302",
+        "launches": general["K4"], "max_abs_err": errs["K4"][0], "max_rel_err": errs["K4"][1],
+        "ms": nms["K4_per_stage"], "plain_ms": nplain["K4_per_stage"],
+        "bound_ms": nbound["K4_per_stage"][0], "bound_by": nbound["K4_per_stage"][1],
+        "library_ms": None, "batch": MAIN_BATCH, "ms_at_524288": nms_big["K4_per_stage"],
+        "launches_by_path": by_path("K4"),
+    }
+    for mode in ("hess_tconst", "per_stage_boxqp", "hess_tconst_boxqp"):
+        k4.update({f"ms_{mode}": nms[f"K4_{mode}"], f"bound_ms_{mode}": nbound[f"K4_{mode}"][0],
+                   f"bound_by_{mode}": nbound[f"K4_{mode}"][1],
+                   f"ms_{mode}_at_524288": nms_big[f"K4_{mode}"]})
+        if f"K4_{mode}" in nplain:
+            k4[f"plain_ms_{mode}"] = nplain[f"K4_{mode}"]
+    k5 = {
+        "name": "K5 boxqp_gains (device function inside K1 and K4)", "route": "cuda",
+        "source": "multi_agent_solver_tpu_torch/csrc/riccati.cu",
+        "replaces": "multi_agent_solver_tpu/ops/riccati_pallas.py:84",
+        "launches": boxqp["K5"], "max_abs_err": errs["K5"][0], "max_rel_err": errs["K5"][1],
+        # K5 has no launch of its own: its times are those of the K1 launch
+        # that runs it on the boxqp path.
+        "ms": nms["K1_boxqp"], "plain_ms": nplain["K1_boxqp"],
+        "bound_ms": nbound["K1_boxqp"][0], "bound_by": nbound["K1_boxqp"][1],
+        "library_ms": None, "batch": MAIN_BATCH, "ms_of": "K1 with boxqp",
+        "ms_over_K1_clamp": nms["K1_boxqp"] - ms["K1"],
+        "ms_at_524288": nms_big["K1_boxqp"], "ms_in_K4_per_stage": nms["K4_per_stage_boxqp"],
+        "launches_by_path": by_path("K5"),
+    }
+    kernels += [k4, k5]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@
 //                          sees the same arithmetic a single jvp would),
 //   Dual<Dual<float, N>, M> -> second derivatives (jvp over jvp).
 // The tangent rules are JAX's: d(x y) = dx y + x dy, d sin = dx cos,
-// d cos = -(dx sin), d tan = dx (1 + tan^2), d(x / c) = dx / c.
-// Transcendentals are the accurate sinf/cosf/tanf (no fast-math).
+// d cos = -(dx sin), d tan = dx (1 + tan^2), d(x / c) = dx / c,
+// d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x).
+// Transcendentals are the accurate sinf/cosf/tanf and the IEEE sqrtf
+// (no fast-math).
 #pragma once
 
 template <typename S, int N>
@@ -28,6 +30,7 @@ struct Dual {
 __device__ __forceinline__ float dsin(float x) { return sinf(x); }
 __device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ float dtan(float x) { return tanf(x); }
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 
 template <typename S, int N>
 __device__ __forceinline__ Dual<S, N> operator+(const Dual<S, N>& a, const Dual<S, N>& b) {
@@ -119,6 +122,17 @@ __device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, float c) {
   return r;
 }
 
+// c / a for a constant c.
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> operator/(float c, const Dual<S, N>& a) {
+  Dual<S, N> r;
+  r.v = c / a.v;
+  const S inv_sq = 1.0f / (a.v * a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = (-a.d[k] * c) * inv_sq;
+  return r;
+}
+
 template <typename S, int N>
 __device__ __forceinline__ Dual<S, N> dsin(const Dual<S, N>& a) {
   Dual<S, N> r;
@@ -146,6 +160,16 @@ __device__ __forceinline__ Dual<S, N> dtan(const Dual<S, N>& a) {
   const S sec2 = 1.0f + r.v * r.v;
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * sec2;
+  return r;
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> dsqrt(const Dual<S, N>& a) {
+  Dual<S, N> r;
+  r.v = dsqrt(a.v);
+  const S half_inv = 0.5f / r.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * half_inv;
   return r;
 }
 

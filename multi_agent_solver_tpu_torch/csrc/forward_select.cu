@@ -240,14 +240,22 @@ int launch_forward_select(int init, const float* x0, float* xs, float* us, float
 
 }  // namespace mas
 
-extern "C" int mas_forward_select__single_track__diag_quadratic__zero(
-    int init, const float* x0, float* xs, float* us, float* xT, const float* k,
-    const float* K, const float* merit, const bool* active, const float* lb,
-    const float* ub, float* cost_out, bool* accept_out, int T, int B,
-    const float* dyn_p, const float* cost_p, const float* term_p, const float* step_p,
-    const float* alphas, int n_alphas, void* stream) {
-  using namespace mas;
-  return launch_forward_select<SingleTrack, DiagQuadratic<4, 2>, ZeroTerminal>(
-      init, x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, T, B,
-      dyn_p, cost_p, term_p, step_p, alphas, n_alphas, static_cast<cudaStream_t>(stream));
-}
+// One C entry point per (dynamics, stage cost, terminal cost) the kernels
+// can evaluate.
+#define MAS_FORWARD_SELECT(NAME, DYN, COST, TERM)                                          \
+  extern "C" int mas_forward_select__##NAME(                                               \
+      int init, const float* x0, float* xs, float* us, float* xT, const float* k,          \
+      const float* K, const float* merit, const bool* active, const float* lb,             \
+      const float* ub, float* cost_out, bool* accept_out, int T, int B, const float* dyn_p, \
+      const float* cost_p, const float* term_p, const float* step_p, const float* alphas,  \
+      int n_alphas, void* stream) {                                                        \
+    return mas::launch_forward_select<DYN, COST, TERM>(                                    \
+        init, x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, T, B,     \
+        dyn_p, cost_p, term_p, step_p, alphas, n_alphas, static_cast<cudaStream_t>(stream)); \
+  }
+
+using LaneFollowCost = mas::DiagQuadratic<4, 2>;
+MAS_FORWARD_SELECT(single_track__diag_quadratic__zero, mas::SingleTrack, LaneFollowCost,
+                   mas::ZeroTerminal)
+MAS_FORWARD_SELECT(single_track__circular_track__zero, mas::SingleTrack, mas::CircularTrack,
+                   mas::ZeroTerminal)

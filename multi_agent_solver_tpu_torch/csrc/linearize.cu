@@ -18,8 +18,12 @@
 // becomes a flat thread index t * B + b, so a warp reads and writes 32
 // neighbouring problems of one stage, coalesced.  One Dual<float, NX+NU>
 // pass gives A, B, lx, lu; one Dual<Dual<float, NX+NU>, NX+NU> pass of the
-// stage cost gives every Hessian entry.  The main path calls it once, on
-// one stage, to hoist the time-constant Hessians of a stationary cost.
+// stage cost gives every Hessian entry.  The fused loop calls it once, on
+// one stage, to hoist the time-constant Hessians of a stationary cost;
+// on its other branches over the whole horizon, with Hessians (the
+// quadratic hoist, and every iteration of the general branch) or without
+// (every iteration of the quadratic and separate-kernel stationary
+// branches).
 #include <cuda_runtime.h>
 
 #include "problems.cuh"
@@ -114,12 +118,17 @@ int launch_linearize(const float* xs, const float* us, float* A, float* Bm, floa
 
 }  // namespace mas
 
-extern "C" int mas_linearize__single_track__diag_quadratic(
-    const float* xs, const float* us, float* A, float* Bm, float* lx, float* lu,
-    float* lxx, float* luu, float* lux, int T, int B, int hessians,
-    const float* dyn_p, const float* cost_p, const float* step_p, void* stream) {
-  using namespace mas;
-  return launch_linearize<SingleTrack, DiagQuadratic<4, 2>>(
-      xs, us, A, Bm, lx, lu, lxx, luu, lux, T, B, hessians, dyn_p, cost_p, step_p,
-      static_cast<cudaStream_t>(stream));
-}
+// One C entry point per (dynamics, stage cost) the kernels can evaluate.
+#define MAS_LINEARIZE(NAME, DYN, COST)                                                    \
+  extern "C" int mas_linearize__##NAME(                                                   \
+      const float* xs, const float* us, float* A, float* Bm, float* lx, float* lu,        \
+      float* lxx, float* luu, float* lux, int T, int B, int hessians, const float* dyn_p, \
+      const float* cost_p, const float* step_p, void* stream) {                           \
+    return mas::launch_linearize<DYN, COST>(xs, us, A, Bm, lx, lu, lxx, luu, lux, T, B,   \
+                                            hessians, dyn_p, cost_p, step_p,              \
+                                            static_cast<cudaStream_t>(stream));           \
+  }
+
+using LaneFollowCost = mas::DiagQuadratic<4, 2>;
+MAS_LINEARIZE(single_track__diag_quadratic, mas::SingleTrack, LaneFollowCost)
+MAS_LINEARIZE(single_track__circular_track, mas::SingleTrack, mas::CircularTrack)

@@ -69,6 +69,27 @@ struct DiagQuadratic {
   }
 };
 
+// Circular-track cost (examples/multi_agent_single_track.py _stage_cost),
+// terms summed in the order the torch callable sums them:
+//   w_track (sqrt(X^2 + Y^2) - radius)^2 + w_speed (v - v_ref)^2
+//     + w_delta delta^2 + w_acc a^2.
+// Parameters: radius, v_ref, w_track, w_speed, w_delta, w_acc.
+struct CircularTrack {
+  float radius, v_ref, w_track, w_speed, w_delta, w_acc;
+
+  static CircularTrack from(const float* p) {
+    return CircularTrack{p[0], p[1], p[2], p[3], p[4], p[5]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x, const S* u) const {
+    const S d = dsqrt(x[0] * x[0] + x[1] * x[1]) - radius;
+    const S e = x[3] - v_ref;
+    return ((w_track * (d * d) + w_speed * (e * e)) + w_delta * (u[0] * u[0])) +
+           w_acc * (u[1] * u[1]);
+  }
+};
+
 // Zero terminal cost (ocp.zero_terminal_cost).
 struct ZeroTerminal {
   static ZeroTerminal from(const float*) { return ZeroTerminal{}; }

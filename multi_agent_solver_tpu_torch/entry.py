@@ -1,7 +1,12 @@
-"""The main-path problem: the batched single-track lane-follow iLQR solve.
+"""The problems the port runs end to end.
 
-Counterpart of ``__graft_entry__._single_track_spec`` and of ``bench.py``'s
-x0 batch and solver config.  ``chip_smoke.py`` and the tests use it.
+* The main path, the batched single-track lane-follow iLQR solve:
+  counterpart of ``__graft_entry__._single_track_spec`` and of
+  ``bench.py``'s x0 batch and solver config.
+* The circular-track agent sweep of ``scripts/bench_multi_agent.py``:
+  agents spread on the circle, tiled over scenarios, solved as batch lanes.
+
+``chip_smoke.py`` and the tests use both.
 """
 
 from __future__ import annotations
@@ -9,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .examples.multi_agent_single_track import create_single_track_circular_ocp
 from .ocp import OCP, OCPSpec, diagonal_quadratic_cost
 from .models import (
     single_track_control_jacobian,
@@ -26,6 +32,9 @@ LANE_FOLLOW_COST = diagonal_quadratic_cost(
 
 # bench.py's solver configuration (the 3-rung forward-pass ladder).
 BENCH_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-5, alpha_ladder=(1.0, 0.5, 0.125))
+# scripts/bench_multi_agent.py's solver configuration (the reference
+# 10-rung forward-pass ladder).
+SWEEP_CONFIG = ILQRConfig(max_iterations=100, tolerance=1e-5)
 
 
 def single_track_spec(horizon: int = 80, dtype=torch.float32, device="cuda") -> OCPSpec:
@@ -77,3 +86,19 @@ def batch_specs(spec: OCPSpec, x0) -> OCPSpec:
 def bench_specs(batch: int, device="cuda", horizon: int = 80) -> OCPSpec:
     """The main-path batch: ``batch`` problems with ``bench_x0`` states."""
     return batch_specs(single_track_spec(horizon, device=device), bench_x0(batch))
+
+
+def circular_sweep_x0(n_agents: int, n_scenarios: int) -> np.ndarray:
+    """``scripts/bench_multi_agent.py``'s initial states ``[S * N, 4]``:
+    agent i at angle 2 pi i / N on the circle, tangential, v = 4, the
+    agents tiled over the scenarios."""
+    thetas = 2.0 * np.pi * np.arange(n_agents) / n_agents
+    x0 = np.stack([20.0 * np.cos(thetas), 20.0 * np.sin(thetas), 1.57 + thetas,
+                   4.0 * np.ones_like(thetas)], axis=-1).astype(np.float32)
+    return np.tile(x0, (n_scenarios, 1))
+
+
+def circular_sweep_specs(n_agents: int, n_scenarios: int, device="cuda") -> OCPSpec:
+    """The sweep's batch: ``n_agents * n_scenarios`` circular-track problems."""
+    template = create_single_track_circular_ocp(0.0, device=device).spec()
+    return batch_specs(template, circular_sweep_x0(n_agents, n_scenarios))

@@ -46,6 +46,7 @@ DYNAMICS_DIMS = {"single_track": (4, 2)}
 PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
     "diag_quadratic": lambda nx, nu: 2 * (nx + nu),
+    "circular_track": lambda nx, nu: 6,
     "zero": lambda nx, nu: 0,
 }
 

@@ -1,13 +1,24 @@
-"""Batched iLQR: the lane-resident fused loop, stationary clamp branch.
+"""Batched iLQR: the lane-resident fused loop.
 
 PyTorch counterpart of ``multi_agent_solver_tpu/solvers/ilqr.py``
-(``ILQRConfig``, the cost-structure probe and the stationary-cost branch of
-``_solve_ilqr_batched_fused``).  Per solve it launches
+(``ILQRConfig``, the cost-structure probe and the unconstrained,
+context-free branches of ``_solve_ilqr_batched_fused``).  Per solve it
+launches K2 (``ops/forward_select.rollout_cost``) once for the initial
+rollout and cost, then by the cost structure that
+:func:`resolve_cost_structure` finds:
 
-* K2 (``ops/forward_select.rollout_cost``) once: the initial rollout and cost;
-* K3 (``ops/linearize.linearize``) once, on one stage, to hoist the
-  time-constant cost Hessians;
-* per iteration K1 (``ops/riccati.riccati_fusedlin``), then K2 in select mode.
+* stationary quadratic (the main path): K3 (``ops/linearize.linearize``)
+  once on one stage to hoist the time-constant Hessians; per iteration K1
+  (``ops/riccati.riccati_fusedlin``) -- or, with
+  ``stationary_fusedlin=False``, K3 without Hessians and K4
+  (``ops/riccati.riccati_backward``) on one-stage Hessian blocks;
+* quadratic, time-varying: K3 once over the horizon to hoist the per-stage
+  Hessians; per iteration K3 without Hessians and K4;
+* general: per iteration K3 with Hessians and K4;
+
+and per iteration K2 in select mode.  ``bound_mode="boxqp"`` runs the
+box-QP stage solve (K5) inside K1 or K4 on the delta bounds around the
+current controls.
 
 State is carried batch-innermost (``[T, dim, B]``, ``[dim, B]``), the
 counterpart of the TPU lane layout; it is converted once on entry and once
@@ -39,9 +50,9 @@ class ILQRConfig:
     ``lane_fold`` and ``time_unroll`` are TPU-layout knobs (sublane folding
     of batch tiles; time steps per sequential grid step) with no effect on
     CUDA, where every kernel runs one problem per thread and the time loop
-    inside it.  Only the fields of the stationary clamp branch change what
-    this port computes; the others select branches that raise
-    ``NotImplementedError`` here (see :func:`solve_ilqr_batched`).
+    inside it.  The AL, context, ddp, differentiable and non-fused fields
+    select branches that raise ``NotImplementedError`` here (see
+    :func:`solve_ilqr_batched`).
     """
 
     max_iterations: int = 50
@@ -196,20 +207,22 @@ def resolve_cost_structure(spec: OCPSpec, config: ILQRConfig) -> "tuple[bool, bo
 
 @dataclasses.dataclass(frozen=True)
 class FusedOps:
-    """The four operations of the fused loop."""
+    """The five operations of the fused loop."""
 
     rollout: Callable
     linearize: Callable
-    riccati: Callable
+    riccati: Callable            # K1, in-kernel linearization
+    riccati_backward: Callable   # K4, precomputed stacks
     select: Callable
 
 
 # The wrappers: CUDA kernels on CUDA tensors, plain versions on CPU tensors.
-KERNEL_OPS = FusedOps(_k2.rollout_cost, _k3.linearize, _k1.riccati_fusedlin, _k2.forward_select)
+KERNEL_OPS = FusedOps(_k2.rollout_cost, _k3.linearize, _k1.riccati_fusedlin,
+                      _k1.riccati_backward, _k2.forward_select)
 # The plain PyTorch versions on any device: the reference the kernels are
 # held against on the card (chip_smoke.py).
-PLAIN_OPS = FusedOps(_k2.rollout_cost_plain, _k3.linearize_plain,
-                     _k1.riccati_fusedlin_plain, _k2.forward_select_plain)
+PLAIN_OPS = FusedOps(_k2.rollout_cost_plain, _k3.linearize_plain, _k1.riccati_fusedlin_plain,
+                     _k1.riccati_backward_plain, _k2.forward_select_plain)
 
 
 def _not_ported(what: str, item: str):
@@ -233,16 +246,12 @@ def _check_route(specs: OCPSpec, config: ILQRConfig, backward: str, fused) -> No
         raise _not_ported("AL constraints", "queue 1, AL and context")
     if specs.context is not None:
         raise _not_ported("per-stage context costs", "queue 1, AL and context")
-    if config.bound_mode == "boxqp" and specs.has_input_bounds:
-        raise _not_ported("bound_mode='boxqp'", "queue 1, boxqp")
     if not specs.objective_is_default:
         raise _not_ported("a user objective_function", "queue 1, non-fused pure-torch iLQR")
     if specs.derivative_mode != "ad":
         raise _not_ported("derivative_mode='fd'", "queue 1, model zoo and derivative oracles")
     if config.jacobian_mode != "discrete":
         raise _not_ported("jacobian_mode='continuous'", "queue 1, non-fused pure-torch iLQR")
-    if not config.stationary_fusedlin:
-        raise _not_ported("stationary_fusedlin=False (the K3 + K4 route)", "queue 2, K4")
 
 
 def _unbatch(specs: OCPSpec) -> OCPSpec:
@@ -252,7 +261,7 @@ def _unbatch(specs: OCPSpec) -> OCPSpec:
 
 
 def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps = KERNEL_OPS) -> SolveResult:
-    """The fused loop, stationary clamp branch, on the device of ``specs``.
+    """The fused loop on the device of ``specs``.
 
     Spec leaves carry a leading batch axis (``initial_state [B, nx]``,
     ``initial_controls [B, T, nu]``, bounds ``[nu]`` or ``[B, nu]``).
@@ -278,6 +287,7 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     if specs.has_input_bounds:
         lb = pack(specs.input_lower_bounds.expand(B, nu), (1, 0))
         ub = pack(specs.input_upper_bounds.expand(B, nu), (1, 0))
+    use_boxqp = config.bound_mode == "boxqp" and specs.has_input_bounds
 
     ladder_full = _alpha_ladder_floats(config.alpha_min)
     ladder_short = tuple(float(a) for a in config.alpha_ladder) if config.alpha_ladder else ladder_full
@@ -287,12 +297,16 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     xs = torch.cat([x0[None], xs_tail[:-1]], 0)                          # x_0..x_{T-1}
     xT = xs_tail[-1].clone()
 
-    _, stationary = resolve_cost_structure(_unbatch(specs), config)
-    if not stationary:
-        raise _not_ported("a non-stationary or non-quadratic cost",
-                          "queue 2, K4 (riccati_backward_pallas_tiled)")
-    lin = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True)
-    lxx, luu, lux = (h[0] for h in lin[4:])                             # time-constant blocks
+    # Quadratic-cost hoisting: the Hessian stacks do not depend on the
+    # trajectory, so they are computed once -- one block per problem for a
+    # stationary cost, one per stage otherwise.
+    quad, stationary = resolve_cost_structure(_unbatch(specs), config)
+    fusedlin = stationary and config.stationary_fusedlin
+    hess = None
+    if stationary:
+        hess = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True)[4:]
+    elif quad:
+        hess = ops.linearize(specs, xs, us, True)[4:]
     levels = _k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
 
     converged = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -304,7 +318,15 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
             break
         active = ~converged
         merit = cost
-        k, K = ops.riccati(specs, xs, us, lxx, luu, lux, xT, levels)
+        # Delta bounds: the box around the current controls.
+        blb, bub = (lb[None] - us, ub[None] - us) if use_boxqp else (None, None)
+        if fusedlin:
+            k, K = ops.riccati(specs, xs, us, *(h[0] for h in hess), xT, levels, blb, bub)
+        else:
+            lin = ops.linearize(specs, xs, us, hess is None)
+            if hess is not None:
+                lin = lin + tuple(hess)
+            k, K = ops.riccati_backward(specs, *lin, xT, levels, blb, bub)
         ladder = ladder_full if use_schedule and it < config.alpha_warmup else ladder_short
         cost, _ = ops.select(specs, xs, us, xT, k, K, merit, active, lb, ub, ladder)
         converged = converged | (active & (merit - cost < config.tolerance))
@@ -333,9 +355,10 @@ def solve_ilqr_batched(
 
     Runs on ``device`` (default ``"cuda"``; raises when CUDA is absent):
     the spec's tensors are moved there, and the fused loop runs its CUDA
-    kernels on the card, or the plain PyTorch versions on ``"cpu"``.  Only
-    the JAX router's fused stationary clamp branch is ported; every other
-    branch raises ``NotImplementedError``.
+    kernels on the card, or the plain PyTorch versions on ``"cpu"``.  The
+    JAX router's fused branches for unconstrained, context-free problems
+    in AD mode are ported (clamp and boxqp); every other branch raises
+    ``NotImplementedError``.
     """
     dev = resolve_device(device)
     _check_route(specs, config, backward, fused)

@@ -191,3 +191,14 @@ def test_carry_round_trip():
                            alpha_warmup=2, early_exit=False)
     with pytest.raises(TypeError):
         config_from_dict({"not_a_field": 1})
+
+
+def test_carry_config_of_the_k4_branches():
+    """A JAX config that selects the boxqp and non-stationary fused branches
+    crosses over with those fields intact."""
+    jcfg = JConfig(max_iterations=7, tolerance=1e-4, bound_mode="boxqp", quadratic_cost=True,
+                   stationary_cost=False, stationary_fusedlin=False)
+    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert (tcfg.bound_mode, tcfg.quadratic_cost, tcfg.stationary_cost,
+            tcfg.stationary_fusedlin) == ("boxqp", True, False, False)

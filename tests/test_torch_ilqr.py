@@ -119,25 +119,54 @@ def _time_varying_specs():
         single_track_model, cost, zero_terminal_cost))
 
 
+def test_time_varying_cost_hoists_per_stage_hessians():
+    """A quadratic cost with time-varying weights probes as quadratic, not
+    stationary: K3 hoists per-stage Hessians once, then K3 without
+    Hessians and K4 run every iteration.  The Hessians of a quadratic cost
+    do not depend on the trajectory, so the result is bit-identical to the
+    general branch, which evaluates them every iteration (as JAX's
+    tests/test_fused_loop.py asserts for its own two branches)."""
+    specs = _time_varying_specs()
+    stats = (k1.STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS)
+    for s in stats:
+        s.reset()
+    hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, device="cpu")
+    it = int(hoisted.iterations[0])
+    assert [s.plain_calls for s in stats] == [0, it, 1 + it, 1 + it]
+    general = solve_ilqr_batched(
+        specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), device="cpu")
+    assert torch.isfinite(hoisted.cost).all()
+    assert torch.equal(hoisted.cost, general.cost)
+    assert torch.equal(hoisted.controls, general.controls)
+
+
+def _context_specs():
+    specs = entry.bench_specs(2, device="cpu", horizon=10)
+    return specs.replace(context=torch.zeros(2, 10, 3))
+
+
 @pytest.mark.parametrize("case", [
-    "al_constrained", "non_stationary_cost", "ddp", "differentiable", "not_fused",
-    "boxqp", "continuous_jacobians", "scan_backward",
+    "al_constrained", "context_cost", "ddp", "differentiable", "not_fused",
+    "fd_derivatives", "continuous_jacobians", "scan_backward", "user_objective",
 ])
 def test_unported_branches_raise(case):
     specs = entry.bench_specs(2, device="cpu", horizon=10)
     config, kwargs = entry.BENCH_CONFIG, {}
     if case == "al_constrained":
         specs = _constrained_specs()
-    elif case == "non_stationary_cost":
-        specs = _time_varying_specs()
+    elif case == "context_cost":
+        specs = _context_specs()
+    elif case == "fd_derivatives":
+        specs = specs.replace(derivative_mode="fd")
+    elif case == "user_objective":
+        specs = specs.replace(objective_is_default=False,
+                              objective_function=lambda xs, us: (xs ** 2).sum((-2, -1)))
     elif case == "ddp":
         config = dataclasses.replace(config, ddp=True)
     elif case == "differentiable":
         config = dataclasses.replace(config, differentiable=True)
     elif case == "not_fused":
         kwargs = {"fused": False}
-    elif case == "boxqp":
-        config = dataclasses.replace(config, bound_mode="boxqp")
     elif case == "continuous_jacobians":
         config = dataclasses.replace(config, jacobian_mode="continuous")
     elif case == "scan_backward":

@@ -168,6 +168,14 @@ def test_problem_symbol_names_the_instantiation(specs):
         "riccati_fusedlin", NX, NU, tspec.dynamics, tspec.stage_cost, tspec.terminal_cost)
     assert symbol == "mas_riccati_fusedlin__single_track__diag_quadratic__zero"
     assert params == [(2.5,), (0.0, 10.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.1, 0.1, 0.0, 0.0), ()]
+    symbol, params = _build.problem_symbol(
+        "riccati_backward", NX, NU, tspec.dynamics, tspec.terminal_cost)
+    assert symbol == "mas_riccati_backward__single_track__zero" and params == [(2.5,), ()]
+    circ = entry.circular_sweep_specs(1, 1, device="cpu")
+    symbol, params = _build.problem_symbol(
+        "linearize", NX, NU, circ.dynamics, circ.stage_cost)
+    assert symbol == "mas_linearize__single_track__circular_track"
+    assert params == [(2.5,), (20.0, 5.0, 1.0, 1.0, 0.001, 0.001)]
     with pytest.raises(NotImplementedError, match="device-function tag"):
         _build.problem_symbol("linearize", NX, NU, tspec.dynamics, lambda x, u, t: x[..., 0])
     with pytest.raises(ValueError, match="nx, nu"):
