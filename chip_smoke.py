@@ -10,8 +10,9 @@ holds each kernel against its plain PyTorch version on the card, drives
 the main path -- the batched single-track lane-follow iLQR solve of
 ``bench.py`` -- through ``solve_ilqr_batched`` at full width, checks the
 solve's cost distribution and the kernels' launch counts, and times it;
-then does the same for the fused loop's other branches (K4, K5) and the
-circular-track agent sweep of ``scripts/bench_multi_agent.py``.
+then does the same for the fused loop's other branches (K4, K5), the
+circular-track agent sweep of ``scripts/bench_multi_agent.py`` and its
+coupled Nash game (``bench_coupled``: the context modes of K3 and K2, K6).
 
 Phases, each reported on its own lines:
 
@@ -25,7 +26,7 @@ Phases, each reported on its own lines:
    anchors of docs/BENCHMARKS.md, launch counts K3 = 1, K2 = 1 + iterations,
    K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
    kernels' times per launch;
-and, run after phase 5 and before 6 and 7:
+and, run after phase 5 and before 6 and 7, in this order:
 
 8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
    boxqp and the circular-track instantiations of K2 / K3 / K4 against
@@ -44,7 +45,17 @@ and, run after phase 5 and before 6 and 7:
 12. the new kernels' times per launch and bounds at 262,144 and 524,288
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
    with and without Hessians; K2 at 10 candidates; K1 with boxqp);
-6. one JSON line listing every ported kernel (K1-K5), printed after them;
+13. K3 and K2 in context mode (K6) against their plain versions at
+   B = 8192, T = 10, with K = 8 and 63 neighbours;
+14. the coupled game through ``entry.coupled_game``: a 12-car ring on its
+   JAX anchor agent by agent and against the plain versions; 64 cars (all
+   pairs) and 256 (8 nearest) on their JAX anchors within the spread of
+   games whose x0 moved by one ulp, with launch counts per solve; 64 cars
+   over 2 sweeps through the kernels against the plain versions;
+15. agent-solves/s and wall ms of the game at 64, 256 and 1,024 cars
+   (median of 5 calls), the kernels' ms per launch and bounds at each
+   row's shapes, and their share of the wall;
+6. one JSON line listing every ported kernel (K1-K6), printed after them;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
@@ -101,6 +112,45 @@ OPS_COST, OPS_CONTROL, OPS_K3 = 24, 28, 3300
 # KKT tests, selects) and the clipped Newton fallback.  It replaces the
 # stage core's own 2x2 solve and negations (51 of OPS_STAGE_CORE).
 OPS_BOXQP, OPS_CLAMP_SOLVE = 382, 51
+# The coupled game (phases 13-15), scripts/bench_multi_agent.py's
+# bench_coupled: context checks at B = CHECK_BATCH with K = 8 (the k-NN
+# rows, rings of 256 cars) and 63 (64 cars, all pairs) neighbours.
+COUPLED_CHECK_K = ((8, 256), (63, 64))       # (K, cars on a ring)
+# A well-conditioned ring (12 cars, 3 nearest, 10 sweeps): its per-agent
+# cost is the JAX package's (coupled_anchors.py: the JAX strategy with
+# "fused": 1, float32, on the CPU; every agent 1.8795033693313599, total
+# 22.55404043197632), held agent by agent.
+SMALL_GAME, SMALL_GAME_ANCHOR, SMALL_GAME_RTOL = (12, 3), 1.8795033693313599, 1e-5
+# bench_coupled's rows at 10 sweeps, from coupled_anchors.py as above.
+# These games are knife-edge: the collision cost's indefinite Hessians
+# make the Riccati pass's regularization choice and the accepted steps
+# flip with a last-ulp change, so single agents' costs part wherever the
+# arithmetic differs in the last ulp, and the total is held to the spread
+# the run measures: the anchor within KNIFE_EDGE_Z standard deviations of
+# the mean of the nominal game and KNIFE_EDGE_MOVES games whose x0 moved
+# by one ulp.
+GAME_ANCHORS = {
+    (64, None): {"total": 17490.782302856445, "mean": 273.29347348213196,
+                 "min": 212.74929809570312, "max": 408.703857421875},
+    (256, 8): {"total": 292565.1379394531, "mean": 1142.8325700759888,
+               "min": 728.178955078125, "max": 1550.378173828125},
+}
+KNIFE_EDGE_MOVES = tuple((c, d) for c in (0, 1, 3) for d in (float("inf"), float("-inf")))
+KNIFE_EDGE_Z = 3.0
+# The context select is knife-edge as well: the collision cost's indefinite
+# Hessians give large feedback gains on these rings, and a one-ulp move of
+# x0 moves some plain-version problems beyond the select tolerances (phase
+# 13 counts them), so at least 99.5% of the problems are held to them, as
+# phase 9 holds boxqp, and the knife-edge is measured beside.
+SELECT_SHARE = 0.995
+GAME_TIMED = 5
+# Float32 operations of the coupled cost, counted from csrc/problems.cuh
+# with only the tangents that can be non-zero (the pair cost reads x0, x1:
+# 2 of 6 directions), a floor: the circular-track cost in floats, one pair
+# term in floats (2 sub, 3 mul, add, neg, div, exp, accumulate), in
+# first-order duals and in second-order duals; the pair cost reads 2 of
+# each neighbour's 4 state components.
+OPS_TRACK, OPS_PAIR, OPS_PAIR_DUAL, OPS_PAIR_HESS, PAIR_READS = 17, 10, 34, 146, 2
 
 
 def log(msg: str = "") -> None:
@@ -263,6 +313,18 @@ def active_sets(k, lb, ub):
     for i in range(k.shape[1]):
         code = code * 3 + (k[:, i] == lb[:, i]).long() + 2 * (k[:, i] == ub[:, i]).long()
     return code
+
+
+def select_apart(a, b):
+    """Per problem: select-mode outputs ``(xs, us, xT, merit, accept)`` of
+    ``a`` beyond phase 13's tolerances of ``b``'s (states and controls
+    atol 5e-4 + rtol 1e-4, merit rtol 1e-4, accept flags equal)."""
+    far = lambda x, y, rtol, atol: ((x - y).abs() > atol + rtol * y.abs())
+    out = a[4] != b[4]
+    for x, y in zip(a[:2], b[:2]):
+        out = out | far(x, y, 1e-4, 5e-4).any(0).any(0)
+    out = out | far(a[2], b[2], 1e-4, 5e-4).any(0)
+    return out | far(a[3], b[3], 1e-4, 0.0)
 
 
 def circular_inputs(spec, B, seed, horizon):
@@ -647,6 +709,359 @@ def time_new_kernels(spec, B, with_plain):
     return ms, plain, bound
 
 
+def coupled_spec():
+    """One car of the coupled game: the circular track plus the collision
+    coupling against a context (the stage cost of ``entry.coupled_game``)."""
+    from multi_agent_solver_tpu_torch import entry
+    from multi_agent_solver_tpu_torch.examples import multi_agent_single_track as circ
+    from multi_agent_solver_tpu_torch.ocp import with_context_cost
+    from multi_agent_solver_tpu_torch.strategies.nash import make_coupled_stage
+    spec = entry.circular_sweep_specs(1, 1, device=DEVICE)
+    return with_context_cost(spec, make_coupled_stage(spec.stage_cost,
+                                                      circ.make_collision_cost(entry.COUPLING)))
+
+
+def ring_context(xs_all, K, n):
+    """Context ``[T, K, nx, B]`` of B / n rings of n cars each: car b's
+    neighbours are the cars 1, -1, 2, -2, ... places along its ring, at the
+    states ``xs_all [T, nx, B]``."""
+    import torch
+    b = torch.arange(xs_all.shape[2], device=xs_all.device)
+    offsets = [(j // 2 + 1) * (1 if j % 2 == 0 else -1) for j in range(K)]
+    idx = torch.stack([(b // n) * n + (b % n + o) % n for o in offsets])      # [K, B]
+    return xs_all[:, :, idx].permute(0, 2, 1, 3).contiguous()                # [T, K, nx, B]
+
+
+def check_coupled_kernels(spec):
+    """Phase 13: K3 and K2 (K6) in context mode against their plain versions
+    at B = CHECK_BATCH, T = T_SWEEP, K = 8 and 63.  Tolerances: rtol 1e-5
+    with an absolute floor of 1e-5 of each output's scale on K2's rollout
+    and K3 (the pair costs are up to 63 float32 exp's summed); K2 select as
+    phase 8's circular select (states and controls atol 5e-4, merit rtol
+    1e-4) on SELECT_SHARE of the problems, with the one-ulp knife-edge of
+    the plain version measured beside it."""
+    import torch
+    from multi_agent_solver_tpu_torch import entry
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import SWEEP_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B = CHECK_BATCH
+    levels = k1.reg_ladder(SWEEP_CONFIG.reg_init, SWEEP_CONFIG.reg_factor, SWEEP_CONFIG.reg_levels)
+    ladder = _alpha_ladder_floats(SWEEP_CONFIG.alpha_min)
+    errs, ok = {}, True
+
+    def record(kernel, results):
+        nonlocal ok
+        for good, max_abs, max_rel in results:
+            ok = ok and good
+            a, r = errs.get(kernel, (0.0, 0.0))
+            errs[kernel] = (max(a, max_abs), max(r, max_rel))
+
+    def scaled(name, got, want, rtol=1e-5, floor=1e-5):
+        return compare(name, got, want, rtol, floor * float(want.abs().max()))
+
+    rng = np.random.RandomState(6)
+    us = torch.as_tensor(rng.uniform(-0.5, 0.5, (T_SWEEP, 2, B)), dtype=torch.float32,
+                         device=DEVICE).contiguous()
+    active = torch.as_tensor(rng.uniform(size=B) < 0.9, device=DEVICE)
+    lb = torch.full((2, B), -0.5, device=DEVICE)
+    ub = torch.full((2, B), 0.5, device=DEVICE)
+    log(f"[13] context-mode checks (K3, K2 = K6), B={B}, T={T_SWEEP}, K = {COUPLED_CHECK_K}")
+    for K, ring in COUPLED_CHECK_K:
+        # Rings of the game rows' geometry (64 cars with all 63 others, 256
+        # cars with the 8 nearest), rolled out under random controls.
+        x0 = torch.as_tensor(entry.circular_sweep_x0(ring, B // ring).T.copy(), device=DEVICE)
+        xs_free, _ = k2.rollout_cost_plain(entry.circular_sweep_specs(1, 1, device=DEVICE), x0, us)
+        ctx = ring_context(torch.cat([x0[None], xs_free[:-1]], 0), K, ring)
+        xs_k, cost_k = k2.rollout_cost(spec, x0, us, ctx)
+        xs_p, cost_p = k2.rollout_cost_plain(spec, x0, us, ctx)
+        record("K6", [scaled(f"K6 rollout K={K} xs", xs_k, xs_p),
+                      scaled(f"K6 rollout K={K} cost", cost_k, cost_p)])
+        xs = torch.cat([x0[None], xs_p[:-1]], 0).contiguous()
+        xT = xs_p[-1].clone()
+        lin = {}
+        for hess in (True, False):
+            lin_k = k3.linearize(spec, xs, us, hess, ctx)
+            lin[hess] = k3.linearize_plain(spec, xs, us, hess, ctx)
+            record("K3ctx", [scaled(f"K3 ctx K={K} hessians={hess} {n}", a, b)
+                             for n, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"),
+                                                lin_k, lin[hess])])
+        k, K_ = k1.riccati_backward_plain(spec, *lin[True], xT, levels)
+        moved = xs.clone()
+        moved[0, 1] = torch.nextafter(moved[0, 1], torch.full_like(moved[0, 1], np.inf))
+        outs = {}
+        for name, fn, start in (("kernel", k2.forward_select, xs),
+                                ("plain", k2.forward_select_plain, xs),
+                                ("plain, x0 one ulp up", k2.forward_select_plain, moved)):
+            bufs = [start.clone(), us.clone(), xT.clone()]
+            merit, accept = fn(spec, *bufs, k, K_, cost_p, active, lb, ub, ladder, ctx)
+            outs[name] = bufs + [merit, accept]
+        results = [compare(f"K6 select K={K} {n}", a, b, rtol, atol)
+                   for n, a, b, rtol, atol in zip(("xs", "us", "xT", "merit"), outs["kernel"],
+                                                  outs["plain"], (1e-4,) * 4, (5e-4,) * 3 + (0.0,))]
+        apart = select_apart(outs["kernel"], outs["plain"])
+        apart_ulp = select_apart(outs["plain, x0 one ulp up"], outs["plain"])
+        share = 1.0 - float(apart.float().mean())
+        log(f"  K6 select K={K} A={len(ladder)}: {int(outs['kernel'][4].sum())} of {B} accepted, "
+            f"{int((outs['kernel'][4] != outs['plain'][4]).sum())} accept flags differ; "
+            f"{int(apart.sum())} problems beyond the tolerances (share within {share:.4f}, "
+            f"required {SELECT_SHARE}); knife-edge: x0 one ulp up moves {int(apart_ulp.sum())} "
+            f"plain-version problems beyond them, {int((apart & apart_ulp).sum())} of them "
+            f"the same")
+        record("K6", [(share >= SELECT_SHARE, max_abs, max_rel) for _, max_abs, max_rel in results])
+    torch.cuda.synchronize()
+    if not ok:
+        fail("a context-mode kernel disagrees with its plain version (phase 13)")
+    return errs
+
+
+def perturbed(problem, coord, direction):
+    """Every car's x0[coord] moved by one ulp towards ``direction``."""
+    import torch
+    for agent in problem.agents:
+        x = agent.ocp.initial_state.clone()
+        x[coord] = torch.nextafter(x[coord], torch.tensor(direction, dtype=x.dtype, device=x.device))
+        agent.ocp.initial_state = x
+        agent.ocp.initialize_problem()
+    return problem
+
+
+def counted_solves(strategy, stats):
+    """Wrap the strategy's batched solve: every solve runs with the counts set
+    to 0 just before it and read just after; returns the list the
+    (iterations, launches) of each solve go into."""
+    solver = strategy.solver_proto
+    inner = solver._solve_batched_fn
+    record = []
+
+    def solve(specs, config, structure=None):
+        reset_counts(stats)
+        result = inner(specs, config, structure)
+        record.append((int(result.iterations[0]), read_counts(stats)))
+        return result
+
+    solver._solve_batched_fn = solve
+    return record
+
+
+def knife_edge(entry, agents, neighbors, sweeps, nominal):
+    """Totals of the game through the kernels with x0 moved by one ulp
+    (KNIFE_EDGE_MOVES), beside the nominal total: ``(totals, mean, std)``."""
+    totals = [nominal]
+    for coord, direction in KNIFE_EDGE_MOVES:
+        problem, strategy = entry.coupled_game(agents, neighbors, sweeps, device=DEVICE)
+        totals.append(float(strategy(perturbed(problem, coord, direction)).total_cost))
+    return totals, float(np.mean(totals)), float(np.std(totals, ddof=1))
+
+
+def coupled_games(entry, ilqr, stats):
+    """Phase 14: the coupled games through the strategy."""
+    import torch
+    out = {}
+    # (a) The well-conditioned ring: through the kernels on the JAX anchor
+    # agent by agent, and against the plain versions over 2 sweeps.
+    agents, neighbors = SMALL_GAME
+    log(f"[14] coupled game, {agents} cars x {neighbors} nearest, {entry.MAX_OUTER} sweeps")
+    problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
+    costs = np.asarray(strategy(problem).costs)
+    rel = float(np.max(np.abs(costs - SMALL_GAME_ANCHOR) / SMALL_GAME_ANCHOR))
+    log(f"  per-agent cost min {float(costs.min())!r} max {float(costs.max())!r} anchor {SMALL_GAME_ANCHOR} "
+        f"max rel {rel:.3e} (rtol {SMALL_GAME_RTOL:g}) {'OK' if rel <= SMALL_GAME_RTOL else 'MISMATCH'}")
+    if not rel <= SMALL_GAME_RTOL:
+        fail(f"the {agents}-car coupled game is off its anchor")
+    res = {}
+    for name, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+        problem, strategy = entry.coupled_game(agents, neighbors, 2, device=DEVICE)
+        strategy.solver_proto.ops = ops
+        res[name] = np.asarray(strategy(problem).costs)
+    rel = float(np.max(np.abs(res["kernels"] - res["plain"]) / res["plain"]))
+    log(f"  2 sweeps, kernels vs plain versions: per-agent cost max rel {rel:.3e} (rtol "
+        f"{SMALL_GAME_RTOL:g}) {'OK' if rel <= SMALL_GAME_RTOL else 'MISMATCH'}")
+    if not rel <= SMALL_GAME_RTOL:
+        fail(f"the {agents}-car game through the kernels disagrees with the plain versions")
+
+    # (b) The benchmark's rows on their anchors, with launch counts per solve.
+    for (agents, neighbors), anchor in GAME_ANCHORS.items():
+        tag = f"{agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}"
+        log(f"[14] coupled game, {tag}, {entry.MAX_OUTER} sweeps")
+        problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
+        solves = counted_solves(strategy, stats)
+        solution = strategy(problem)
+        costs = np.asarray(solution.costs)
+        if not (len(costs) == agents and np.all(np.isfinite(costs))):
+            fail(f"coupled game {tag}: {len(costs)} costs, finite {np.all(np.isfinite(costs))}")
+        if solution.states[0].shape != (T_SWEEP + 1, 4) or solution.controls[0].shape != (T_SWEEP, 2):
+            fail(f"coupled game {tag}: result shapes {tuple(solution.states[0].shape)}")
+        for it, launches in solves:
+            check_counts(launches, {"K6": 1 + it, "K3ctx": it, "K4": it}, f"coupled game {tag}",
+                         quiet=True)
+        its = [it for it, _ in solves]
+        total_launches = {k: sum(l[k] for _, l in solves) for k in solves[0][1]}
+        log(f"  {len(solves)} solves, iterations {its}; launches per solve K6 = 1 + iterations, "
+            f"K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
+        totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER, solution.total_cost)
+        z = abs(anchor["total"] - mean) / std
+        log(f"  total {solution.total_cost!r} anchor {anchor['total']} (rel "
+            f"{abs(solution.total_cost - anchor['total']) / anchor['total']:.3e}); per-agent "
+            f"mean {float(costs.mean())!r} min {float(costs.min())!r} max {float(costs.max())!r} (anchor "
+            f"{anchor['mean']} / {anchor['min']} / {anchor['max']})")
+        log(f"  knife-edge: totals with x0 one ulp moved {[round(t, 4) for t in totals[1:]]}; "
+            f"mean {mean:.4f} std {std:.4f} ({std / mean:.3e} rel) over {len(totals)} games; "
+            f"anchor at {z:.2f} std (limit {KNIFE_EDGE_Z}) {'OK' if z <= KNIFE_EDGE_Z else 'MISMATCH'}")
+        if not z <= KNIFE_EDGE_Z:
+            fail(f"coupled game {tag}: the anchor lies {z:.2f} std from the games' mean")
+        out[(agents, neighbors)] = {"launches": total_launches, "iterations": its,
+                                    "total": solution.total_cost, "knife_edge_totals": totals}
+
+    # (c) The 64-car game through the kernels against the plain versions over
+    # 2 sweeps: the plain game's total within the kernels' knife-edge spread.
+    agents, neighbors = 64, None
+    log(f"[14] {agents} cars, all pairs, 2 sweeps: kernels vs plain versions on the card")
+    res = {}
+    for name, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+        problem, strategy = entry.coupled_game(agents, neighbors, 2, device=DEVICE)
+        strategy.solver_proto.ops = ops
+        t0 = time.perf_counter()
+        res[name] = strategy(problem)
+        log(f"  {name}: total {res[name].total_cost!r}, {time.perf_counter() - t0:.3f} s")
+    totals, mean, std = knife_edge(entry, agents, neighbors, 2, res["kernels"].total_cost)
+    z = abs(res["plain"].total_cost - mean) / std
+    per = np.abs(np.asarray(res["kernels"].costs) - np.asarray(res["plain"].costs)) / np.asarray(
+        res["plain"].costs)
+    log(f"  per-agent cost rel: median {np.median(per):.3e} max {per.max():.3e}; kernels' knife-edge "
+        f"totals {[round(t, 4) for t in totals]}, std {std:.4f}; plain total at {z:.2f} std (limit "
+        f"{KNIFE_EDGE_Z}) {'OK' if z <= KNIFE_EDGE_Z else 'MISMATCH'}")
+    if not z <= KNIFE_EDGE_Z:
+        fail("the 64-car game through the kernels disagrees with the plain versions")
+    torch.cuda.synchronize()
+    return out
+
+
+def game_inputs(entry, agents, neighbors):
+    """The fused loop's first-iteration inputs of one game row's first sweep:
+    spec, x0 [nx, N], us [T, nu, N], ctx [T, K, nx, N] on the card."""
+    from multi_agent_solver_tpu_torch.strategies import stack_agent_specs
+    problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
+    problem.compute_offsets()
+    specs = strategy._prepare(problem, stack_agent_specs(problem, DEVICE))
+    sweep = strategy._sweep_specs(specs, specs.initial_controls, strategy._initial_states(specs))
+    x0 = sweep.initial_state.T.contiguous()
+    us = sweep.initial_controls.permute(1, 2, 0).contiguous()
+    ctx = sweep.context.permute(1, 2, 3, 0).contiguous()
+    return sweep, x0, us, ctx
+
+
+def time_game_kernels(entry, agents, neighbors, with_plain):
+    """Per-launch device time of the game's kernels at one row's shapes
+    (first-iteration inputs), their bounds, and optionally the plain
+    versions' times."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import SWEEP_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    spec, x0, us, ctx = game_inputs(entry, agents, neighbors)
+    B, K = x0.shape[1], ctx.shape[1]
+    levels = k1.reg_ladder(SWEEP_CONFIG.reg_init, SWEEP_CONFIG.reg_factor, SWEEP_CONFIG.reg_levels)
+    ladder = _alpha_ladder_floats(SWEEP_CONFIG.alpha_min)
+    lb = spec.input_lower_bounds.T.contiguous()
+    ub = spec.input_upper_bounds.T.contiguous()
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+    xs_tail, cost = k2.rollout_cost(spec, x0, us, ctx)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    lin = k3.linearize(spec, xs, us, True, ctx)
+    k, K_ = k1.riccati_backward(spec, *lin, xT, levels)
+    fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
+    _, accept = k2.forward_select(spec, *fresh(), k, K_, cost, active, lb, ub, ladder, ctx)
+    n_acc = int(accept.sum())
+    reps = 20
+    sel_bufs = [fresh() for _ in range(reps)]
+    ms = {
+        "K6_rollout": event_ms([lambda: k2.rollout_cost(spec, x0, us, ctx)] * reps),
+        "K3ctx_hess": event_ms([lambda: k3.linearize(spec, xs, us, True, ctx)] * reps),
+        "K3ctx": event_ms([lambda: k3.linearize(spec, xs, us, False, ctx)] * reps),
+        "K4": event_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
+        "K6_A10": event_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, cost, active, lb, ub,
+                                                          ladder, ctx) for b in sel_bufs]),
+    }
+    plain = {}
+    if with_plain:
+        b = fresh()
+        plain = {
+            "K6_rollout": event_ms([lambda: k2.rollout_cost_plain(spec, x0, us, ctx)]),
+            "K3ctx_hess": event_ms([lambda: k3.linearize_plain(spec, xs, us, True, ctx)]),
+            "K3ctx": event_ms([lambda: k3.linearize_plain(spec, xs, us, False, ctx)]),
+            "K6_A10": event_ms([lambda: k2.forward_select_plain(spec, *b, k, K_, cost, active,
+                                                                lb, ub, ladder, ctx)]),
+        }
+    nx, nu, f, T_ = 4, 2, 4, T_SWEEP
+    A10 = len(ladder)
+    ctx_in = B * f * T_ * K * PAIR_READS      # the neighbour components the pair cost reads
+    per_stage_in = nx * nx + nx * nu + nx + nu
+    hess_in = nx * nx + nu * nu + nu * nx
+    bytes_ = {
+        "K6_rollout": B * f * (nx + T_ * nu + T_ * nx + 1) + ctx_in,
+        "K3ctx_hess": B * f * T_ * ((nx + nu) + per_stage_in + hess_in) + ctx_in,
+        "K3ctx": B * f * T_ * ((nx + nu) + per_stage_in) + ctx_in,
+        "K4": B * f * (T_ * (per_stage_in + hess_in + nu * (1 + nx)) + nx),
+        "K6_A10": B * f * (T_ * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B + ctx_in
+                  + n_acc * f * (T_ * (nx + nu) + nx),
+    }
+    ops = {
+        "K6_rollout": B * T_ * (OPS_TRACK + OPS_RK4 + K * OPS_PAIR),
+        "K3ctx_hess": B * T_ * (OPS_K3 + K * (OPS_PAIR_DUAL + OPS_PAIR_HESS)),
+        "K3ctx": B * T_ * (OPS_DUAL_STAGE + K * OPS_PAIR_DUAL),
+        "K4": B * T_ * OPS_STAGE_CORE,
+        "K6_A10": B * T_ * A10 * (OPS_CONTROL + OPS_TRACK + OPS_RK4 + K * OPS_PAIR)
+                  + n_acc * T_ * (OPS_CONTROL + OPS_RK4),
+    }
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
+    log(f"  {agents} cars, K={K}: kernel ms/launch {json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; "
+        f"K6 (A={A10}) accepted {n_acc} of {B}")
+    if plain:
+        log(f"  {agents} cars, K={K}: plain ms/call {json.dumps({k_: round(v, 6) for k_, v in plain.items()})}")
+    log(f"  {agents} cars, K={K}: bound ms {json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}")
+    return ms, plain, bound
+
+
+def time_games(entry, card):
+    """Phase 15: agent-solves/s and wall ms of each bench_coupled row (median
+    of GAME_TIMED warm calls, each timed around the whole strategy call,
+    host work included), the kernels' ms per launch and bounds at each
+    row's shapes, and the kernels' share of the wall time."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    stats = {"K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS, "K4": k1.BACKWARD_STATS}
+    rows = {}
+    for agents, neighbors in entry.COUPLED_ROWS:
+        problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
+        reset_counts(stats)
+        strategy(problem)                                  # warm-up
+        launches = read_counts(stats)
+        times = []
+        for _ in range(GAME_TIMED):
+            t0 = time.perf_counter()
+            strategy(problem)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        wall = float(np.median(times))
+        rate = agents * entry.MAX_OUTER / wall
+        kms, plain, bound = time_game_kernels(entry, agents, neighbors, with_plain=(agents == 64))
+        # One K6 rollout a sweep, the other K6 launches select.
+        in_kernels = (entry.MAX_OUTER * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
+                      + launches["K4"] * kms["K4"]
+                      + (launches["K6"] - entry.MAX_OUTER) * kms["K6_A10"])
+        log(f"[15] {agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}: "
+            f"wall {[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, "
+            f"{rate:.1f} agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call "
+            f"{launches}; kernel time per call {in_kernels:.3f} ms (launches x ms per launch), "
+            f"{100 * in_kernels / (wall * 1e3):.1f}% of the wall; card {card}")
+        rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
+                                     "launches": launches, "ms": kms, "plain": plain,
+                                     "bound": bound, "kernel_ms": in_kernels}
+    return rows
+
+
 def reset_counts(stats):
     for st in stats.values():
         st.reset()
@@ -658,8 +1073,11 @@ def read_counts(stats):
     return {name: st.launches for name, st in stats.items()}
 
 
-def check_counts(launches, want, what):
-    log(f"  launches {launches} expected {want}")
+def check_counts(launches, want, what, quiet=False):
+    """Fail unless the counts are ``want``, a kernel not named there 0."""
+    want = {k: want.get(k, 0) for k in launches}
+    if not quiet:
+        log(f"  launches {launches} expected {want}")
     missing = [k for k, n in want.items() if n > 0 and launches.get(k, 0) == 0]
     if missing:
         fail(f"{what}: kernels {missing} of the path were not launched")
@@ -854,8 +1272,9 @@ def main() -> None:
     errs = check_kernels(spec)
     check_end_to_end(ilqr, entry)
 
+    # K6 and K3ctx: the context-mode launches of K2 and K3 (counted apart).
     stats = {"K1": k1.STATS, "K2": k2.STATS, "K3": k3.STATS, "K4": k1.BACKWARD_STATS,
-             "K5": k1.BOXQP_STATS}
+             "K5": k1.BOXQP_STATS, "K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS}
     launches, got, it = solve_and_check(ilqr, entry, stats)
     rates = {B: time_solves(ilqr, entry, B) for B in (MAIN_BATCH, BENCH_BATCH)}
     timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
@@ -902,13 +1321,25 @@ def main() -> None:
         + "; " + "; ".join(f"sweep {v['agents']}x{v['scenarios']} {v['agent_solves_per_s']:.1f} "
                            f"agent-solves/s" for v in sweep.values()))
 
+    # Phases 13-15: the coupled Nash game.
+    for key, (a, r) in check_coupled_kernels(coupled_spec()).items():
+        errs[key] = (a, r)
+    games = coupled_games(entry, ilqr, stats)
+    game_rows = time_games(entry, card)
+    log(f"  card {card}: " + "; ".join(
+        f"coupled {n} cars {'all pairs' if k is None else f'{k}-NN'} "
+        f"{v['agent_solves_per_s']:.1f} agent-solves/s ({v['wall_ms']:.3f} ms a call)"
+        for (n, k), v in game_rows.items()))
+
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
     nms, nplain, nbound = new_timing[MAIN_BATCH]
     nms_big = new_timing[BENCH_BATCH][0]
     paths = {"main path": launches, **{n: v["launches"] for n, v in branches.items()},
              **{f"circular sweep {v['agents']}x{v['scenarios']}": v["launches"]
-                for v in sweep.values()}}
+                for v in sweep.values()},
+             **{f"coupled game {n} cars {'all pairs' if k is None else f'{k}-NN'}, "
+                f"{len(v['iterations'])} solves": v["launches"] for (n, k), v in games.items()}}
     by_path = lambda key: {n: c[key] for n, c in paths.items()}
     general = branches["quadratic_cost=False"]["launches"]
     boxqp = branches["bound_mode=boxqp"]["launches"]
@@ -945,6 +1376,18 @@ def main() -> None:
                 entry_.update({f"ms_{tag}": nms[mode], f"plain_ms_{tag}": nplain[mode],
                                f"bound_ms_{tag}": nbound[mode][0], f"bound_by_{tag}": nbound[mode][1],
                                f"ms_{tag}_at_524288": nms_big[mode]})
+            # The context mode (the coupled game; T = 10): launches counted
+            # apart as K3ctx, times at each bench_coupled row's shapes.
+            entry_.update(context_launches_by_path=by_path("K3ctx"),
+                          context_max_abs_err=errs["K3ctx"][0], context_max_rel_err=errs["K3ctx"][1])
+            for (n, k), row in game_rows.items():
+                tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
+                for mode in ("K3ctx_hess", "K3ctx"):
+                    m = f"{tag}_context{'_hessians' if mode == 'K3ctx_hess' else ''}"
+                    entry_.update({f"ms_{m}": row["ms"][mode], f"bound_ms_{m}": row["bound"][mode][0],
+                                   f"bound_by_{m}": row["bound"][mode][1]})
+                    if mode in row["plain"]:
+                        entry_[f"plain_ms_{m}"] = row["plain"][mode]
         kernels.append(entry_)
     k4 = {
         "name": "K4 riccati_backward", "route": "cuda",
@@ -976,7 +1419,31 @@ def main() -> None:
         "ms_at_524288": nms_big["K1_boxqp"], "ms_in_K4_per_stage": nms["K4_per_stage_boxqp"],
         "launches_by_path": by_path("K5"),
     }
-    kernels += [k4, k5]
+    for (n, k), row in game_rows.items():
+        tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
+        k4.update({f"ms_{tag}": row["ms"]["K4"], f"bound_ms_{tag}": row["bound"]["K4"][0]})
+    main_game = game_rows[(64, None)]
+    k6 = {
+        "name": "K6 forward_select, context mode", "route": "cuda",
+        "source": "multi_agent_solver_tpu_torch/csrc/forward_select.cu",
+        "replaces": "multi_agent_solver_tpu/ops/forward_select_pallas.py:79",
+        "launches": games[(64, None)]["launches"]["K6"],
+        "max_abs_err": errs["K6"][0], "max_rel_err": errs["K6"][1],
+        # Select at the game's 10 candidates, at the 64-car all-pairs
+        # game's shapes (B = 64, K = 63, T = 10).
+        "ms": main_game["ms"]["K6_A10"], "plain_ms": main_game["plain"]["K6_A10"],
+        "bound_ms": main_game["bound"]["K6_A10"][0], "bound_by": main_game["bound"]["K6_A10"][1],
+        "library_ms": None, "batch": 64, "launches_by_path": by_path("K6"),
+        "ms_rollout_mode": main_game["ms"]["K6_rollout"],
+        "plain_ms_rollout_mode": main_game["plain"]["K6_rollout"],
+        "bound_ms_rollout_mode": main_game["bound"]["K6_rollout"][0],
+    }
+    for (n, k), row in game_rows.items():
+        tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
+        k6.update({f"ms_{tag}": row["ms"]["K6_A10"], f"bound_ms_{tag}": row["bound"]["K6_A10"][0],
+                   f"bound_by_{tag}": row["bound"]["K6_A10"][1],
+                   f"ms_rollout_mode_{tag}": row["ms"]["K6_rollout"]})
+    kernels += [k4, k5, k6]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,8 @@
 //   Dual<Dual<float, N>, M> -> second derivatives (jvp over jvp).
 // The tangent rules are JAX's: d(x y) = dx y + x dy, d sin = dx cos,
 // d cos = -(dx sin), d tan = dx (1 + tan^2), d(x / c) = dx / c,
-// d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x).
-// Transcendentals are the accurate sinf/cosf/tanf and the IEEE sqrtf
+// d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x), d exp = dx exp.
+// Transcendentals are the accurate sinf/cosf/tanf/expf and the IEEE sqrtf
 // (no fast-math).
 #pragma once
 
@@ -31,6 +31,7 @@ __device__ __forceinline__ float dsin(float x) { return sinf(x); }
 __device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ float dtan(float x) { return tanf(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ float dexp(float x) { return expf(x); }
 
 template <typename S, int N>
 __device__ __forceinline__ Dual<S, N> operator+(const Dual<S, N>& a, const Dual<S, N>& b) {
@@ -170,6 +171,16 @@ __device__ __forceinline__ Dual<S, N> dsqrt(const Dual<S, N>& a) {
   const S half_inv = 0.5f / r.v;
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * half_inv;
+  return r;
+}
+
+// exp' = exp: the tangent scales by the result, as JAX's rule g * ans.
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> dexp(const Dual<S, N>& a) {
+  Dual<S, N> r;
+  r.v = dexp(a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * r.v;
   return r;
 }
 

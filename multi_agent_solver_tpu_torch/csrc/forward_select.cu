@@ -25,6 +25,14 @@
 // accept [B] out.  Rollout mode: x0 [NX, B], us [T, NU, B] in; xs [T, NX, B]
 // (x_1..x_T), cost [B] out.
 //
+// Context mode (a Coupled stage cost, problems.cuh): both modes also read
+// ctx [T, K, C, B], the other agents' states at each stage.  The stage cost
+// then depends on ctx_t, and phase 1 evaluates it for every candidate.
+// The candidates share the context, so phase 1 reads each neighbour's
+// state once per stage and accumulates every candidate's pair cost from it
+// (K loads of Pair::NCTX floats a stage, not A K).  Phase 2 evaluates no
+// cost and reads no context.
+//
 // What bounds it on the H100: the arithmetic of A + 1 sequential RK4
 // rollouts per problem (12 sin/cos/tan a step) and the reads of the
 // reference and the gains in both phases (T (NX + 2 NU + NU NX) 4 bytes a
@@ -63,6 +71,22 @@ __device__ __forceinline__ void feedback_control(
   }
 }
 
+// One candidate's RK4 step from xa; in rollout mode the new state is also
+// stage t's output.
+template <typename Dyn, bool INIT>
+__device__ __forceinline__ void advance(const Dyn& dyn, float* xa, const float* u, const Step& h,
+                                        float* xs, int t, size_t sB, int b) {
+  constexpr int NX = Dyn::NX;
+  float xn[NX];
+  rk4_step(dyn, xa, u, h, xn);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xa[i] = xn[i];
+  if constexpr (INIT) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
+  }
+}
+
 template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT>
 __global__ void __launch_bounds__(128) forward_select_kernel(
     const float* __restrict__ x0, float* xs, float* us, float* xT,
@@ -70,7 +94,8 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     const float* __restrict__ merit, const bool* __restrict__ active,
     const float* __restrict__ lb_in, const float* __restrict__ ub_in,
     float* __restrict__ cost_out, bool* __restrict__ accept_out,
-    Dyn dyn, Cost cost, Term term, Step h, Alphas alphas, int T, int B) {
+    const float* __restrict__ ctx, Dyn dyn, Cost cost, Term term, Step h, Alphas alphas,
+    int T, int B, int n_ctx, int c_ctx) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -114,25 +139,53 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
           Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
       }
     }
+    if constexpr (takes_context<Cost>::value) {
+      // Every candidate's control, then the pair costs neighbour by
+      // neighbour (one read of each), then base + pairs and the step.
+      const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
+      float ua[MAXA][NU], ps[MAXA];
 #pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (a >= A) break;
-      float u[NU];
-      if constexpr (INIT) {
+      for (int a = 0; a < MAXA; ++a) {
+        if (a >= A) break;
+        if constexpr (INIT) {
 #pragma unroll
-        for (int i = 0; i < NU; ++i) u[i] = ur[i];
-      } else {
-        feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
-                                 bounded ? lb : nullptr, ub, u);
+          for (int i = 0; i < NU; ++i) ua[a][i] = ur[i];
+        } else {
+          feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
+                                   bounded ? lb : nullptr, ub, ua[a]);
+        }
+        ps[a] = 0.0f;
       }
-      ca[a] = ca[a] + cost(xa[a], u);
-      float xn[NX];
-      rk4_step(dyn, xa[a], u, h, xn);
+#pragma unroll 1
+      for (int j = 0; j < cv.K; ++j) {
+        float xj[Cost::PairT::NCTX];
+        cost.other(cv, j, xj);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) xa[a][i] = xn[i];
-      if constexpr (INIT) {
+        for (int a = 0; a < MAXA; ++a) {
+          if (a >= A) break;
+          ps[a] = ps[a] + cost.pair(xa[a], xj);
+        }
+      }
 #pragma unroll
-        for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
+      for (int a = 0; a < MAXA; ++a) {
+        if (a >= A) break;
+        ca[a] = ca[a] + (cost.base(xa[a], ua[a]) + ps[a]);
+        advance<Dyn, INIT>(dyn, xa[a], ua[a], h, xs, t, sB, b);
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < MAXA; ++a) {
+        if (a >= A) break;
+        float u[NU];
+        if constexpr (INIT) {
+#pragma unroll
+          for (int i = 0; i < NU; ++i) u[i] = ur[i];
+        } else {
+          feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
+                                   bounded ? lb : nullptr, ub, u);
+        }
+        ca[a] = ca[a] + cost(xa[a], u);
+        advance<Dyn, INIT>(dyn, xa[a], u, h, xs, t, sB, b);
       }
     }
   }
@@ -195,26 +248,27 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT>
 void launch_one(const float* x0, float* xs, float* us, float* xT, const float* k,
                 const float* K, const float* merit, const bool* active, const float* lb,
-                const float* ub, float* cost_out, bool* accept_out, const Dyn& dyn,
-                const Cost& cost, const Term& term, const Step& h, const Alphas& al,
-                int T, int B, cudaStream_t stream) {
+                const float* ub, float* cost_out, bool* accept_out, const float* ctx,
+                const Dyn& dyn, const Cost& cost, const Term& term, const Step& h,
+                const Alphas& al, int T, int B, int n_ctx, int c_ctx, cudaStream_t stream) {
   const int block = 128;
   const int grid = (B + block - 1) / block;
   forward_select_kernel<Dyn, Cost, Term, MAXA, INIT><<<grid, block, 0, stream>>>(
-      x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, dyn, cost,
-      term, h, al, T, B);
+      x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, ctx, dyn, cost,
+      term, h, al, T, B, n_ctx, c_ctx);
 }
 
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
 // init == 0: select mode, candidate registers sized 4 or 16 by n_alphas.
+// ctx [T, n_ctx, c_ctx, B] is read only by a Coupled stage cost.
 template <typename Dyn, typename Cost, typename Term>
 int launch_forward_select(int init, const float* x0, float* xs, float* us, float* xT,
                           const float* k, const float* K, const float* merit,
                           const bool* active, const float* lb, const float* ub,
-                          float* cost_out, bool* accept_out, int T, int B,
-                          const float* dyn_p, const float* cost_p, const float* term_p,
-                          const float* step_p, const float* alphas, int n_alphas,
-                          cudaStream_t stream) {
+                          float* cost_out, bool* accept_out, const float* ctx, int T, int B,
+                          int n_ctx, int c_ctx, const float* dyn_p, const float* cost_p,
+                          const float* term_p, const float* step_p, const float* alphas,
+                          int n_alphas, cudaStream_t stream) {
   const Dyn dyn = Dyn::from(dyn_p);
   const Cost cost = Cost::from(cost_p);
   const Term term = Term::from(term_p);
@@ -222,19 +276,23 @@ int launch_forward_select(int init, const float* x0, float* xs, float* us, float
   Alphas al;
   al.n = init ? 1 : n_alphas;
   if (al.n < 1 || al.n > MAX_ALPHAS) return static_cast<int>(cudaErrorInvalidValue);
+  if (takes_context<Cost>::value != (ctx != nullptr) || n_ctx < 0 ||
+      (ctx != nullptr && c_ctx < Dyn::NX))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = (!init && a < al.n) ? alphas[a] : 0.0f;
   if (init)
     launch_one<Dyn, Cost, Term, 1, true>(x0, xs, us, xT, k, K, merit, active, lb, ub,
-                                         cost_out, accept_out, dyn, cost, term, h, al,
-                                         T, B, stream);
+                                         cost_out, accept_out, ctx, dyn, cost, term, h,
+                                         al, T, B, n_ctx, c_ctx, stream);
   else if (al.n <= 4)
     launch_one<Dyn, Cost, Term, 4, false>(x0, xs, us, xT, k, K, merit, active, lb, ub,
-                                          cost_out, accept_out, dyn, cost, term, h, al,
-                                          T, B, stream);
+                                          cost_out, accept_out, ctx, dyn, cost, term, h,
+                                          al, T, B, n_ctx, c_ctx, stream);
   else
     launch_one<Dyn, Cost, Term, MAX_ALPHAS, false>(x0, xs, us, xT, k, K, merit, active,
-                                                   lb, ub, cost_out, accept_out, dyn,
-                                                   cost, term, h, al, T, B, stream);
+                                                   lb, ub, cost_out, accept_out, ctx, dyn,
+                                                   cost, term, h, al, T, B, n_ctx, c_ctx,
+                                                   stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,16 +300,17 @@ int launch_forward_select(int init, const float* x0, float* xs, float* us, float
 
 // One C entry point per (dynamics, stage cost, terminal cost) the kernels
 // can evaluate.
-#define MAS_FORWARD_SELECT(NAME, DYN, COST, TERM)                                          \
-  extern "C" int mas_forward_select__##NAME(                                               \
-      int init, const float* x0, float* xs, float* us, float* xT, const float* k,          \
-      const float* K, const float* merit, const bool* active, const float* lb,             \
-      const float* ub, float* cost_out, bool* accept_out, int T, int B, const float* dyn_p, \
-      const float* cost_p, const float* term_p, const float* step_p, const float* alphas,  \
-      int n_alphas, void* stream) {                                                        \
-    return mas::launch_forward_select<DYN, COST, TERM>(                                    \
-        init, x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, T, B,     \
-        dyn_p, cost_p, term_p, step_p, alphas, n_alphas, static_cast<cudaStream_t>(stream)); \
+#define MAS_FORWARD_SELECT(NAME, DYN, COST, TERM)                                         \
+  extern "C" int mas_forward_select__##NAME(                                              \
+      int init, const float* x0, float* xs, float* us, float* xT, const float* k,         \
+      const float* K, const float* merit, const bool* active, const float* lb,            \
+      const float* ub, float* cost_out, bool* accept_out, const float* ctx, int T, int B, \
+      int n_ctx, int c_ctx, const float* dyn_p, const float* cost_p, const float* term_p, \
+      const float* step_p, const float* alphas, int n_alphas, void* stream) {             \
+    return mas::launch_forward_select<DYN, COST, TERM>(                                   \
+        init, x0, xs, us, xT, k, K, merit, active, lb, ub, cost_out, accept_out, ctx, T,  \
+        B, n_ctx, c_ctx, dyn_p, cost_p, term_p, step_p, alphas, n_alphas,                 \
+        static_cast<cudaStream_t>(stream));                                               \
   }
 
 using LaneFollowCost = mas::DiagQuadratic<4, 2>;
@@ -259,3 +318,6 @@ MAS_FORWARD_SELECT(single_track__diag_quadratic__zero, mas::SingleTrack, LaneFol
                    mas::ZeroTerminal)
 MAS_FORWARD_SELECT(single_track__circular_track__zero, mas::SingleTrack, mas::CircularTrack,
                    mas::ZeroTerminal)
+using CoupledTrack = mas::Coupled<mas::CircularTrack, mas::GaussianCollision>;
+MAS_FORWARD_SELECT(single_track__coupled_circular_track_gaussian_collision__zero,
+                   mas::SingleTrack, CoupledTrack, mas::ZeroTerminal)

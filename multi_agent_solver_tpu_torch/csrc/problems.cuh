@@ -8,7 +8,7 @@
 // The torch callables name theirs with a DeviceFn tag
 // (multi_agent_solver_tpu_torch/types.py) and the wrappers pick the
 // kernel instantiation by those names.  Each struct is built from the
-// tag's float parameters by from(params).
+// tag's float parameters by from(params); NPARAMS says how many it reads.
 #pragma once
 
 #include "dual.cuh"
@@ -40,6 +40,7 @@ struct SingleTrack {
 // rx = (0, 0, 0, 1), wu = (0.1, 0.1), ru = 0.
 template <int NX, int NU>
 struct DiagQuadratic {
+  static constexpr int NPARAMS = 2 * (NX + NU);
   float wx[NX], rx[NX], wu[NU], ru[NU];
 
   static DiagQuadratic from(const float* p) {
@@ -75,6 +76,7 @@ struct DiagQuadratic {
 //     + w_delta delta^2 + w_acc a^2.
 // Parameters: radius, v_ref, w_track, w_speed, w_delta, w_acc.
 struct CircularTrack {
+  static constexpr int NPARAMS = 6;
   float radius, v_ref, w_track, w_speed, w_delta, w_acc;
 
   static CircularTrack from(const float* p) {
@@ -89,6 +91,104 @@ struct CircularTrack {
            w_acc * (u[1] * u[1]);
   }
 };
+
+// A stage's view of the per-stage context ctx [T, K, C, B] for one problem
+// b: element (k, c) of stage t at p[k * sK + c * sC] with p = ctx + t K C B
+// + b, sK = C B and sC = B, so a warp's loads of one element coalesce.
+struct CtxView {
+  const float* p = nullptr;
+  int K = 0;
+  size_t sK = 0, sC = 0;
+
+  __device__ __forceinline__ float at(int k, int c) const { return p[k * sK + c * sC]; }
+};
+
+__device__ __forceinline__ CtxView ctx_view(const float* ctx, int t, int K, int C, size_t sB,
+                                            size_t b) {
+  CtxView v;
+  if (ctx != nullptr) {
+    v.p = ctx + static_cast<size_t>(t) * K * C * sB + b;
+    v.K = K;
+    v.sK = static_cast<size_t>(C) * sB;
+    v.sC = sB;
+  }
+  return v;
+}
+
+// Soft collision cost of two cars (examples/multi_agent_single_track.py
+// make_collision_cost):  weight exp(-d2 / r2),  d2 = (xi0 - xj0)^2 +
+// (xi1 - xj1)^2,  r2 = radius^2 rounded from the Python double and divided
+// by, as the JAX expression does.  Parameters: weight, r2.  It reads the
+// first NCTX = 2 components of the other car's state.
+struct GaussianCollision {
+  static constexpr int NPARAMS = 2;
+  static constexpr int NCTX = 2;
+  float weight, r2;
+
+  static GaussianCollision from(const float* p) { return GaussianCollision{p[0], p[1]}; }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x, const float* xj) const {
+    const S dx = x[0] - xj[0];
+    const S dy = x[1] - xj[1];
+    const S d2 = dx * dx + dy * dy;
+    return weight * dexp(-d2 / r2);
+  }
+};
+
+// Coupled stage cost (strategies/nash.py make_coupled_stage):
+//   base(x, u) + sum_{k < K} pair(x, ctx_t[k]),
+// the pair costs summed from 0 in index order; K is a run-time argument
+// (the loop over neighbours is not unrolled).  Parameters: the base's,
+// then the pair's.
+template <typename Base, typename Pair>
+struct Coupled {
+  static constexpr int NPARAMS = Base::NPARAMS + Pair::NPARAMS;
+  using PairT = Pair;
+  Base base;
+  Pair pair;
+
+  static Coupled from(const float* p) {
+    return Coupled{Base::from(p), Pair::from(p + Base::NPARAMS)};
+  }
+
+  // The other agent k's components that the pair cost reads.
+  __device__ __forceinline__ void other(const CtxView& c, int k, float* xj) const {
+#pragma unroll
+    for (int i = 0; i < Pair::NCTX; ++i) xj[i] = c.at(k, i);
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x, const S* u, const CtxView& c) const {
+    S s(0.0f);
+#pragma unroll 1
+    for (int k = 0; k < c.K; ++k) {
+      float xj[Pair::NCTX];
+      other(c, k, xj);
+      s = s + pair(x, xj);
+    }
+    return base(x, u) + s;
+  }
+};
+
+template <typename Cost>
+struct takes_context {
+  static constexpr bool value = false;
+};
+template <typename Base, typename Pair>
+struct takes_context<Coupled<Base, Pair>> {
+  static constexpr bool value = true;
+};
+
+// The stage cost with or without its context, uniformly.
+template <typename Cost, typename S>
+__device__ __forceinline__ S stage_cost(const Cost& cost, const S* x, const S* u,
+                                        const CtxView& c) {
+  if constexpr (takes_context<Cost>::value)
+    return cost(x, u, c);
+  else
+    return cost(x, u);
+}
 
 // Zero terminal cost (ocp.zero_terminal_cost).
 struct ZeroTerminal {
@@ -128,11 +228,12 @@ __device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const S* u,
 
 // A = d step / dx, B = d step / du and the cost gradient (lx, lu) at one
 // stage, from ONE forward pass in Dual<float, NX + NU>: tangents 0..NX-1
-// seed x, NX..NX+NU-1 seed u.
+// seed x, NX..NX+NU-1 seed u.  The context is a constant.
 template <typename Dyn, typename Cost>
 __device__ __forceinline__ void stage_derivatives(
     const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
-    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu) {
+    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu,
+    const CtxView& ctx = CtxView()) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU, NZ = NX + NU;
   using D = Dual<float, NZ>;
   D xd[NX], ud[NU], nxt[NX];
@@ -148,7 +249,7 @@ __device__ __forceinline__ void stage_derivatives(
 #pragma unroll
     for (int j = 0; j < NU; ++j) Bm[i][j] = nxt[i].d[NX + j];
   }
-  const D c = cost(xd, ud);
+  const D c = stage_cost(cost, xd, ud, ctx);
 #pragma unroll
   for (int j = 0; j < NX; ++j) lx[j] = c.d[j];
 #pragma unroll

@@ -7,7 +7,10 @@ finite-difference parity mode is not ported yet.
 
 * ``fx(x, u) -> [nx, nx]``, ``fu(x, u) -> [nx, nu]``: continuous dynamics
 * ``lx/lu(x, u, t) -> [n]``, ``lxx/luu(x, u, t) -> [n, n]``,
-  ``lux(x, u, t) -> [nu, nx]``
+  ``lux(x, u, t) -> [nu, nx]``; for a context cost
+  (``ocp.with_context_cost``) each takes the stage's context as a fourth
+  argument, a constant of the derivatives (only ``x`` and ``u`` are
+  differentiated)
 * ``phix(x) -> [nx]``, ``phixx(x) -> [nx, nx]``
 """
 

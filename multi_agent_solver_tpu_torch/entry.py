@@ -5,8 +5,11 @@
   ``bench.py``'s x0 batch and solver config.
 * The circular-track agent sweep of ``scripts/bench_multi_agent.py``:
   agents spread on the circle, tiled over scenarios, solved as batch lanes.
+* The coupled Nash game of ``scripts/bench_multi_agent.py::bench_coupled``:
+  the same cars coupled by a collision cost, played by the ``sequential``
+  strategy at 64 agents (all pairs), 256 and 1,024 (8 nearest neighbours).
 
-``chip_smoke.py`` and the tests use both.
+``chip_smoke.py`` and the tests use them.
 """
 
 from __future__ import annotations
@@ -14,14 +17,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .examples.multi_agent_single_track import create_single_track_circular_ocp
+from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
+from .multi_agent import MultiAgentProblem
 from .ocp import OCP, OCPSpec, diagonal_quadratic_cost
 from .models import (
     single_track_control_jacobian,
     single_track_model,
     single_track_state_jacobian,
 )
+from .solvers import make_solver
 from .solvers.ilqr import ILQRConfig
+from .strategies import make_strategy
 
 # 10 y^2 + (v - 1)^2 + 0.1 delta^2 + 0.1 a^2 as a diagonal quadratic, so it
 # has a CUDA device function (csrc/problems.cuh DiagQuadratic).
@@ -35,6 +41,11 @@ BENCH_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-5, alpha_ladder=(1.0, 
 # scripts/bench_multi_agent.py's solver configuration (the reference
 # 10-rung forward-pass ladder).
 SWEEP_CONFIG = ILQRConfig(max_iterations=100, tolerance=1e-5)
+# bench_coupled's game: collision weight, sweeps, solver parameters, and
+# its rows (agents, nearest neighbours; None = all pairs).
+COUPLING, MAX_OUTER = 25.0, 10
+COUPLED_PARAMS = {"max_iterations": 100, "tolerance": 1e-5, "max_ms": 1e9}
+COUPLED_ROWS = ((64, None), (256, 8), (1024, 8))
 
 
 def single_track_spec(horizon: int = 80, dtype=torch.float32, device="cuda") -> OCPSpec:
@@ -102,3 +113,17 @@ def circular_sweep_specs(n_agents: int, n_scenarios: int, device="cuda") -> OCPS
     """The sweep's batch: ``n_agents * n_scenarios`` circular-track problems."""
     template = create_single_track_circular_ocp(0.0, device=device).spec()
     return batch_specs(template, circular_sweep_x0(n_agents, n_scenarios))
+
+
+def coupled_game(n_agents: int, neighbors=None, max_outer: int = MAX_OUTER, params=None,
+                 dtype=torch.float32, device="cuda"):
+    """``(problem, strategy)`` of one ``bench_coupled`` row: ``n_agents``
+    cars coupled with weight :data:`COUPLING` (radius 3), each to its
+    ``neighbors`` nearest others (None: all), and the ``sequential``
+    strategy over iLQR with :data:`COUPLED_PARAMS` (or ``params``)."""
+    problem: MultiAgentProblem = build_problem(n_agents, COUPLING, dtype, device)
+    problem.coupling_neighbors = neighbors
+    solver = make_solver("ilqr", device=device)
+    strategy = make_strategy("sequential", solver, COUPLED_PARAMS if params is None else params,
+                             max_outer)
+    return problem, strategy

@@ -6,7 +6,9 @@ starts at angle theta on a circle of radius 20, tangentially at v = 4;
 cost ``(sqrt(x^2 + y^2) - 20)^2 + (v - 5)^2 + 1e-3 (delta^2 + a^2)``; zero
 terminal cost; inputs bounded to +-0.5; T = 10, dt = 0.5.  The stage cost
 carries the tag of ``CircularTrack`` in ``csrc/problems.cuh``, which sums
-the same terms in the same order.
+the same terms in the same order.  :func:`build_problem` spreads N such
+cars on the circle, optionally coupled by the soft collision cost of
+:func:`make_collision_cost` (``GaussianCollision`` on the card).
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import math
 
 import torch
 
+from ..agent import Agent
 from ..models import single_track_model
+from ..multi_agent import MultiAgentProblem
 from ..ocp import OCP, zero_terminal_cost
 from ..types import Tensor, tag_device_fn
 
@@ -66,3 +70,30 @@ def create_single_track_circular_ocp(initial_theta: float, dtype=torch.float32,
     )
     ocp.initialize_problem()
     return ocp
+
+
+def make_collision_cost(weight: float, radius: float = 3.0):
+    """Soft inter-agent collision cost ``weight exp(-d^2 / radius^2)``, ``d``
+    the planar distance of the two cars.  Tagged ``gaussian_collision``
+    with ``(weight, radius^2)``, ``radius^2`` computed as Python computes
+    it; the device function divides by it, as the JAX expression does."""
+    r2 = radius ** 2
+
+    def collision_cost(x_i: Tensor, x_j: Tensor, t) -> Tensor:
+        d2 = (x_i[..., 0] - x_j[..., 0]) ** 2 + (x_i[..., 1] - x_j[..., 1]) ** 2
+        return weight * torch.exp(-d2 / r2)
+
+    return tag_device_fn(collision_cost, "gaussian_collision", (weight, r2))
+
+
+def build_problem(n_agents: int, coupling: float = 0.0, dtype=torch.float32,
+                  device="cuda") -> MultiAgentProblem:
+    """``n_agents`` cars at angles ``2 pi i / n_agents``, coupled by
+    :func:`make_collision_cost` with weight ``coupling`` when it is > 0."""
+    problem = MultiAgentProblem()
+    for i in range(n_agents):
+        theta = 2.0 * math.pi * i / n_agents
+        problem.add_agent(Agent(i, create_single_track_circular_ocp(theta, dtype, device)))
+    if coupling > 0.0:
+        problem.inter_agent_cost = make_collision_cost(coupling)
+    return problem

@@ -7,11 +7,15 @@ PyTorch counterpart of the solver-facing part of
   (initial state, warm-start controls, bounds) may carry a leading batch
   axis ``[B, ...]``; functions and dimensions are plain attributes.
 * :class:`OCP` -- the mutable problem description with the reference's
-  field names, ``initialize_problem`` and ``spec()``.
+  field names and lifecycle (``initialize_problem``, ``reset``,
+  ``update_initial_with_best``, ``set_result``, ``spec()``).
+* :func:`with_context_cost` -- a spec whose stage cost takes a per-stage
+  context ``stage_cost(x, u, t, ctx_t)``: how the other agents' plans reach
+  one agent's solve in a coupled game.
 
 Trajectories are time-major (``[..., T+1, nx]`` / ``[..., T, nu]``).
 Constraints are carried so that the solver can refuse them; the AL
-machinery, per-stage context and state-bound transforms are not ported yet.
+machinery and state-bound transforms are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,13 +30,16 @@ from .integrators import integrate_horizon
 from .types import Tensor, resolve_device, tag_device_fn
 
 
-def compute_trajectory_cost(states: Tensor, controls: Tensor, stage_cost, terminal_cost) -> Tensor:
+def compute_trajectory_cost(states: Tensor, controls: Tensor, stage_cost, terminal_cost,
+                            context: Optional[Tensor] = None) -> Tensor:
     """Sum of the stage costs at ``(x_t, u_t, t)``, ``t = 0..T-1``, plus the
-    terminal cost; not scaled by dt.  Leading batch axes broadcast."""
+    terminal cost; not scaled by dt.  Leading batch axes broadcast.  With
+    ``context [..., T, ...]`` the stage cost receives its stage's slice as a
+    fourth argument."""
     T = controls.shape[-2]
     ts = torch.arange(T, device=controls.device)
-    stage = stage_cost(states[..., :-1, :], controls, ts)
-    stage = torch.broadcast_to(stage, controls.shape[:-1])
+    args = (states[..., :-1, :], controls, ts) + (() if context is None else (context,))
+    stage = torch.broadcast_to(stage_cost(*args), controls.shape[:-1])
     return stage.sum(-1) + terminal_cost(states[..., -1, :])
 
 
@@ -78,7 +85,8 @@ class OCPSpec:
     initial_controls: Tensor                     # [T, nu] or [B, T, nu]
     input_lower_bounds: Optional[Tensor] = None  # [nu] or [B, nu]
     input_upper_bounds: Optional[Tensor] = None
-    # Per-stage cost context; carried so that the solver can refuse it.
+    # Per-stage cost context [T, ...] (or [B, T, ...]): when present the
+    # stage cost is called as stage_cost(x, u, t, context_t).
     context: Optional[Tensor] = None
 
     dynamics: Callable = None
@@ -106,7 +114,18 @@ class OCPSpec:
         return integrate_horizon(self.initial_state, controls, self.dt, self.dynamics)
 
     def cost(self, states: Tensor, controls: Tensor) -> Tensor:
+        if self.context is not None:
+            # Context costs always use the synthesized objective
+            # (with_context_cost checks it).
+            return compute_trajectory_cost(states, controls, self.stage_cost,
+                                           self.terminal_cost, self.context)
         return self.objective_function(states, controls)
+
+    def stage_cost_at(self, x: Tensor, u: Tensor, t, context_t=None) -> Tensor:
+        """The stage cost with or without context, uniformly."""
+        if self.context is not None:
+            return self.stage_cost(x, u, t, context_t)
+        return self.stage_cost(x, u, t)
 
     @property
     def has_input_bounds(self) -> bool:
@@ -114,9 +133,30 @@ class OCPSpec:
         return self.input_lower_bounds is not None and self.input_upper_bounds is not None
 
 
+def rollout_and_cost(spec: OCPSpec, controls: Tensor):
+    """``(states, cost)`` of ``controls`` rolled out from the spec's initial
+    state (context-aware through :meth:`OCPSpec.cost`)."""
+    xs = spec.rollout(controls)
+    return xs, spec.cost(xs, controls)
+
+
 def synthesized_objective(stage_cost: Callable, terminal_cost: Callable) -> Callable:
     """Default objective: stage costs plus terminal cost."""
     return lambda X, U: compute_trajectory_cost(X, U, stage_cost, terminal_cost)
+
+
+def with_context_cost(spec: OCPSpec, stage_cost_ctx: Callable) -> OCPSpec:
+    """A spec whose stage cost ``stage_cost_ctx(x, u, t, ctx_t)`` takes a
+    per-stage context; the derivative bundle is rebuilt for the 4-argument
+    signature (the context is a constant of the derivatives).  The context
+    itself is supplied per solve with ``spec.replace(context=...)``."""
+    if not spec.objective_is_default:
+        raise ValueError("context costs require the synthesized objective")
+    if spec.derivative_mode != "ad":
+        raise ValueError("context costs require AD derivative mode")
+    derivs = make_derivatives(spec.dynamics, stage_cost_ctx, spec.terminal_cost,
+                              fx=spec.derivs.fx, fu=spec.derivs.fu)
+    return spec.replace(stage_cost=stage_cost_ctx, derivs=derivs)
 
 
 class OCP:
@@ -131,6 +171,7 @@ class OCP:
         self.control_dim: int = 0
         self.horizon_steps: int = 0
         self.dt: float = 0.0
+        self.id: int = 0
 
         self.dynamics = None
         self.stage_cost = zero_stage_cost
@@ -155,10 +196,35 @@ class OCP:
         self.derivative_mode: str = "ad"
         self.device = "cuda"
 
+        self._derivs: Optional[Derivatives] = None
         for key, value in kwargs.items():
             if not hasattr(self, key):
                 raise AttributeError(f"OCP has no field '{key}'")
             setattr(self, key, value)
+
+    def reset(self) -> None:
+        """Zero the controls and re-roll the trajectory."""
+        self.initial_controls = torch.zeros(
+            (self.horizon_steps, self.control_dim), dtype=self.initial_state.dtype,
+            device=self.initial_state.device)
+        self.initial_states, cost = rollout_and_cost(self.spec(), self.initial_controls)
+        self.set_result(self.initial_states, self.initial_controls, cost)
+
+    def update_initial_with_best(self) -> None:
+        """Warm start from the current best trajectory."""
+        self.initial_controls = self.best_controls
+        self.initial_states = self.best_states
+
+    def set_result(self, states: Tensor, controls: Tensor, cost) -> None:
+        """Store a solver result."""
+        self.best_states = states
+        self.best_controls = controls
+        self.best_cost = float(cost)
+
+    def invalidate(self) -> None:
+        """Drop the cached derivative bundle (after changing the problem's
+        functions)."""
+        self._derivs = None
 
     def initialize_problem(self) -> None:
         """Move the data to ``device``, shape-fix the controls, roll out and
@@ -178,22 +244,24 @@ class OCP:
             if value is not None:
                 setattr(self, name, torch.as_tensor(value, dtype=dtype, device=dev))
 
-        spec = self.spec()
-        self.initial_states = spec.rollout(spec.initial_controls)
-        self.best_states = self.initial_states
-        self.best_controls = self.initial_controls
-        self.best_cost = float(spec.cost(self.initial_states, self.initial_controls))
+        self._derivs = None
+        self.initial_states, cost = rollout_and_cost(self.spec(), self.initial_controls)
+        self.set_result(self.initial_states, self.initial_controls, cost)
 
     def spec(self) -> OCPSpec:
-        """The frozen solver-facing spec of the current fields."""
-        derivs = make_derivatives(
-            self.dynamics,
-            self.stage_cost,
-            self.terminal_cost,
-            mode=self.derivative_mode,
-            fx=self.dynamics_state_jacobian,
-            fu=self.dynamics_control_jacobian,
-        )
+        """The frozen solver-facing spec of the current fields.  The
+        derivative bundle is built once and cached; call :meth:`invalidate`
+        after changing the problem's functions."""
+        if self._derivs is None:
+            self._derivs = make_derivatives(
+                self.dynamics,
+                self.stage_cost,
+                self.terminal_cost,
+                mode=self.derivative_mode,
+                fx=self.dynamics_state_jacobian,
+                fu=self.dynamics_control_jacobian,
+            )
+        derivs = self._derivs
         objective = self.objective_function
         if objective is None:
             objective = synthesized_objective(self.stage_cost, self.terminal_cost)

@@ -10,8 +10,9 @@ import time: CPU-only installs import the package without ``nvcc``.
 Each exported C function launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code.
 Its symbol names the kernel and the device functions it was instantiated
-with (``mas_<kernel>__<dynamics>__<stage cost>[__<terminal cost>]``), so a
-problem without a matching instantiation raises ``NotImplementedError``.
+with (``mas_<kernel>__<dynamics>__<stage cost>[__<terminal cost>]``; a
+coupled stage cost is named ``coupled_<base>_<pair>``), so a problem
+without a matching instantiation raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,8 +48,17 @@ PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
     "diag_quadratic": lambda nx, nu: 2 * (nx + nu),
     "circular_track": lambda nx, nu: 6,
+    "gaussian_collision": lambda nx, nu: 2,
     "zero": lambda nx, nu: 0,
 }
+
+
+def _param_count(tag, nx: int, nu: int) -> int:
+    """Parameters the device function of ``tag`` reads; a composed one
+    (``Coupled``) reads its parts' in turn."""
+    if tag.parts:
+        return sum(_param_count(p, nx, nu) for p in tag.parts)
+    return PARAM_COUNT[tag.name](nx, nu) if tag.name in PARAM_COUNT else len(tag.params)
 
 
 @dataclasses.dataclass
@@ -143,7 +153,7 @@ def problem_symbol(kernel: str, nx: int, nu: int, dynamics, *costs) -> tuple:
         raise ValueError(f"{kernel}: {tags[0].name} has (nx, nu) = "
                          f"{DYNAMICS_DIMS[tags[0].name]}, the tensors {(nx, nu)}")
     for t in tags:
-        want = PARAM_COUNT[t.name](nx, nu) if t.name in PARAM_COUNT else len(t.params)
+        want = _param_count(t, nx, nu)
         if len(t.params) != want:
             raise ValueError(f"{kernel}: device function {t.name} takes {want} "
                              f"parameters, its tag carries {len(t.params)}")
@@ -189,6 +199,24 @@ def launch(symbol: str, *args) -> None:
     err = fn(*c_args)
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
+
+
+def check_context(ctx, stage_cost, T: int, nx: int, B: int, device: torch.device) -> int:
+    """Number of neighbours K of a context ``ctx [T, K, nx, B]``, 0 for
+    None.  Raises unless a context comes exactly with a stage cost whose
+    device function reads one (``Coupled``)."""
+    tag = device_fn_of(stage_cost)
+    takes = tag is not None and tag.takes_context
+    if ctx is None:
+        if takes:
+            raise ValueError(f"{tag.name} reads a per-stage context; none was passed")
+        return 0
+    if not takes:
+        raise ValueError("a context was passed, but the stage cost's device function reads none")
+    if ctx.dim() != 4:
+        raise ValueError(f"ctx: expected [T, K, nx, B], got shape {tuple(ctx.shape)}")
+    check_tensor(ctx, "ctx", (T, ctx.shape[1], nx, B), device)
+    return int(ctx.shape[1])
 
 
 def check_tensor(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:

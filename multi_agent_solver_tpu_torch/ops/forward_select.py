@@ -3,7 +3,8 @@
 Port of ``multi_agent_solver_tpu/ops/forward_select_pallas.py ::
 forward_select_pallas_tiled`` in its two modes on the iLQR main path; the
 CUDA kernel is ``csrc/forward_select.cu`` (one kernel, a template flag per
-mode, one launch counter):
+mode; one launch counter without a context, ``STATS``, and one with,
+``CTX_STATS``):
 
 * :func:`rollout_cost` -- the initial rollout and its cost: alpha 0, zero
   gains, no clamp, merit +inf.  ``x0 [nx, B]``, ``us [T, nu, B]`` ->
@@ -16,7 +17,10 @@ mode, one launch counter):
   becomes the new trajectory, a rejected or frozen one keeps the reference
   verbatim.  Returns ``(merit_new [B], accept [B] bool)``.
 
-Stage costs see the integer stage index, as in the TPU kernel.
+Stage costs see the integer stage index, as in the TPU kernel.  Both modes
+take an optional per-stage context ``ctx [T, K, C, B]`` (the context mode
+of the select kernel, K6 in the ROADMAP's numbering): the stage cost is
+then ``stage_cost(x, u, t, ctx_t)``, as with the TPU kernel's ``ctx_l``.
 """
 
 from __future__ import annotations
@@ -27,10 +31,25 @@ import torch
 
 from ..integrators import integrate_rk4
 from ..types import Tensor
-from ._build import KernelStats, check_tensor, launch, problem_symbol, step_constants
+from ._build import (KernelStats, check_context, check_tensor, launch, problem_symbol,
+                     step_constants)
 
-STATS = KernelStats()
+STATS = KernelStats()       # launches and plain calls without a context
+CTX_STATS = KernelStats()   # ... and with one (the context mode, K6)
 MAX_ALPHAS = 16   # candidate registers of the CUDA kernel
+
+
+def _stats(ctx) -> KernelStats:
+    return STATS if ctx is None else CTX_STATS
+
+
+def stage_fn(spec, ctx, t):
+    """The stage cost of stage ``t`` on batch-first values: ``spec.stage_cost``,
+    or with ``ctx [T, ..., B]`` the cost with stage t's context bound."""
+    if ctx is None:
+        return spec.stage_cost
+    ctx_t = ctx[t].movedim(-1, 0)
+    return lambda x, u, tt: spec.stage_cost(x, u, tt, ctx_t)
 
 
 def _control(x, x_ref, u_ref, k_t, K_t, alpha, lb, ub):
@@ -47,25 +66,25 @@ def _control(x, x_ref, u_ref, k_t, K_t, alpha, lb, ub):
     return torch.stack(rows, -1)
 
 
-def rollout_cost_plain(spec, x0: Tensor, us: Tensor):
+def rollout_cost_plain(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     """Plain PyTorch version of the K2 rollout mode."""
-    STATS.plain_calls += 1
+    _stats(ctx).plain_calls += 1
     T, nu, B = us.shape
     x = x0.T
     xs = torch.empty((T, x0.shape[0], B), dtype=torch.float32, device=x0.device)
     total = torch.zeros(B, dtype=torch.float32, device=x0.device)
     for t in range(T):
         u = us[t].T
-        total = total + spec.stage_cost(x, u, t)
+        total = total + stage_fn(spec, ctx, t)(x, u, t)
         x = integrate_rk4(x, u, spec.dt, spec.dynamics)
         xs[t] = x.T
     total = total + spec.terminal_cost(x)
     return xs, torch.where(total < math.inf, total, torch.full_like(total, math.inf))
 
 
-def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
+def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
     """Plain PyTorch version of the K2 select mode (same in-place contract)."""
-    STATS.plain_calls += 1
+    _stats(ctx).plain_calls += 1
     T, nx, B = xs.shape
     lbT = lb.T if lb is not None else None
     ubT = ub.T if ub is not None else None
@@ -74,9 +93,10 @@ def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
     ca = [torch.zeros(B, dtype=torch.float32, device=xs.device) for _ in alphas]
     for t in range(T):
         x_ref, u_ref, k_t, K_t = xs[t].T, us[t].T, k[t].T, K[t].permute(2, 0, 1)
+        stage = stage_fn(spec, ctx, t)
         for a, alpha in enumerate(alphas):
             u = _control(xa[a], x_ref, u_ref, k_t, K_t, alpha, lbT, ubT)
-            ca[a] = ca[a] + spec.stage_cost(xa[a], u, t)
+            ca[a] = ca[a] + stage(xa[a], u, t)
             xa[a] = integrate_rk4(xa[a], u, spec.dt, spec.dynamics)
 
     best = merit.clone()
@@ -102,25 +122,31 @@ def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
     return best, found
 
 
-def rollout_cost(spec, x0: Tensor, us: Tensor):
+def rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     """K2 rollout mode on the card for CUDA tensors, plain for CPU tensors."""
     if x0.device.type == "cpu":
-        return rollout_cost_plain(spec, x0, us)
+        return rollout_cost_plain(spec, x0, us, ctx)
+    return launch_rollout_cost(spec, x0, us, ctx)
+
+
+def launch_rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
+    """The CUDA launch of the K2 rollout mode."""
     T, nu, B = us.shape
     nx = x0.shape[0]
     check_tensor(x0, "x0", (nx, B), x0.device)
     check_tensor(us, "us", (T, nu, B), x0.device)
     symbol, params = _symbol(spec, nx, nu)
+    n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, x0.device)
     xs = torch.empty((T, nx, B), dtype=torch.float32, device=x0.device)
     cost = torch.empty(B, dtype=torch.float32, device=x0.device)
     with torch.cuda.device(x0.device):
         launch(symbol, 1, x0, xs, us, None, None, None, None, None, None, None,
-               cost, None, T, B, *params, step_constants(spec.dt), (0.0,), 1)
-    STATS.launches += 1
+               cost, None, ctx, T, B, n_ctx, nx, *params, step_constants(spec.dt), (0.0,), 1)
+    _stats(ctx).launches += 1
     return xs, cost
 
 
-def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
+def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
     """K2 select mode on the card for CUDA tensors, plain for CPU tensors.
 
     ``lb``/``ub`` are ``[nu, B]`` absolute bounds or both None (no clamp);
@@ -132,7 +158,12 @@ def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
     if (lb is None) != (ub is None):
         raise ValueError("pass both bounds or neither")
     if xs.device.type == "cpu":
-        return forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas)
+        return forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx)
+    return launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx)
+
+
+def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
+    """The CUDA launch of the K2 select mode."""
     T, nx, B = xs.shape
     nu = us.shape[1]
     dev = xs.device
@@ -147,12 +178,14 @@ def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas):
             or not active.is_contiguous():
         raise ValueError("active: expected a contiguous bool tensor of shape (B,) on the card")
     symbol, params = _symbol(spec, nx, nu)
+    n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
     merit_new = torch.empty(B, dtype=torch.float32, device=dev)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         launch(symbol, 0, None, xs, us, xT, k, K, merit, active, lb, ub, merit_new,
-               accept, T, B, *params, step_constants(spec.dt), alphas, len(alphas))
-    STATS.launches += 1
+               accept, ctx, T, B, n_ctx, nx, *params, step_constants(spec.dt), alphas,
+               len(alphas))
+    _stats(ctx).launches += 1
     return merit_new, accept
 
 

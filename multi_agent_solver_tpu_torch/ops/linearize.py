@@ -8,6 +8,10 @@ Layout (the fused loop's, batch innermost): ``xs [T, nx, B]``,
 ``lx [T, nx, B]``, ``lu [T, nu, B]`` and, with ``hessians``,
 ``lxx [T, nx, nx, B]``, ``luu [T, nu, nu, B]``, ``lux [T, nu, nx, B]`` out.
 
+With ``ctx [T, K, C, B]`` (the context mode, the TPU kernel's ``ctx_l``)
+the stage cost is ``stage_cost(x, u, t, ctx_t)``; the context is a
+constant of the derivatives.
+
 :func:`linearize` launches the kernel for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs :func:`linearize_plain`.
 """
@@ -19,9 +23,15 @@ from torch.func import jvp
 
 from ..integrators import integrate_rk4
 from ..types import Tensor
-from ._build import KernelStats, check_tensor, launch, problem_symbol, step_constants
+from ._build import (KernelStats, check_context, check_tensor, launch, problem_symbol,
+                     step_constants)
 
-STATS = KernelStats()
+STATS = KernelStats()       # launches and plain calls without a context
+CTX_STATS = KernelStats()   # ... and with one (the context mode)
+
+
+def _stats(ctx) -> KernelStats:
+    return STATS if ctx is None else CTX_STATS
 
 
 def _basis(n: int, j: int, like: Tensor) -> Tensor:
@@ -74,12 +84,15 @@ def cost_hessians(spec, x: Tensor, u: Tensor, t):
     return stack2(lxx), stack2(luu), stack2(lux)
 
 
-def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True):
+def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
     """Plain PyTorch version of the K3 kernel (same layout and outputs)."""
-    STATS.plain_calls += 1
+    _stats(ctx).plain_calls += 1
     T = xs.shape[0]
     x = xs.permute(0, 2, 1)                      # [T, B, nx]
     u = us.permute(0, 2, 1)
+    if ctx is not None:
+        ctx_b = ctx.movedim(-1, 1)               # [T, B, ...]
+        spec = spec.replace(stage_cost=lambda a, b, tt, c=spec.stage_cost: c(a, b, tt, ctx_b))
     # The TPU kernel passes the stage index as a float lane value.
     t = torch.arange(T, dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
     A, Bm, lx, lu = stage_derivatives(spec, x, u, t)
@@ -90,20 +103,26 @@ def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True):
     return tuple(o.to(torch.float32).contiguous() for o in outs)
 
 
-def linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True):
+def linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
     """K3 on the card for CUDA tensors, the plain version for CPU tensors."""
     if xs.device.type == "cpu":
-        return linearize_plain(spec, xs, us, hessians)
+        return linearize_plain(spec, xs, us, hessians, ctx)
+    return launch_linearize(spec, xs, us, hessians, ctx)
+
+
+def launch_linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
+    """The CUDA launch of K3."""
     T, nx, B = xs.shape
     nu = us.shape[1]
     check_tensor(xs, "xs", (T, nx, B), xs.device)
     check_tensor(us, "us", (T, nu, B), xs.device)
     symbol, (dyn_p, cost_p) = problem_symbol("linearize", nx, nu, spec.dynamics, spec.stage_cost)
+    n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, xs.device)
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=xs.device)
     outs = [empty(T, nx, nx, B), empty(T, nx, nu, B), empty(T, nx, B), empty(T, nu, B)]
     hess = [empty(T, nx, nx, B), empty(T, nu, nu, B), empty(T, nu, nx, B)] if hessians else [None] * 3
     with torch.cuda.device(xs.device):
-        launch(symbol, xs, us, *outs, *hess, T, B, int(hessians), dyn_p, cost_p,
+        launch(symbol, xs, us, *outs, *hess, ctx, T, B, n_ctx, nx, int(hessians), dyn_p, cost_p,
                step_constants(spec.dt))
-    STATS.launches += 1
+    _stats(ctx).launches += 1
     return tuple(outs + (hess if hessians else []))

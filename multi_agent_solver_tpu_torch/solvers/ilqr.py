@@ -1,8 +1,9 @@
 """Batched iLQR: the lane-resident fused loop.
 
 PyTorch counterpart of ``multi_agent_solver_tpu/solvers/ilqr.py``
-(``ILQRConfig``, the cost-structure probe and the unconstrained,
-context-free branches of ``_solve_ilqr_batched_fused``).  Per solve it
+(``ILQRConfig``, the cost-structure probe, the unconstrained branches of
+``_solve_ilqr_batched_fused`` with and without a per-stage context, and the
+``ILQR`` solver class).  Per solve it
 launches K2 (``ops/forward_select.rollout_cost``) once for the initial
 rollout and cost, then by the cost structure that
 :func:`resolve_cost_structure` finds:
@@ -19,6 +20,17 @@ rollout and cost, then by the cost structure that
 and per iteration K2 in select mode.  ``bound_mode="boxqp"`` runs the
 box-QP stage solve (K5) inside K1 or K4 on the delta bounds around the
 current controls.
+
+A spec with a per-stage ``context`` (a coupled Nash game's view of the
+other agents) packs it once per solve to ``[T, K, C, B]`` float32 and hands
+it to the initial rollout, the quadratic hoist, every K3 and every K2
+select (their context modes); a context cost is never stationary, so K1
+does not run.  Routing differs from the JAX package's ``fused="auto"`` on
+the CPU: JAX sends context (coupled) solves on the CPU to its
+kernel-per-phase path and fuses them only off the CPU (or with
+``fused=1``); the port has no kernel-per-phase path yet, so a context solve
+takes the fused loop on every device -- with the CUDA kernels on the card
+and their plain versions on the CPU.
 
 State is carried batch-innermost (``[T, dim, B]``, ``[dim, B]``), the
 counterpart of the TPU lane layout; it is converted once on entry and once
@@ -39,7 +51,7 @@ from ..ops import forward_select as _k2
 from ..ops import linearize as _k3
 from ..ops import riccati as _k1
 from ..types import SolverParams, get_param, param_flag, resolve_device
-from .base import SolveResult
+from .base import SolveResult, SolverBase, register_solver
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,22 +158,25 @@ def probe_cost_structure(spec: OCPSpec) -> "tuple[bool, bool]":
     t = 0 and t = T-1, and the terminal ``phixx`` at both points.
     ``quadratic``: the blocks match across points at both t and the
     terminal Hessian matches; ``stationary``: they also match across t.
-    Non-finite values compare unequal.
+    Non-finite values compare unequal.  A context cost (``spec.context``
+    ``[T, ...]``) is probed with one random context per stage index, drawn
+    from the same stream after the points; it may be quadratic but is never
+    stationary (the context varies over t).
     """
-    if spec.context is not None:
-        raise NotImplementedError(
-            "context costs are not ported yet (ROADMAP queue 1, AL and context)")
     d = spec.derivs
     nx, nu, T = spec.state_dim, spec.control_dim, spec.horizon_steps
+    has_ctx = spec.context is not None
     rng = np.random.RandomState(0xC057)
     dev = spec.initial_state.device
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     x_pts = [f32(rng.standard_normal(nx)) for _ in range(2)]
     u_pts = [f32(rng.standard_normal(nu)) for _ in range(2)]
+    ctx = [f32(rng.standard_normal(tuple(spec.context.shape[1:]))) if has_ctx else None
+           for _ in range(2)]
 
-    def blocks(x, u, t):
-        tt = torch.tensor(t, dtype=torch.int32, device=dev)
-        return tuple(f(x, u, tt).detach().cpu().double().numpy() for f in (d.lxx, d.luu, d.lux))
+    def blocks(x, u, t, c):
+        args = (x, u, torch.tensor(t, dtype=torch.int32, device=dev)) + ((c,) if has_ctx else ())
+        return tuple(f(*args).detach().cpu().double().numpy() for f in (d.lxx, d.luu, d.lux))
 
     def match(a, b):
         return all(
@@ -170,13 +185,13 @@ def probe_cost_structure(spec: OCPSpec) -> "tuple[bool, bool]":
             for p, q in zip(a, b)
         )
 
-    q00 = blocks(x_pts[0], u_pts[0], 0)
-    q01 = blocks(x_pts[1], u_pts[1], 0)
-    q10 = blocks(x_pts[0], u_pts[0], T - 1)
-    q11 = blocks(x_pts[1], u_pts[1], T - 1)
+    q00 = blocks(x_pts[0], u_pts[0], 0, ctx[0])
+    q01 = blocks(x_pts[1], u_pts[1], 0, ctx[0])
+    q10 = blocks(x_pts[0], u_pts[0], T - 1, ctx[1])
+    q11 = blocks(x_pts[1], u_pts[1], T - 1, ctx[1])
     p_terms = tuple((d.phixx(x).detach().cpu().double().numpy(),) for x in x_pts)
     quadratic = match(q00, q01) and match(q10, q11) and match(*p_terms)
-    stationary = quadratic and match(q00, q10)
+    stationary = quadratic and not has_ctx and match(q00, q10)
     return quadratic, stationary
 
 
@@ -243,9 +258,7 @@ def _check_route(specs: OCPSpec, config: ILQRConfig, backward: str, fused) -> No
         raise _not_ported(f"the scan backward pass (backward={backward!r})",
                           "queue 1, non-fused pure-torch iLQR")
     if specs.eq_dim > 0 or specs.ineq_dim > 0:
-        raise _not_ported("AL constraints", "queue 1, AL and context")
-    if specs.context is not None:
-        raise _not_ported("per-stage context costs", "queue 1, AL and context")
+        raise _not_ported("AL constraints", "queue 1, AL constraints and K6's AL mode")
     if not specs.objective_is_default:
         raise _not_ported("a user objective_function", "queue 1, non-fused pure-torch iLQR")
     if specs.derivative_mode != "ad":
@@ -256,18 +269,25 @@ def _check_route(specs: OCPSpec, config: ILQRConfig, backward: str, fused) -> No
 
 def _unbatch(specs: OCPSpec) -> OCPSpec:
     """One problem's spec (statics carrier for the cost probe)."""
-    return specs.replace(initial_state=specs.initial_state[0],
-                         initial_controls=specs.initial_controls[0])
+    return specs.replace(
+        initial_state=specs.initial_state[0], initial_controls=specs.initial_controls[0],
+        context=None if specs.context is None else specs.context[0])
 
 
-def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps = KERNEL_OPS) -> SolveResult:
+def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps = None,
+                             structure=None) -> SolveResult:
     """The fused loop on the device of ``specs``.
 
     Spec leaves carry a leading batch axis (``initial_state [B, nx]``,
-    ``initial_controls [B, T, nu]``, bounds ``[nu]`` or ``[B, nu]``).
-    ``ops`` picks the kernels (default) or, with :data:`PLAIN_OPS`, the
-    plain versions on the same device.
+    ``initial_controls [B, T, nu]``, bounds ``[nu]`` or ``[B, nu]``,
+    ``context [B, T, K, C]``).  ``ops`` picks the kernels (None:
+    :data:`KERNEL_OPS`) or, with :data:`PLAIN_OPS`, the plain versions on
+    the same device.
+    ``structure``: the cost's ``(quadratic, stationary)`` when the caller
+    has resolved it already (a strategy resolves it once for all its
+    sweeps); None resolves it here.
     """
+    ops = KERNEL_OPS if ops is None else ops
     B, nx = specs.initial_state.shape
     T, nu = specs.horizon_steps, specs.control_dim
     dev = specs.initial_state.device
@@ -283,6 +303,9 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
 
     x0 = pack(specs.initial_state, (1, 0))                               # [nx, B]
     us = pack(specs.initial_controls, (1, 2, 0))                         # [T, nu, B]
+    ctx = None
+    if specs.context is not None:                                        # [T, ..., B]
+        ctx = pack(specs.context, tuple(range(1, specs.context.dim())) + (0,))
     lb = ub = None
     if specs.has_input_bounds:
         lb = pack(specs.input_lower_bounds.expand(B, nu), (1, 0))
@@ -293,20 +316,22 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     ladder_short = tuple(float(a) for a in config.alpha_ladder) if config.alpha_ladder else ladder_full
     use_schedule = config.alpha_warmup > 0 and ladder_short != ladder_full
 
-    xs_tail, cost = ops.rollout(specs, x0, us)
+    xs_tail, cost = ops.rollout(specs, x0, us, ctx)
     xs = torch.cat([x0[None], xs_tail[:-1]], 0)                          # x_0..x_{T-1}
     xT = xs_tail[-1].clone()
 
     # Quadratic-cost hoisting: the Hessian stacks do not depend on the
     # trajectory, so they are computed once -- one block per problem for a
     # stationary cost, one per stage otherwise.
-    quad, stationary = resolve_cost_structure(_unbatch(specs), config)
+    if structure is None:
+        structure = resolve_cost_structure(_unbatch(specs), config)
+    quad, stationary = structure
     fusedlin = stationary and config.stationary_fusedlin
     hess = None
     if stationary:
         hess = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True)[4:]
     elif quad:
-        hess = ops.linearize(specs, xs, us, True)[4:]
+        hess = ops.linearize(specs, xs, us, True, ctx)[4:]
     levels = _k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
 
     converged = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -323,12 +348,12 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
         if fusedlin:
             k, K = ops.riccati(specs, xs, us, *(h[0] for h in hess), xT, levels, blb, bub)
         else:
-            lin = ops.linearize(specs, xs, us, hess is None)
+            lin = ops.linearize(specs, xs, us, hess is None, ctx)
             if hess is not None:
                 lin = lin + tuple(hess)
             k, K = ops.riccati_backward(specs, *lin, xT, levels, blb, bub)
         ladder = ladder_full if use_schedule and it < config.alpha_warmup else ladder_short
-        cost, _ = ops.select(specs, xs, us, xT, k, K, merit, active, lb, ub, ladder)
+        cost, _ = ops.select(specs, xs, us, xT, k, K, merit, active, lb, ub, ladder, ctx)
         converged = converged | (active & (merit - cost < config.tolerance))
         it += 1
 
@@ -356,17 +381,47 @@ def solve_ilqr_batched(
     Runs on ``device`` (default ``"cuda"``; raises when CUDA is absent):
     the spec's tensors are moved there, and the fused loop runs its CUDA
     kernels on the card, or the plain PyTorch versions on ``"cpu"``.  The
-    JAX router's fused branches for unconstrained, context-free problems
-    in AD mode are ported (clamp and boxqp); every other branch raises
-    ``NotImplementedError``.
+    JAX router's fused branches for unconstrained problems in AD mode are
+    ported (clamp and boxqp, with or without a per-stage context); every
+    other branch raises ``NotImplementedError``.
     """
+    return solve_ilqr_batched_fused(_routed(specs, config, backward, fused, device), config)
+
+
+def _routed(specs: OCPSpec, config: ILQRConfig, backward, fused, device) -> OCPSpec:
+    """``specs`` on ``device`` once the route is checked."""
     dev = resolve_device(device)
     _check_route(specs, config, backward, fused)
     move = lambda t: None if t is None else t.to(dev)
-    specs = specs.replace(
+    return specs.replace(
         initial_state=move(specs.initial_state),
         initial_controls=move(specs.initial_controls),
         input_lower_bounds=move(specs.input_lower_bounds),
         input_upper_bounds=move(specs.input_upper_bounds),
+        context=move(specs.context),
     )
-    return solve_ilqr_batched_fused(specs, config)
+
+
+@register_solver
+class ILQR(SolverBase):
+    """The iLQR solver with the reference's ``set_params`` surface.
+
+    ``device`` (default ``"cuda"``) is where its batched solves run;
+    ``ops`` picks the kernels (None: :data:`KERNEL_OPS`) or
+    :data:`PLAIN_OPS`.
+    """
+
+    name = "ilqr"
+    config_cls = ILQRConfig
+
+    def __init__(self, device="cuda", ops: FusedOps = None, **params):
+        self.ops = ops
+        super().__init__(device=device, **params)
+
+    def _solve_batched_fn(self, specs: OCPSpec, config: ILQRConfig, structure=None) -> SolveResult:
+        specs = _routed(specs, config, "auto", "auto", self.device)
+        return solve_ilqr_batched_fused(specs, config, self.ops, structure)
+
+    def resolve_structure(self, specs: OCPSpec, config: ILQRConfig):
+        """The cost's ``(quadratic, stationary)`` of batched ``specs``."""
+        return resolve_cost_structure(_unbatch(specs), config)

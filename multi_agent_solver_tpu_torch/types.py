@@ -5,7 +5,8 @@ plain functions over ``torch.Tensor`` values written on ``x[..., i]``, so
 every leading axis (batch, time) broadcasts:
 
 * ``MotionModel``          ``f(x [..., nx], u [..., nu]) -> [..., nx]``
-* ``StageCostFunction``    ``l(x, u, t) -> [...]``
+* ``StageCostFunction``    ``l(x, u, t) -> [...]``, or ``l(x, u, t, ctx_t)``
+  with a per-stage context (``ocp.with_context_cost``)
 * ``TerminalCostFunction`` ``lT(x) -> [...]``
 
 A torch callable cannot run inside a CUDA kernel.  A callable that has a
@@ -60,12 +61,26 @@ class DeviceFn:
 
     name: str
     params: tuple = ()
+    # A composed function's part tags, in the order its template takes them.
+    parts: tuple = ()
+
+    @property
+    def takes_context(self) -> bool:
+        """True for a stage cost that reads a per-stage context."""
+        return self.name.startswith("coupled_")
 
 
 def tag_device_fn(fn: Callable, name: str, params=()) -> Callable:
     """Attach a :class:`DeviceFn` tag to ``fn`` and return ``fn``."""
     fn.device_fn = DeviceFn(name, tuple(float(p) for p in params))
     return fn
+
+
+def coupled_device_fn(base: DeviceFn, pair: DeviceFn) -> DeviceFn:
+    """The tag of ``Coupled<Base, Pair>`` in ``csrc/problems.cuh``: the stage
+    cost ``base(x, u) + sum_k pair(x, ctx_t[k])``.  Its parameters are the
+    base's followed by the pair's."""
+    return DeviceFn(f"coupled_{base.name}_{pair.name}", base.params + pair.params, (base, pair))
 
 
 def device_fn_of(fn: Callable) -> Optional[DeviceFn]:

@@ -23,10 +23,11 @@ from multi_agent_solver_tpu.solvers.ilqr import solve_ilqr_batched as j_solve
 from multi_agent_solver_tpu_torch import OCP, entry
 from multi_agent_solver_tpu_torch.derivatives import make_derivatives
 from multi_agent_solver_tpu_torch.models import single_track_model
-from multi_agent_solver_tpu_torch.ocp import zero_terminal_cost
+from multi_agent_solver_tpu_torch.ocp import with_context_cost, zero_terminal_cost
 from multi_agent_solver_tpu_torch.ops import forward_select as k2
 from multi_agent_solver_tpu_torch.ops import linearize as k3
 from multi_agent_solver_tpu_torch.ops import riccati as k1
+from multi_agent_solver_tpu_torch.solvers import make_solver
 from multi_agent_solver_tpu_torch.solvers.ilqr import ILQRConfig, solve_ilqr_batched
 from multi_agent_solver_tpu_torch.utils.carry import config_from_dict, spec_from_numpy
 
@@ -141,12 +142,43 @@ def test_time_varying_cost_hoists_per_stage_hessians():
 
 
 def _context_specs():
+    """The lane-follow batch tracking a per-stage lateral reference given as
+    its context ``[B, T, 1]``: quadratic in (x, u), not stationary."""
     specs = entry.bench_specs(2, device="cpu", horizon=10)
-    return specs.replace(context=torch.zeros(2, 10, 3))
+
+    def cost(x, u, t, ctx):
+        return (10.0 * (x[..., 1] - ctx[..., 0]) ** 2 + (x[..., 3] - 1.0) ** 2
+                + 0.1 * u[..., 0] ** 2 + 0.1 * u[..., 1] ** 2)
+
+    ref = torch.linspace(0.0, 0.5, 10).expand(2, 10)[..., None].contiguous()
+    return with_context_cost(specs, cost).replace(context=ref)
+
+
+def test_context_cost_hoists_per_stage_hessians():
+    """A context cost takes the fused loop: quadratic with a context, K3
+    hoists per-stage Hessians once in context mode, then K3 without
+    Hessians, K4 and K2 select run with the context every iteration; the
+    result is bit-identical to the general branch, and the reference moves
+    it."""
+    specs = _context_specs()
+    stats = (k1.BACKWARD_STATS, k2.CTX_STATS, k3.CTX_STATS, k2.STATS, k3.STATS)
+    for s in stats:
+        s.reset()
+    hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, device="cpu")
+    it = int(hoisted.iterations[0])
+    assert [s.plain_calls for s in stats] == [it, 1 + it, 1 + it, 0, 0]
+    general = solve_ilqr_batched(
+        specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), device="cpu")
+    assert torch.isfinite(hoisted.cost).all()
+    assert torch.equal(hoisted.cost, general.cost)
+    assert torch.equal(hoisted.controls, general.controls)
+    fixed = solve_ilqr_batched(specs.replace(context=torch.zeros(2, 10, 1)), entry.BENCH_CONFIG,
+                               device="cpu")
+    assert not torch.allclose(fixed.controls, hoisted.controls)
 
 
 @pytest.mark.parametrize("case", [
-    "al_constrained", "context_cost", "ddp", "differentiable", "not_fused",
+    "al_constrained", "ddp", "differentiable", "not_fused",
     "fd_derivatives", "continuous_jacobians", "scan_backward", "user_objective",
 ])
 def test_unported_branches_raise(case):
@@ -154,8 +186,6 @@ def test_unported_branches_raise(case):
     config, kwargs = entry.BENCH_CONFIG, {}
     if case == "al_constrained":
         specs = _constrained_specs()
-    elif case == "context_cost":
-        specs = _context_specs()
     elif case == "fd_derivatives":
         specs = specs.replace(derivative_mode="fd")
     elif case == "user_objective":
@@ -182,3 +212,10 @@ def test_cuda_default_device_raises_without_cuda():
         solve_ilqr_batched(entry.bench_specs(2, device="cpu", horizon=10), ILQRConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         entry.single_track_spec()
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry.coupled_game(2)
+    problem, _ = entry.coupled_game(2, device="cpu")
+    _, strategy = entry.coupled_game(2, device="cpu")
+    strategy.solver_proto = make_solver("ilqr")
+    with pytest.raises(RuntimeError, match="cuda"):
+        strategy(problem)
