@@ -87,6 +87,16 @@ __device__ __forceinline__ Dual<S, N> operator-(const Dual<S, N>& a, float c) {
   return r;
 }
 
+// c - a: the tangent is -a's (JAX's rule for a constant minus a variable).
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> operator-(float c, const Dual<S, N>& a) {
+  Dual<S, N> r;
+  r.v = c - a.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+
 template <typename S, int N>
 __device__ __forceinline__ Dual<S, N> operator*(const Dual<S, N>& a, const Dual<S, N>& b) {
   Dual<S, N> r;

@@ -190,6 +190,74 @@ __device__ __forceinline__ S stage_cost(const Cost& cost, const S* x, const S* u
     return cost(x, u);
 }
 
+// Path constraints g(x, u) -> [M] (AL rows; the fused loop folds their
+// Jacobians in torch, so the kernels evaluate only values).  Each struct
+// has M rows, from(params), ok() (parameters the kernel can take) and
+// eval<NX, NU>(x, u, g) on scalars of any type S.
+
+// No rows (types.no_constraint): the side of an AL instantiation without
+// constraints.
+struct NoConstraint {
+  static constexpr int M = 0;
+  static NoConstraint from(const float*) { return NoConstraint{}; }
+  bool ok(int, int) const { return true; }
+
+  template <int NX, int NU, typename S>
+  __device__ __forceinline__ void eval(const S*, const S*, S*) const {}
+};
+
+// Rows of components against constants (ocp.bound_rows): row r reads
+// (code, index, value) from params[3 r ..]: code 0 x[i] - v, 1 v - x[i],
+// 2 u[i] - v, 3 v - u[i] -- the expression of the torch callable, so
+// v - x[i] is never computed as -(x[i] - v).  The component is picked by
+// an unrolled select, so x and u stay in registers.
+template <int M_>
+struct BoundRows {
+  static constexpr int M = M_;
+  int code[M], index[M];
+  float value[M];
+
+  static BoundRows from(const float* p) {
+    BoundRows c;
+    for (int r = 0; r < M; ++r) {
+      c.code[r] = static_cast<int>(p[3 * r]);
+      c.index[r] = static_cast<int>(p[3 * r + 1]);
+      c.value[r] = p[3 * r + 2];
+    }
+    return c;
+  }
+
+  bool ok(int nx, int nu) const {
+    for (int r = 0; r < M; ++r)
+      if (code[r] < 0 || code[r] > 3 || index[r] < 0 || index[r] >= (code[r] < 2 ? nx : nu))
+        return false;
+    return true;
+  }
+
+  template <int NX, int NU, typename S>
+  __device__ __forceinline__ void eval(const S* x, const S* u, S* g) const {
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const bool on_x = code[r] < 2;
+      S c = on_x ? x[0] : u[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j)
+        if (on_x && index[r] == j) c = x[j];
+#pragma unroll
+      for (int j = 1; j < NU; ++j)
+        if (!on_x && index[r] == j) c = u[j];
+      if (code[r] & 1)
+        g[r] = value[r] - c;
+      else
+        g[r] = c - value[r];
+    }
+  }
+};
+
+// NaN-propagating max(h, 0), as jnp.maximum and torch.maximum behave
+// (fmaxf drops a NaN).
+__device__ __forceinline__ float max0_nan(float h) { return h != h ? h : fmaxf(h, 0.0f); }
+
 // Zero terminal cost (ocp.zero_terminal_cost).
 struct ZeroTerminal {
   static ZeroTerminal from(const float*) { return ZeroTerminal{}; }

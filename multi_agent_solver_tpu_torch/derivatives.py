@@ -12,16 +12,18 @@ finite-difference parity mode is not ported yet.
   argument, a constant of the derivatives (only ``x`` and ``u`` are
   differentiated)
 * ``phix(x) -> [nx]``, ``phixx(x) -> [nx, nx]``
+* ``eq_gx/ineq_gx(x, u) -> [m, nx]``, ``eq_gu/ineq_gu(x, u) -> [m, nu]``:
+  the constraint Jacobians, None where the problem has no such constraint
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from torch.func import grad, jacfwd
 
-from .types import MotionModel, StageCostFunction, TerminalCostFunction
+from .types import ConstraintsFunction, MotionModel, StageCostFunction, TerminalCostFunction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +39,10 @@ class Derivatives:
     lux: Callable
     phix: Callable
     phixx: Callable
+    eq_gx: Optional[Callable] = None
+    eq_gu: Optional[Callable] = None
+    ineq_gx: Optional[Callable] = None
+    ineq_gu: Optional[Callable] = None
 
     def replace(self, **kwargs) -> "Derivatives":
         return dataclasses.replace(self, **kwargs)
@@ -46,11 +52,15 @@ def make_derivatives(
     dynamics: MotionModel,
     stage_cost: StageCostFunction,
     terminal_cost: TerminalCostFunction,
+    equality_constraints: Optional[ConstraintsFunction] = None,
+    inequality_constraints: Optional[ConstraintsFunction] = None,
     mode: str = "ad",
     **overrides,
 ) -> Derivatives:
     """Build the AD oracle bundle; any oracle may be overridden by an
-    analytic callable (``overrides`` keys are :class:`Derivatives` fields)."""
+    analytic callable (``overrides`` keys are :class:`Derivatives` fields).
+    The constraint Jacobians are taken by ``jacfwd`` (None without the
+    constraint)."""
     if mode != "ad":
         raise NotImplementedError(
             f"derivative mode {mode!r}: only 'ad' is ported (the 'fd' parity "
@@ -66,6 +76,10 @@ def make_derivatives(
         lux=jacfwd(grad(stage_cost, argnums=1), argnums=0),
         phix=grad(terminal_cost),
         phixx=jacfwd(grad(terminal_cost)),
+        eq_gx=jacfwd(equality_constraints, argnums=0) if equality_constraints else None,
+        eq_gu=jacfwd(equality_constraints, argnums=1) if equality_constraints else None,
+        ineq_gx=jacfwd(inequality_constraints, argnums=0) if inequality_constraints else None,
+        ineq_gu=jacfwd(inequality_constraints, argnums=1) if inequality_constraints else None,
     )
     overrides = {k: v for k, v in overrides.items() if v is not None}
     unknown = set(overrides) - {f.name for f in dataclasses.fields(Derivatives)}

@@ -8,6 +8,10 @@
 * The coupled Nash game of ``scripts/bench_multi_agent.py::bench_coupled``:
   the same cars coupled by a collision cost, played by the ``sequential``
   strategy at 64 agents (all pairs), 256 and 1,024 (8 nearest neighbours).
+* The AL-constrained batched solves: the main-path batch with state bounds
+  folded into four AL inequality rows (``state_bound_specs``,
+  :data:`AL_CONFIG`), and the input-pinning equality problem of
+  ``tests/test_constraints.py`` (``equality_specs``, :data:`EQ_CONFIG`).
 
 ``chip_smoke.py`` and the tests use them.
 """
@@ -19,7 +23,8 @@ import torch
 
 from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
 from .multi_agent import MultiAgentProblem
-from .ocp import OCP, OCPSpec, diagonal_quadratic_cost
+from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost,
+                  with_state_bound_constraints)
 from .models import (
     single_track_control_jacobian,
     single_track_model,
@@ -46,6 +51,18 @@ SWEEP_CONFIG = ILQRConfig(max_iterations=100, tolerance=1e-5)
 COUPLING, MAX_OUTER = 25.0, 10
 COUPLED_PARAMS = {"max_iterations": 100, "tolerance": 1e-5, "max_ms": 1e9}
 COUPLED_ROWS = ((64, None), (256, 8), (1024, 8))
+# The AL configurations: the main path's state bounds (the speed cap binds,
+# the cost pulls v to 1) and solver configuration, and the equality
+# problem's configuration.
+INF = float("inf")
+STATE_LOWER, STATE_UPPER = (-INF, -0.1, -INF, 0.0), (INF, 1.6, INF, 0.8)
+AL_CONFIG = ILQRConfig(max_iterations=40, tolerance=1e-5, constraint_tolerance=1e-3,
+                       alpha_ladder=(1.0, 0.5, 0.125))
+EQ_CONFIG = ILQRConfig(max_iterations=40, tolerance=1e-8, constraint_tolerance=1e-3)
+# y^2 + 0.1 delta^2 + 0.1 a^2 with a pinned to 0.3 by the equality row.
+EQ_COST = diagonal_quadratic_cost(w_x=(0.0, 1.0, 0.0, 0.0), r_x=(0.0, 0.0, 0.0, 0.0),
+                                  w_u=(0.1, 0.1), r_u=(0.0, 0.0))
+EQ_ROW = bound_rows(("u", 1, 0.3, "upper"))
 
 
 def single_track_spec(horizon: int = 80, dtype=torch.float32, device="cuda") -> OCPSpec:
@@ -127,3 +144,34 @@ def coupled_game(n_agents: int, neighbors=None, max_outer: int = MAX_OUTER, para
     strategy = make_strategy("sequential", solver, COUPLED_PARAMS if params is None else params,
                              max_outer)
     return problem, strategy
+
+
+def state_bound_specs(batch: int, device="cuda", horizon: int = 80) -> OCPSpec:
+    """The main-path batch (``bench_specs``) with the state bounds
+    :data:`STATE_LOWER` / :data:`STATE_UPPER` folded into the inequality
+    rows ``y - 1.6``, ``v - 0.8``, ``-0.1 - y`` and ``0 - v``."""
+    spec = single_track_spec(horizon, device=device)
+    bound = lambda b: torch.tensor(b, dtype=spec.initial_state.dtype, device=spec.initial_state.device)
+    spec = spec.replace(state_lower_bounds=bound(STATE_LOWER), state_upper_bounds=bound(STATE_UPPER))
+    return batch_specs(with_state_bound_constraints(spec), bench_x0(batch))
+
+
+def equality_x0(batch: int, seed: int = 1) -> np.ndarray:
+    """The equality problem's initial states ``(0, y, 0.3, 0.5)``, ``y``
+    drawn U(0.25, 0.75) from ``RandomState(seed)``."""
+    x0 = np.tile(np.array([0.0, 0.5, 0.3, 0.5], np.float32), (batch, 1))
+    x0[:, 1] = np.random.RandomState(seed).uniform(0.25, 0.75, batch)
+    return x0
+
+
+def equality_specs(batch: int, device="cuda", horizon: int = 30) -> OCPSpec:
+    """``tests/test_constraints.py``'s equality problem, batched: cost
+    :data:`EQ_COST`, no input bounds, ``u[1] - 0.3 = 0`` at every stage,
+    x0 from :func:`equality_x0`."""
+    ocp = OCP(state_dim=4, control_dim=2, horizon_steps=horizon, dt=0.1,
+              initial_state=torch.tensor([0.0, 0.5, 0.3, 0.5]), dynamics=single_track_model,
+              stage_cost=EQ_COST, dynamics_state_jacobian=single_track_state_jacobian,
+              dynamics_control_jacobian=single_track_control_jacobian,
+              equality_constraints=EQ_ROW, device=device)
+    ocp.initialize_problem()
+    return batch_specs(ocp.spec(), equality_x0(batch))

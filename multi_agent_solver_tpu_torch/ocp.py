@@ -12,18 +12,27 @@ PyTorch counterpart of the solver-facing part of
 * :func:`with_context_cost` -- a spec whose stage cost takes a per-stage
   context ``stage_cost(x, u, t, ctx_t)``: how the other agents' plans reach
   one agent's solve in a coupled game.
+* :func:`bound_rows` -- path constraints whose rows are components of
+  ``x`` or ``u`` against constants, with a CUDA device function, and
+  :func:`with_state_bound_constraints` -- the transform that folds finite
+  state bounds into inequality rows for the AL machinery (the only way
+  iLQR honours state bounds).
 
 Trajectories are time-major (``[..., T+1, nx]`` / ``[..., T, nu]``).
-Constraints are carried so that the solver can refuse them; the AL
-machinery and state-bound transforms are not ported yet.
+Path constraints ``g(x [..., nx], u [..., nu]) -> [..., m]`` (equalities
+``g = 0``, inequalities ``h <= 0``) reach the solver through the spec and
+its Jacobian oracles (``derivs.eq_gx`` ...).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Optional
 
 import torch
+from torch.func import jacfwd
 
 from .derivatives import Derivatives, make_derivatives
 from .integrators import integrate_horizon
@@ -77,6 +86,42 @@ def diagonal_quadratic_cost(w_x, r_x, w_u, r_u) -> Callable:
     return tag_device_fn(stage_cost, "diag_quadratic", w_x + r_x + w_u + r_u)
 
 
+# Row codes of BoundRows in csrc/problems.cuh: (variable, side) -> code.
+_ROW_CODES = {("x", "upper"): 0, ("x", "lower"): 1, ("u", "upper"): 2, ("u", "lower"): 3}
+
+
+def bound_rows(*rows) -> Callable:
+    """Path constraint ``g(x, u) -> [..., M]`` with one row per
+    ``(var, i, v, side)`` of ``rows``: ``var[..., i] - v`` for
+    ``side="upper"`` (``var_i <= v`` as an inequality) and
+    ``v - var[..., i]`` for ``"lower"``, ``var`` being ``"x"`` or ``"u"``.
+
+    The callable carries the tag of ``BoundRows<M>`` in
+    ``csrc/problems.cuh``, which evaluates each row with the same
+    expression (``v - x_i`` is not computed as ``-(x_i - v)``); ``rows``
+    is kept on it as ``fn.rows``.
+    """
+    rows = tuple((str(var), int(i), float(v), str(side)) for var, i, v, side in rows)
+    if not rows:
+        raise ValueError("bound_rows needs at least one row")
+    for var, i, _, side in rows:
+        if (var, side) not in _ROW_CODES or i < 0:
+            raise ValueError(f"bad row ({var!r}, {i}, ..., {side!r}): var is 'x' or 'u', "
+                             "side 'upper' or 'lower', i >= 0")
+
+    def constraints(x: Tensor, u: Tensor) -> Tensor:
+        out = []
+        for var, i, v, side in rows:
+            c = (x if var == "x" else u)[..., i]
+            out.append(c - v if side == "upper" else v - c)
+        return torch.stack(torch.broadcast_tensors(*out), -1)
+
+    params = [p for var, i, v, side in rows for p in (_ROW_CODES[var, side], i, v)]
+    fn = tag_device_fn(constraints, f"bound_rows{len(rows)}", params)
+    fn.rows = rows
+    return fn
+
+
 @dataclasses.dataclass(frozen=True)
 class OCPSpec:
     """Frozen problem spec (the solver-facing counterpart of the JAX pytree)."""
@@ -85,6 +130,8 @@ class OCPSpec:
     initial_controls: Tensor                     # [T, nu] or [B, T, nu]
     input_lower_bounds: Optional[Tensor] = None  # [nu] or [B, nu]
     input_upper_bounds: Optional[Tensor] = None
+    state_lower_bounds: Optional[Tensor] = None  # [nx]; -inf = no bound
+    state_upper_bounds: Optional[Tensor] = None
     # Per-stage cost context [T, ...] (or [B, T, ...]): when present the
     # stage cost is called as stage_cost(x, u, t, context_t).
     context: Optional[Tensor] = None
@@ -155,8 +202,65 @@ def with_context_cost(spec: OCPSpec, stage_cost_ctx: Callable) -> OCPSpec:
     if spec.derivative_mode != "ad":
         raise ValueError("context costs require AD derivative mode")
     derivs = make_derivatives(spec.dynamics, stage_cost_ctx, spec.terminal_cost,
+                              spec.equality_constraints, spec.inequality_constraints,
                               fx=spec.derivs.fx, fu=spec.derivs.fu)
     return spec.replace(stage_cost=stage_cost_ctx, derivs=derivs)
+
+
+@functools.lru_cache(maxsize=None)
+def _state_bound_ineq_fns(base_fn, lb_key, ub_key, mode):
+    """Memoized ``(g, gx, gu, extra)``: the constraint stacking the finite
+    state-bound rows ``x_i - ub_i <= 0`` (each finite ``ub``), then
+    ``lb_i - x_i <= 0`` (each finite ``lb``), under the rows of
+    ``base_fn``; its Jacobian oracles; the number of rows added.  Keys are
+    float tuples, so problems that share bounds share the functions.  A
+    tagged (``bound_rows``) or absent base gives a tagged ``bound_rows``
+    constraint, any other base an untagged one."""
+    if mode != "ad":
+        raise NotImplementedError(
+            f"derivative mode {mode!r}: only 'ad' is ported (ROADMAP: queue 1, model zoo "
+            "and derivative oracles)")
+    new = tuple(("x", i, v, "upper") for i, v in enumerate(ub_key or ()) if math.isfinite(v))
+    new += tuple(("x", i, v, "lower") for i, v in enumerate(lb_key or ()) if math.isfinite(v))
+    if not new:
+        return None, None, None, 0
+    if base_fn is None or hasattr(base_fn, "rows"):
+        g = bound_rows(*(getattr(base_fn, "rows", ()) + new))
+    else:
+        rows = bound_rows(*new)
+
+        def g(x: Tensor, u: Tensor) -> Tensor:
+            b = base_fn(x, u)
+            r = rows(x, u)
+            return torch.cat([b.expand(r.shape[:-1] + b.shape[-1:]), r], -1)
+
+    return g, jacfwd(g, argnums=0), jacfwd(g, argnums=1), len(new)
+
+
+def with_state_bound_constraints(spec: OCPSpec) -> OCPSpec:
+    """Fold the spec's finite state bounds into its inequality constraints.
+
+    The reference enforces state bounds only in its QP solvers; its iLQR
+    and CGD ignore them.  This transform makes them visible to the AL
+    machinery: each finite entry of ``state_upper_bounds`` becomes a row
+    ``x_i - ub_i``, then each finite entry of ``state_lower_bounds`` a row
+    ``lb_i - x_i``, stacked under the existing inequality rows.  The spec
+    comes back unchanged when no bound is finite.
+    """
+    lb, ub = spec.state_lower_bounds, spec.state_upper_bounds
+    if lb is None and ub is None:
+        return spec
+    key = lambda b: None if b is None else tuple(
+        float(v) for v in torch.as_tensor(b).detach().cpu().reshape(-1))
+    g, gx, gu, extra = _state_bound_ineq_fns(
+        spec.inequality_constraints, key(lb), key(ub), spec.derivative_mode)
+    if extra == 0:
+        return spec
+    return spec.replace(
+        inequality_constraints=g,
+        ineq_dim=spec.ineq_dim + extra,
+        derivs=spec.derivs.replace(ineq_gx=gx, ineq_gu=gu),
+    )
 
 
 class OCP:
@@ -180,6 +284,8 @@ class OCP:
 
         self.input_lower_bounds = None
         self.input_upper_bounds = None
+        self.state_lower_bounds = None
+        self.state_upper_bounds = None
         self.equality_constraints = None
         self.inequality_constraints = None
 
@@ -239,7 +345,8 @@ class OCP:
             self.initial_controls = torch.zeros(shape, dtype=dtype, device=dev)
         else:
             self.initial_controls = torch.as_tensor(self.initial_controls, dtype=dtype, device=dev)
-        for name in ("input_lower_bounds", "input_upper_bounds"):
+        for name in ("input_lower_bounds", "input_upper_bounds", "state_lower_bounds",
+                     "state_upper_bounds"):
             value = getattr(self, name)
             if value is not None:
                 setattr(self, name, torch.as_tensor(value, dtype=dtype, device=dev))
@@ -257,6 +364,8 @@ class OCP:
                 self.dynamics,
                 self.stage_cost,
                 self.terminal_cost,
+                self.equality_constraints,
+                self.inequality_constraints,
                 mode=self.derivative_mode,
                 fx=self.dynamics_state_jacobian,
                 fu=self.dynamics_control_jacobian,
@@ -279,6 +388,8 @@ class OCP:
             initial_controls=self.initial_controls,
             input_lower_bounds=self.input_lower_bounds,
             input_upper_bounds=self.input_upper_bounds,
+            state_lower_bounds=self.state_lower_bounds,
+            state_upper_bounds=self.state_upper_bounds,
             dynamics=self.dynamics,
             stage_cost=self.stage_cost,
             terminal_cost=self.terminal_cost,

@@ -11,8 +11,10 @@ Each exported C function launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises on a non-zero code.
 Its symbol names the kernel and the device functions it was instantiated
 with (``mas_<kernel>__<dynamics>__<stage cost>[__<terminal cost>]``; a
-coupled stage cost is named ``coupled_<base>_<pair>``), so a problem
-without a matching instantiation raises ``NotImplementedError``.
+coupled stage cost is named ``coupled_<base>_<pair>``; the select kernel's
+AL mode appends ``__<equality>__<inequality>`` constraint names, ``none``
+for an absent side), so a problem without a matching instantiation raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ PARAM_COUNT = {
     "circular_track": lambda nx, nu: 6,
     "gaussian_collision": lambda nx, nu: 2,
     "zero": lambda nx, nu: 0,
+    "none": lambda nx, nu: 0,
 }
+BOUND_ROWS = "bound_rows"   # + M: BoundRows<M>, three parameters a row
 
 
 def _param_count(tag, nx: int, nu: int) -> int:
@@ -58,6 +62,8 @@ def _param_count(tag, nx: int, nu: int) -> int:
     (``Coupled``) reads its parts' in turn."""
     if tag.parts:
         return sum(_param_count(p, nx, nu) for p in tag.parts)
+    if tag.name.startswith(BOUND_ROWS):
+        return 3 * int(tag.name[len(BOUND_ROWS):])
     return PARAM_COUNT[tag.name](nx, nu) if tag.name in PARAM_COUNT else len(tag.params)
 
 

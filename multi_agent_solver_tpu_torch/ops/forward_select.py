@@ -21,6 +21,20 @@ Stage costs see the integer stage index, as in the TPU kernel.  Both modes
 take an optional per-stage context ``ctx [T, K, C, B]`` (the context mode
 of the select kernel, K6 in the ROADMAP's numbering): the stage cost is
 then ``stage_cost(x, u, t, ctx_t)``, as with the TPU kernel's ``ctx_l``.
+
+The select mode also has an AL mode (K6's other half, the TPU kernel's
+``eq_mult_l`` / ``ineq_mult_l`` / ``rho_l``): with ``rho [B]`` and the
+multipliers ``eq_mult [T, m_eq, B]`` and/or ``ineq_mult [T, m_in, B]``,
+every candidate's stage cost gains the AL merit terms of the spec's
+constraints at its ``(x_t, u_t)`` -- ``lambda g + 0.5 rho g g`` per
+equality row, ``(mu a) s + 0.5 rho s s`` per inequality row with the
+activation ``a = [h > -act_tol]`` and ``s = max(h, 0) a`` -- summed in
+row order and added to the stage cost before it joins the candidate's sum.
+Its launches are counted apart (``AL_STATS``); the kernel instantiation is
+named by the constraints' device-function tags (``none``, the tag of
+``types.no_constraint``, for an absent side), and an untagged constraint
+on a CUDA tensor raises
+``NotImplementedError``.  The rollout mode takes no AL.
 """
 
 from __future__ import annotations
@@ -30,17 +44,49 @@ import math
 import torch
 
 from ..integrators import integrate_rk4
-from ..types import Tensor
+from ..types import Tensor, no_constraint
 from ._build import (KernelStats, check_context, check_tensor, launch, problem_symbol,
                      step_constants)
 
 STATS = KernelStats()       # launches and plain calls without a context
 CTX_STATS = KernelStats()   # ... and with one (the context mode, K6)
+AL_STATS = KernelStats()    # ... and in the AL mode (K6)
 MAX_ALPHAS = 16   # candidate registers of the CUDA kernel
 
 
-def _stats(ctx) -> KernelStats:
+def _stats(ctx, al=False) -> KernelStats:
+    if al:
+        return AL_STATS
     return STATS if ctx is None else CTX_STATS
+
+
+def _constraint_rows(fn, x: Tensor, u: Tensor) -> Tensor:
+    """``fn(x [B, nx], u [B, nu])`` as ``[B, m]`` (a constant ``[m]``
+    broadcast)."""
+    g = fn(x, u)
+    return torch.broadcast_to(g, x.shape[:-1] + g.shape[-1:])
+
+
+def al_terms(spec, x, u, t, eq_mult, ineq_mult, half_rho, act_tol):
+    """AL merit terms at ``(x [B, nx], u [B, nu])`` of stage ``t``, in the
+    TPU kernel's order: from 0, per equality row ``lambda g + half_rho g g``,
+    then per inequality row ``(mu a) s + half_rho s s`` with
+    ``a = [h > -act_tol]`` and ``s = max(h, 0) a`` (NaN-propagating max)."""
+    total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    if eq_mult is not None:
+        g = _constraint_rows(spec.equality_constraints, x, u)
+        lam = eq_mult[t]
+        for m in range(lam.shape[0]):
+            total = total + lam[m] * g[:, m] + half_rho * g[:, m] * g[:, m]
+    if ineq_mult is not None:
+        h = _constraint_rows(spec.inequality_constraints, x, u)
+        lam = ineq_mult[t]
+        zero = h.new_zeros(())
+        for m in range(lam.shape[0]):
+            active = (h[:, m] > -act_tol).to(torch.float32)
+            s = torch.maximum(h[:, m], zero) * active
+            total = total + (lam[m] * active) * s + half_rho * s * s
+    return total
 
 
 def stage_fn(spec, ctx, t):
@@ -82,9 +128,12 @@ def rollout_cost_plain(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     return xs, torch.where(total < math.inf, total, torch.full_like(total, math.inf))
 
 
-def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
+def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None,
+                         eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
     """Plain PyTorch version of the K2 select mode (same in-place contract)."""
-    _stats(ctx).plain_calls += 1
+    has_al = rho is not None
+    _stats(ctx, has_al).plain_calls += 1
+    half_rho = 0.5 * rho if has_al else None
     T, nx, B = xs.shape
     lbT = lb.T if lb is not None else None
     ubT = ub.T if ub is not None else None
@@ -96,7 +145,10 @@ def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, 
         stage = stage_fn(spec, ctx, t)
         for a, alpha in enumerate(alphas):
             u = _control(xa[a], x_ref, u_ref, k_t, K_t, alpha, lbT, ubT)
-            ca[a] = ca[a] + stage(xa[a], u, t)
+            step = stage(xa[a], u, t)
+            if has_al:
+                step = step + al_terms(spec, xa[a], u, t, eq_mult, ineq_mult, half_rho, act_tol)
+            ca[a] = ca[a] + step
             xa[a] = integrate_rk4(xa[a], u, spec.dt, spec.dynamics)
 
     best = merit.clone()
@@ -141,54 +193,85 @@ def launch_rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     cost = torch.empty(B, dtype=torch.float32, device=x0.device)
     with torch.cuda.device(x0.device):
         launch(symbol, 1, x0, xs, us, None, None, None, None, None, None, None,
-               cost, None, ctx, T, B, n_ctx, nx, *params, step_constants(spec.dt), (0.0,), 1)
+               cost, None, ctx, None, None, None, 0.0, T, B, n_ctx, nx, 0, 0, *params,
+               step_constants(spec.dt), (0.0,), 1)
     _stats(ctx).launches += 1
     return xs, cost
 
 
-def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
+def forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None,
+                   eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
     """K2 select mode on the card for CUDA tensors, plain for CPU tensors.
 
     ``lb``/``ub`` are ``[nu, B]`` absolute bounds or both None (no clamp);
     ``active [B]`` is bool.  Updates ``xs``, ``us`` and ``xT`` in place.
+    The AL mode runs when ``rho [B]`` is given, with ``eq_mult
+    [T, m_eq, B]`` for the spec's equality constraints and/or
+    ``ineq_mult [T, m_in, B]`` for its inequalities.
     """
     alphas = tuple(float(a) for a in alphas)
     if not 1 <= len(alphas) <= MAX_ALPHAS:
         raise ValueError(f"{len(alphas)} alphas; the kernel takes 1..{MAX_ALPHAS}")
     if (lb is None) != (ub is None):
         raise ValueError("pass both bounds or neither")
+    if (rho is None) != (eq_mult is None and ineq_mult is None):
+        raise ValueError("the AL mode takes rho with eq_mult and/or ineq_mult")
+    args = (spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx, eq_mult, ineq_mult, rho,
+            float(act_tol))
     if xs.device.type == "cpu":
-        return forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx)
-    return launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx)
+        return forward_select_plain(*args)
+    return launch_forward_select(*args)
 
 
-def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None):
-    """The CUDA launch of the K2 select mode."""
+def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None,
+                          eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
+    """The CUDA launch of the K2 select mode (and of its AL mode)."""
     T, nx, B = xs.shape
     nu = us.shape[1]
     dev = xs.device
+    has_al = rho is not None
     for t, name, shape in ((xs, "xs", (T, nx, B)), (us, "us", (T, nu, B)),
                            (xT, "xT", (nx, B)), (k, "k", (T, nu, B)),
                            (K, "K", (T, nu, nx, B)), (merit, "merit", (B,))):
         check_tensor(t, name, shape, dev)
+    m_eq = m_in = 0
+    if has_al:
+        check_tensor(rho, "rho", (B,), dev)
+        if eq_mult is not None:
+            m_eq = spec.eq_dim
+            check_tensor(eq_mult, "eq_mult", (T, m_eq, B), dev)
+        if ineq_mult is not None:
+            m_in = spec.ineq_dim
+            check_tensor(ineq_mult, "ineq_mult", (T, m_in, B), dev)
     if lb is not None:
         check_tensor(lb, "lb", (nu, B), dev)
         check_tensor(ub, "ub", (nu, B), dev)
     if active.dtype != torch.bool or tuple(active.shape) != (B,) or active.device != dev \
             or not active.is_contiguous():
         raise ValueError("active: expected a contiguous bool tensor of shape (B,) on the card")
-    symbol, params = _symbol(spec, nx, nu)
+    if has_al:
+        eq_fn = spec.equality_constraints if eq_mult is not None else no_constraint
+        in_fn = spec.inequality_constraints if ineq_mult is not None else no_constraint
+        symbol, params = _symbol(spec, nx, nu, eq_fn, in_fn)
+    else:
+        symbol, params = _symbol(spec, nx, nu)
     n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
     merit_new = torch.empty(B, dtype=torch.float32, device=dev)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         launch(symbol, 0, None, xs, us, xT, k, K, merit, active, lb, ub, merit_new,
-               accept, ctx, T, B, n_ctx, nx, *params, step_constants(spec.dt), alphas,
-               len(alphas))
-    _stats(ctx).launches += 1
+               accept, ctx, eq_mult, ineq_mult, rho, act_tol, T, B, n_ctx, nx, m_eq, m_in,
+               *params, step_constants(spec.dt), alphas, len(alphas))
+    _stats(ctx, has_al).launches += 1
     return merit_new, accept
 
 
-def _symbol(spec, nx, nu):
-    return problem_symbol("forward_select", nx, nu, spec.dynamics, spec.stage_cost,
-                          spec.terminal_cost)
+def _symbol(spec, nx, nu, *constraints):
+    """Symbol and parameters of the instantiation for the spec's device
+    functions; the non-AL instantiations carry ``no_constraint`` on both
+    sides without naming them."""
+    symbol, params = problem_symbol("forward_select", nx, nu, spec.dynamics, spec.stage_cost,
+                                    spec.terminal_cost, *constraints)
+    if not constraints:
+        params = params + [(), ()]
+    return symbol, params

@@ -1,9 +1,8 @@
 """Batched iLQR: the lane-resident fused loop.
 
 PyTorch counterpart of ``multi_agent_solver_tpu/solvers/ilqr.py``
-(``ILQRConfig``, the cost-structure probe, the unconstrained branches of
-``_solve_ilqr_batched_fused`` with and without a per-stage context, and the
-``ILQR`` solver class).  Per solve it
+(``ILQRConfig``, the cost-structure probe, ``_solve_ilqr_batched_fused``
+with its lane AL machinery, and the ``ILQR`` solver class).  Per solve it
 launches K2 (``ops/forward_select.rollout_cost``) once for the initial
 rollout and cost, then by the cost structure that
 :func:`resolve_cost_structure` finds:
@@ -25,10 +24,28 @@ A spec with a per-stage ``context`` (a coupled Nash game's view of the
 other agents) packs it once per solve to ``[T, K, C, B]`` float32 and hands
 it to the initial rollout, the quadratic hoist, every K3 and every K2
 select (their context modes); a context cost is never stationary, so K1
-does not run.  Routing differs from the JAX package's ``fused="auto"`` on
-the CPU: JAX sends context (coupled) solves on the CPU to its
+does not run.
+
+A spec with path constraints (``eq_dim`` / ``ineq_dim`` > 0) is solved by
+the augmented Lagrangian of the reference's iLQR: per problem the
+multipliers ``[T, m, B]`` and a penalty ``rho [B]`` (from
+``config.penalty``) are carried.  Each iteration takes the constraint
+values and Jacobians at the current trajectory (``torch.func.jvp``
+against basis tangents), the merit (the objective plus the AL terms under
+the current multipliers), and folds the AL terms into the cost-derivative
+stacks before K4; K2 runs in its AL mode (K6), adding the same terms to
+every candidate's stage cost.  After the select the true objective of the
+kept trajectory, the multiplier updates and the penalty schedule
+(``rho * penalty_increase`` while a violation norm exceeds
+``constraint_tolerance``) follow; a problem converges once its merit stops
+improving and both violation norms are below the tolerance, and is then
+frozen.  An AL problem is never stationary, so K1 does not run.  AL with a
+context is not ported.
+
+Routing differs from the JAX package's ``fused="auto"`` on the CPU: JAX
+sends context (coupled) and AL-constrained solves on the CPU to its
 kernel-per-phase path and fuses them only off the CPU (or with
-``fused=1``); the port has no kernel-per-phase path yet, so a context solve
+``fused=1``); the port has no kernel-per-phase path yet, so such a solve
 takes the fused loop on every device -- with the CUDA kernels on the card
 and their plain versions on the CPU.
 
@@ -45,6 +62,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.func import jvp
 
 from ..ocp import OCPSpec
 from ..ops import forward_select as _k2
@@ -62,9 +80,13 @@ class ILQRConfig:
     ``lane_fold`` and ``time_unroll`` are TPU-layout knobs (sublane folding
     of batch tiles; time steps per sequential grid step) with no effect on
     CUDA, where every kernel runs one problem per thread and the time loop
-    inside it.  The AL, context, ddp, differentiable and non-fused fields
-    select branches that raise ``NotImplementedError`` here (see
-    :func:`solve_ilqr_batched`).
+    inside it.  ``penalty``, ``penalty_increase``, ``constraint_tolerance``
+    and ``inequality_activation_tolerance`` drive the AL machinery of
+    constrained problems; ``state_bounds_al`` is read by the JAX package's
+    single-problem ``solve`` (not ported: batched callers apply
+    ``ocp.with_state_bound_constraints`` themselves).  The ddp,
+    differentiable and non-fused fields select branches that raise
+    ``NotImplementedError`` here (see :func:`solve_ilqr_batched`).
     """
 
     max_iterations: int = 50
@@ -257,14 +279,157 @@ def _check_route(specs: OCPSpec, config: ILQRConfig, backward: str, fused) -> No
             backward == "auto" and not (specs.state_dim <= 16 and specs.control_dim <= 4)):
         raise _not_ported(f"the scan backward pass (backward={backward!r})",
                           "queue 1, non-fused pure-torch iLQR")
-    if specs.eq_dim > 0 or specs.ineq_dim > 0:
-        raise _not_ported("AL constraints", "queue 1, AL constraints and K6's AL mode")
+    if (specs.eq_dim > 0 or specs.ineq_dim > 0) and specs.context is not None:
+        raise _not_ported("AL constraints with a per-stage context",
+                          "queue 1, AL constraints with a context")
+    if not _constraints_batched(specs):
+        raise _not_ported("a constraint that does not give [..., m] on batched values",
+                          "queue 1, non-fused pure-torch iLQR")
     if not specs.objective_is_default:
         raise _not_ported("a user objective_function", "queue 1, non-fused pure-torch iLQR")
     if specs.derivative_mode != "ad":
         raise _not_ported("derivative_mode='fd'", "queue 1, model zoo and derivative oracles")
     if config.jacobian_mode != "discrete":
         raise _not_ported("jacobian_mode='continuous'", "queue 1, non-fused pure-torch iLQR")
+
+
+def _constraints_batched(specs: OCPSpec) -> bool:
+    """Do the constraint callables give ``[..., m]`` (or a constant ``[m]``)
+    on batched values ``x [2, nx]``, ``u [2, nu]``?  The counterpart of the
+    JAX router's ``_lane_constraints_traceable``."""
+    x = torch.zeros((2, specs.state_dim), dtype=torch.float32,
+                    device=specs.initial_state.device)
+    u = torch.zeros((2, specs.control_dim), dtype=torch.float32, device=x.device)
+    for fn, m in ((specs.equality_constraints, specs.eq_dim),
+                  (specs.inequality_constraints, specs.ineq_dim)):
+        if m == 0:
+            continue
+        try:
+            shape = tuple(fn(x, u).shape)
+        except Exception:
+            return False
+        if shape not in ((2, m), (m,)):
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# The lane AL machinery, batch innermost: values [T, m, B], Jacobians
+# [T, m, n, B], multipliers [T, m, B], rho [B] (ilqr.py:842-957 of the JAX
+# package).  Plain torch: elementwise math and sums over the rows and the
+# horizon, around the kernels.
+# ---------------------------------------------------------------------------
+
+
+def _lane_constraint_vals(constraint, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """``g [T, m, B]`` of ``constraint`` at ``(x_t, u_t)``."""
+    x, u = xs.permute(0, 2, 1), us.permute(0, 2, 1)                     # [T, B, n]
+    g = constraint(x, u)
+    return torch.broadcast_to(g, x.shape[:2] + g.shape[-1:]).permute(0, 2, 1).contiguous()
+
+
+def _lane_constraint_stacks(constraint, xs: torch.Tensor, us: torch.Tensor):
+    """``(g [T, m, B], Gx [T, m, nx, B], Gu [T, m, nu, B])``: the Jacobian
+    columns by ``torch.func.jvp`` against basis tangents, as the JAX
+    package's ``_lane_constraint_stacks``."""
+    x, u = xs.permute(0, 2, 1), us.permute(0, 2, 1)                     # [T, B, n]
+    g = constraint(x, u)
+    lead = x.shape[:2] + g.shape[-1:]                                   # [T, B, m]
+
+    def columns(fn, z):
+        cols = [torch.broadcast_to(jvp(fn, (z,), (_k3._basis(z.shape[-1], j, z),))[1], lead)
+                for j in range(z.shape[-1])]
+        return torch.stack(cols, -1).permute(0, 2, 3, 1).contiguous()   # [T, m, n, B]
+
+    return (torch.broadcast_to(g, lead).permute(0, 2, 1).contiguous(),
+            columns(lambda a: constraint(a, u), x), columns(lambda a: constraint(x, a), u))
+
+
+def _lane_objective(spec: OCPSpec, xs: torch.Tensor, xT: torch.Tensor, us: torch.Tensor):
+    """The true (un-augmented) objective per problem ``[B]``: the stage
+    costs at ``(x_t, u_t, t)`` summed over the horizon, plus the terminal
+    cost at ``x_T``.  ``t`` is the float stage index K3 passes."""
+    x, u = xs.permute(0, 2, 1), us.permute(0, 2, 1)
+    t = torch.arange(xs.shape[0], dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
+    stage = torch.broadcast_to(spec.stage_cost(x, u, t), x.shape[:2])
+    return stage.sum(0) + spec.terminal_cost(xT.T)
+
+
+def _activation(h: torch.Tensor, act_tol: float) -> torch.Tensor:
+    """``[h > -act_tol]`` as float32 (False for NaN)."""
+    return (h > -act_tol).to(h.dtype)
+
+
+def _lane_merit(objective, g, h, eq_mult, ineq_mult, rho, act_tol: float):
+    """The AL merit per problem: ``objective`` plus ``sum lambda g +
+    0.5 rho sum g^2`` over the equality values ``g`` and ``sum (mu a) s +
+    0.5 rho sum s^2`` over the inequality values ``h``, ``s = max(h, 0) a``
+    (the reference's compute_merit)."""
+    merit = objective
+    if g is not None:
+        merit = merit + (eq_mult * g).sum((0, 1))
+        merit = merit + 0.5 * rho * (g ** 2).sum((0, 1))
+    if h is not None:
+        active = _activation(h, act_tol)
+        active_slack = torch.maximum(h, h.new_zeros(())) * active
+        merit = merit + ((ineq_mult * active) * active_slack).sum((0, 1))
+        merit = merit + 0.5 * rho * (active_slack ** 2).sum((0, 1))
+    return merit
+
+
+def _outer(P, Q, w=None):
+    """``sum_m w_m P[:, m, i] Q[:, m, j]`` over the rows m: ``[T, i, j, B]``."""
+    total = None
+    for m in range(P.shape[1]):
+        term = P[:, m, :, None] * Q[:, m, None, :]
+        if w is not None:
+            term = term * w[:, m, None, None]
+        total = term if total is None else total + term
+    return total
+
+
+def _lane_al_fold(lin, stacks_eq, stacks_ineq, eq_mult, ineq_mult, rho, act_tol: float):
+    """The AL terms folded into the derivative stacks ``(A, B, lx, lu, lxx,
+    luu, lux)`` (the reference's _add_al_terms): gradients gain
+    ``G^T (lambda + rho g)``, Hessians ``rho G^T G``, inequality rows
+    weighted by their activation.  Out of place: the hoisted Hessians of
+    the quadratic branch are shared by every iteration."""
+    A, Bm, lx, lu, lxx, luu, lux = lin
+    for stacks, mult, eq in ((stacks_eq, eq_mult, True), (stacks_ineq, ineq_mult, False)):
+        if stacks is None:
+            continue
+        g, Gx, Gu = stacks
+        if eq:
+            w = None
+            dual = mult + rho * g
+        else:
+            w = _activation(g, act_tol)
+            dual = mult * w + rho * torch.maximum(g, g.new_zeros(())) * w
+        lx = lx + (Gx * dual[:, :, None]).sum(1)
+        lu = lu + (Gu * dual[:, :, None]).sum(1)
+        lxx = lxx + rho * _outer(Gx, Gx, w)
+        lux = lux + rho * _outer(Gu, Gx, w)
+        luu = luu + rho * _outer(Gu, Gu, w)
+    return A, Bm, lx, lu, lxx, luu, lux
+
+
+def _lane_dual_update(g, h, eq_mult, ineq_mult, rho, config: ILQRConfig):
+    """Multiplier and penalty updates at the kept trajectory's values:
+    ``lambda + rho g``, ``max(mu + rho max(h, 0), 0)``, the violation norms
+    ``sqrt(sum g^2)`` and ``sqrt(sum max(h, 0)^2)``, and ``rho *
+    penalty_increase`` where a norm exceeds ``constraint_tolerance``.
+    Returns ``(eq_mult, ineq_mult, rho, eq_viol, ineq_viol)``."""
+    eq_viol = ineq_viol = torch.zeros_like(rho)
+    if g is not None:
+        eq_mult = eq_mult + rho * g
+        eq_viol = torch.sqrt((g ** 2).sum((0, 1)))
+    if h is not None:
+        positive = torch.maximum(h, h.new_zeros(()))
+        ineq_mult = torch.maximum(ineq_mult + rho * positive, h.new_zeros(()))
+        ineq_viol = torch.sqrt((positive ** 2).sum((0, 1)))
+    tol = config.constraint_tolerance
+    rho = torch.where((eq_viol > tol) | (ineq_viol > tol), rho * config.penalty_increase, rho)
+    return eq_mult, ineq_mult, rho, eq_viol, ineq_viol
 
 
 def _unbatch(specs: OCPSpec) -> OCPSpec:
@@ -326,6 +491,10 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     if structure is None:
         structure = resolve_cost_structure(_unbatch(specs), config)
     quad, stationary = structure
+    eq_fn = specs.equality_constraints if specs.eq_dim > 0 else None
+    in_fn = specs.inequality_constraints if specs.ineq_dim > 0 else None
+    has_al = eq_fn is not None or in_fn is not None
+    stationary = stationary and not has_al
     fusedlin = stationary and config.stationary_fusedlin
     hess = None
     if stationary:
@@ -333,6 +502,13 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     elif quad:
         hess = ops.linearize(specs, xs, us, True, ctx)[4:]
     levels = _k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
+
+    # The AL carries: multipliers [T, m, B], penalty [B], violation norms [B].
+    act_tol = config.inequality_activation_tolerance
+    eq_viol = ineq_viol = torch.zeros(B, dtype=f32, device=dev)
+    eq_mult = torch.zeros((T, specs.eq_dim, B), dtype=f32, device=dev) if eq_fn else None
+    ineq_mult = torch.zeros((T, specs.ineq_dim, B), dtype=f32, device=dev) if in_fn else None
+    rho = torch.full((B,), config.penalty, dtype=f32, device=dev) if has_al else None
 
     converged = torch.zeros(B, dtype=torch.bool, device=dev)
     it = 0
@@ -351,14 +527,38 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
             lin = ops.linearize(specs, xs, us, hess is None, ctx)
             if hess is not None:
                 lin = lin + tuple(hess)
+            if has_al:
+                # The merit under the current multipliers, and the AL terms
+                # folded into the stacks, at the current trajectory (the
+                # select overwrites it).
+                st_eq = _lane_constraint_stacks(eq_fn, xs, us) if eq_fn else None
+                st_in = _lane_constraint_stacks(in_fn, xs, us) if in_fn else None
+                merit = _lane_merit(cost, st_eq[0] if st_eq else None,
+                                    st_in[0] if st_in else None, eq_mult, ineq_mult, rho, act_tol)
+                lin = _lane_al_fold(lin, st_eq, st_in, eq_mult, ineq_mult, rho, act_tol)
             k, K = ops.riccati_backward(specs, *lin, xT, levels, blb, bub)
         ladder = ladder_full if use_schedule and it < config.alpha_warmup else ladder_short
-        cost, _ = ops.select(specs, xs, us, xT, k, K, merit, active, lb, ub, ladder, ctx)
-        converged = converged | (active & (merit - cost < config.tolerance))
+        al = (eq_mult, ineq_mult, rho, act_tol) if has_al else ()
+        kept, _ = ops.select(specs, xs, us, xT, k, K, merit, active, lb, ub, ladder, ctx, *al)
+        newly = active & (merit - kept < config.tolerance)
+        if has_al:
+            # The true objective, multipliers and penalty at the kept
+            # trajectory; frozen problems keep theirs.
+            g = _lane_constraint_vals(eq_fn, xs, us) if eq_fn else None
+            h = _lane_constraint_vals(in_fn, xs, us) if in_fn else None
+            new = (_lane_objective(specs, xs, xT, us),
+                   *_lane_dual_update(g, h, eq_mult, ineq_mult, rho, config))
+            old = (cost, eq_mult, ineq_mult, rho, eq_viol, ineq_viol)
+            cost, eq_mult, ineq_mult, rho, eq_viol, ineq_viol = (
+                None if o is None else torch.where(active, n, o) for n, o in zip(new, old))
+            tol = config.constraint_tolerance
+            newly = newly & (new[4] < tol) & (new[5] < tol)
+        else:
+            cost = kept
+        converged = converged | newly
         it += 1
 
     states = torch.cat([x0[None], xs[1:], xT[None]], 0).permute(2, 0, 1)  # [B, T+1, nx]
-    zeros = torch.zeros(B, dtype=out_dtype, device=dev)
     cost_out = cost.to(out_dtype)
     return SolveResult(
         states=states.to(out_dtype).contiguous(),
@@ -367,8 +567,8 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
         iterations=torch.full((B,), it, dtype=torch.int32, device=dev),
         converged=converged,
         merit=cost_out,
-        eq_violation=zeros,
-        ineq_violation=zeros,
+        eq_violation=eq_viol.to(out_dtype),
+        ineq_violation=ineq_viol.to(out_dtype),
     )
 
 
@@ -381,9 +581,9 @@ def solve_ilqr_batched(
     Runs on ``device`` (default ``"cuda"``; raises when CUDA is absent):
     the spec's tensors are moved there, and the fused loop runs its CUDA
     kernels on the card, or the plain PyTorch versions on ``"cpu"``.  The
-    JAX router's fused branches for unconstrained problems in AD mode are
-    ported (clamp and boxqp, with or without a per-stage context); every
-    other branch raises ``NotImplementedError``.
+    JAX router's fused branches in AD mode are ported (clamp and boxqp;
+    unconstrained with or without a per-stage context, or AL-constrained
+    without one); every other branch raises ``NotImplementedError``.
     """
     return solve_ilqr_batched_fused(_routed(specs, config, backward, fused, device), config)
 

@@ -8,6 +8,7 @@ every leading axis (batch, time) broadcasts:
 * ``StageCostFunction``    ``l(x, u, t) -> [...]``, or ``l(x, u, t, ctx_t)``
   with a per-stage context (``ocp.with_context_cost``)
 * ``TerminalCostFunction`` ``lT(x) -> [...]``
+* ``ConstraintsFunction``  ``g(x [..., nx], u [..., nu]) -> [..., m]``
 
 A torch callable cannot run inside a CUDA kernel.  A callable that has a
 hand-written device counterpart in ``csrc/problems.cuh`` carries a
@@ -86,6 +87,15 @@ def coupled_device_fn(base: DeviceFn, pair: DeviceFn) -> DeviceFn:
 def device_fn_of(fn: Callable) -> Optional[DeviceFn]:
     """The :class:`DeviceFn` tag of ``fn``, or None for an untagged callable."""
     return getattr(fn, "device_fn", None)
+
+
+def no_constraint(x: Tensor, u: Tensor) -> Tensor:
+    """No constraint rows, ``[..., 0]``: the side of an AL kernel
+    instantiation that has no constraints (``NoConstraint``)."""
+    return x.new_zeros(x.shape[:-1] + (0,))
+
+
+tag_device_fn(no_constraint, "none")
 
 
 def resolve_device(device) -> torch.device:

@@ -102,11 +102,15 @@ def test_cpu_solve_runs_plain_versions_only():
 
 
 def _constrained_specs():
+    """An AL problem whose constraint indexes one problem's state (``x[3]``,
+    not ``x[..., 3]``): it fails on batched values, which the JAX router
+    sends to its non-fused path (not ported; AL itself is, see
+    tests/test_torch_al.py)."""
     ocp = OCP(
         state_dim=4, control_dim=2, horizon_steps=10, dt=0.1,
         initial_state=torch.tensor([0.0, 1.0, 0.0, 0.5]),
         dynamics=single_track_model, stage_cost=entry.LANE_FOLLOW_COST,
-        inequality_constraints=lambda x, u: (x[..., 3] - 1.5)[..., None],
+        inequality_constraints=lambda x, u: torch.stack([x[3] - 1.5]),
         device="cpu",
     )
     ocp.initialize_problem()
