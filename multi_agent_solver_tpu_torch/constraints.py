@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``multi_agent_solver_tpu/constraints.py`` (the
 reference's ``constraint_helpers.hpp:17-114``).  Pure functions over
-explicit multiplier state; constraints follow the port's convention
-``g(x [..., nx], u [..., nu]) -> [..., m]``, so every leading axis
-(batch) broadcasts and the per-stage loop is one call over the horizon.
+explicit multiplier state; a constraint ``g(x, u) -> [m]`` of one
+problem's stage is mapped over the horizon and any leading batch axes by
+``torch.func.vmap``, as the JAX package vmaps it, so it may be written on
+``x[..., i]`` (the port's convention, which the kernels need) or on one
+problem's vectors.
 
 Trajectories are time-major, ``states [..., T+1, nx]`` and
 ``controls [..., T, nu]``; multipliers are ``[..., T, m]`` and ``rho`` is
@@ -19,8 +21,8 @@ Conventions (the reference's):
   tolerance
 
 The fused batched iLQR (``solvers/ilqr.py``) keeps its own batch-innermost
-copy of the horizon evaluation and the norms; these helpers serve the
-non-fused solvers.
+copy of the horizon evaluation and the norms; ``eval_constraints_horizon``
+serves its non-fused path and the single-problem solve.
 """
 
 from __future__ import annotations
@@ -29,14 +31,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from .derivatives import map_leading
 from .types import ConstraintsFunction, Tensor
 
 
 def eval_constraints_horizon(constraint: ConstraintsFunction, states: Tensor,
                              controls: Tensor) -> Tensor:
     """The constraint at ``(x_t, u_t)``, ``t = 0..T-1``: ``[..., T, m]``."""
-    g = constraint(states[..., :-1, :], controls)
-    return torch.broadcast_to(g, controls.shape[:-1] + g.shape[-1:])
+    return map_leading(constraint, states[..., :-1, :], controls, lead=controls.shape[:-1])
 
 
 def _per_problem(rho, like: Tensor) -> Tensor:

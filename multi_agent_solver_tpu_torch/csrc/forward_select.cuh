@@ -15,7 +15,9 @@
 //   problems write nothing, so their buffers keep the reference verbatim.
 //   Out: the kept merit and the accept flag.
 // * rollout mode (INIT): the initial rollout and its cost -- alpha 0, zero
-//   gains, no bounds, merit +inf -- writing x_1..x_T.  Its single candidate
+//   gains, no bounds, merit +inf -- writing x_1..x_T.  A cost that does
+//   not beat +inf (NaN) is +inf, and once a state is not finite every
+//   later control is NaN (init_control), as in the TPU kernel.  Its single candidate
 //   IS the trajectory, so it is written during phase 1 and there is no
 //   phase 2.
 //
@@ -85,6 +87,21 @@ __device__ __forceinline__ void feedback_control(
     if (lb != nullptr) ui = clamp_nan(ui, lb[i], ub[i]);
     u[i] = ui;
   }
+}
+
+// The rollout mode's control: u_ref as it is, until the state stops being
+// finite.  The TPU kernel computes it as u_ref + 0 k + 0 (x - x_0) (alpha
+// 0, zero gains, the reference x_0 at every stage), so from a stage whose
+// state holds a NaN or an infinity on, every control is NaN; this does
+// the same.
+template <int NX, int NU>
+__device__ __forceinline__ void init_control(const float* x, const float* x0, const float* ur,
+                                             float* u) {
+  float s = 0.0f * (x[0] - x0[0]);
+#pragma unroll
+  for (int j = 1; j < NX; ++j) s = s + 0.0f * (x[j] - x0[j]);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = ur[i] + s;
 }
 
 // One candidate's RK4 step from xa; in rollout mode the new state is also
@@ -198,8 +215,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
       for (int a = 0; a < MAXA; ++a) {
         if (a >= A) break;
         if constexpr (INIT) {
-#pragma unroll
-          for (int i = 0; i < NU; ++i) ua[a][i] = ur[i];
+          init_control<NX, NU>(xa[a], xstart, ur, ua[a]);
         } else {
           feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
                                    bounded ? lb : nullptr, ub, ua[a]);
@@ -236,8 +252,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
         if (a >= A) break;
         float u[NU];
         if constexpr (INIT) {
-#pragma unroll
-          for (int i = 0; i < NU; ++i) u[i] = ur[i];
+          init_control<NX, NU>(xa[a], xstart, ur, u);
         } else {
           feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
                                    bounded ? lb : nullptr, ub, u);

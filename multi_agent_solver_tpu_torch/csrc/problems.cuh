@@ -294,10 +294,13 @@ __device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const S* u,
     out[i] = x[i] + h.sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
 }
 
-// A = d step / dx, B = d step / du and the cost gradient (lx, lu) at one
-// stage, from ONE forward pass in Dual<float, NX + NU>: tangents 0..NX-1
-// seed x, NX..NX+NU-1 seed u.  The context is a constant.
-template <typename Dyn, typename Cost>
+// A and B and the cost gradient (lx, lu) at one stage, from ONE forward
+// pass in Dual<float, NX + NU>: tangents 0..NX-1 seed x, NX..NX+NU-1 seed
+// u.  DISCRETE: A = d step / dx, B = d step / du through the RK4 step (the
+// jacobian_mode "discrete"); otherwise the Jacobians of the continuous
+// dynamics f(x, u) (the reference's "continuous" mode, as the TPU kernels'
+// step_map with discrete=False).  The context is a constant.
+template <bool DISCRETE = true, typename Dyn, typename Cost>
 __device__ __forceinline__ void stage_derivatives(
     const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
     float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu,
@@ -309,7 +312,10 @@ __device__ __forceinline__ void stage_derivatives(
   for (int i = 0; i < NX; ++i) xd[i] = seed<NZ>(x[i], i);
 #pragma unroll
   for (int i = 0; i < NU; ++i) ud[i] = seed<NZ>(u[i], NX + i);
-  rk4_step(dyn, xd, ud, h, nxt);
+  if constexpr (DISCRETE)
+    rk4_step(dyn, xd, ud, h, nxt);
+  else
+    dyn(xd, ud, nxt);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll
@@ -322,6 +328,36 @@ __device__ __forceinline__ void stage_derivatives(
   for (int j = 0; j < NX; ++j) lx[j] = c.d[j];
 #pragma unroll
   for (int j = 0; j < NU; ++j) lu[j] = c.d[NX + j];
+}
+
+// The stage cost's Hessians at one stage from one Dual<Dual<float, NZ>, NZ>
+// pass: r.d[q].d[p] = d^2 l / dz_p dz_q, z = (x, u), entry (p, q) with p
+// the inner (gradient) direction and q the outer one, as the TPU kernel's
+// jvp of lgrad_p along e_q; upper triangles mirrored, as it symmetrizes.
+template <int NX, int NU, typename Cost>
+__device__ __forceinline__ void stage_hessians(const Cost& cost, const float* x, const float* u,
+                                               const CtxView& ctx, float (&lxx)[NX][NX],
+                                               float (&luu)[NU][NU], float (&lux)[NU][NX]) {
+  constexpr int NZ = NX + NU;
+  using D2 = Dual<Dual<float, NZ>, NZ>;
+  D2 xd[NX], ud[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xd[i] = seed2<NZ>(x[i], i);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) ud[i] = seed2<NZ>(u[i], NX + i);
+  const D2 r = stage_cost(cost, xd, ud, ctx);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = i; j < NX; ++j) lxx[i][j] = lxx[j][i] = r.d[j].d[i];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = i; j < NU; ++j) luu[i][j] = luu[j][i] = r.d[NX + j].d[NX + i];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) lux[i][j] = r.d[j].d[NX + i];
 }
 
 // NaN-propagating clamp min(max(u, lb), ub), as jnp.minimum/maximum and

@@ -1,0 +1,719 @@
+// The iLQR backward Riccati passes: K1 (in-kernel linearization, stationary
+// quadratic cost), K4 (precomputed stacks) and the box-QP stage solve K5
+// that both run under bound_mode="boxqp".
+//
+// K1 replaces multi_agent_solver_tpu/ops/riccati_pallas.py ::
+// riccati_fusedlin_pallas_tiled (kernel _make_fusedlin_kernel, helpers
+// _stage_core, _gauss_jordan_solve, _det_rect, _terminal_into_scratch).
+// K4 replaces riccati_backward_pallas_tiled (kernel _make_kernel) in its
+// fused-loop mode (terminal function in the kernel) and in its
+// explicit-terminal mode (terminal_fn=None: the kernel reads vx0 / vxx0,
+// the mode of riccati_backward_pallas), K5 _boxqp_lane_gains.
+//
+// What K1 computes, per problem b: phi_x / phi_xx of the terminal cost at
+// x_T (second-order duals, upper triangle mirrored), then for t = T-1 .. 0
+//   A, B  = d step(x_t, u_t) / d(x, u) through RK4 (DISCRETE; otherwise
+//           the Jacobians of the continuous dynamics f(x_t, u_t), the
+//           reference's "continuous" mode), lx, lu = d l / d(x, u)
+//   Q-terms from the value function (v_x, v_xx),
+//   the smallest of the cumulative regularization levels whose shifted
+//   q_uu passes Sylvester's test, Gauss-Jordan without pivoting for
+//   [k | K] = -q_uu_reg^-1 [q_u | q_ux], and the value recursion with a
+//   symmetrized v_xx.
+// The time-constant cost Hessians lxx / luu / lux are read once.
+//
+// Layout: batch innermost.  x [T, NX, B], u [T, NU, B], lxx [NX, NX, B],
+// luu [NU, NU, B], lux [NU, NX, B], xT [NX, B] in; k [T, NU, B],
+// K [T, NU, NX, B] out.  Neighbouring threads read neighbouring addresses.
+//
+// What bounds it on the H100: not the bytes (it reads x, u and writes k,
+// K: (T (NX + NU) + T NU (1 + NX)) 4 bytes a problem) but the arithmetic
+// of a sequential recursion -- per stage a 6-tangent dual RK4 step
+// (12 sin/cos/tan) and the small dense algebra.  Design: one thread per
+// problem, the whole recursion in registers (the TPU kernel's VMEM scratch
+// carry becomes v_x / v_xx registers), the t loop inside the thread (the
+// TPU's sequential grid axis), the dual pass giving all NX + NU Jacobian
+// columns at once.  The linearization does not depend on the carry, so
+// the compiler can overlap it with the previous stage's algebra.
+//
+// K4 runs the same stage recursion on A [T, NX, NX, B], B [T, NX, NU, B],
+// lx [T, NX, B], lu [T, NU, B] and cost Hessians lxx [H, NX, NX, B],
+// luu [H, NU, NU, B], lux [H, NU, NX, B] with H = T (per stage) or H = 1
+// (hess_tconst: read once), x_T [NX, B] for the in-kernel terminal value
+// -- or, in the explicit-terminal mode (H = T), the given value
+// v_x0 [NX, B], v_xx0 [NX, NX, B] -- and under boxqp the delta bounds
+// lb / ub [T, NU, B]; k [T, NU, B], K [T, NU, NX, B] out.  The explicit
+// mode runs no user function, so it is instantiated per (NX, NU) alone
+// (riccati_explicit*.cu); Sylvester's test and Gauss-Jordan are written
+// for any NU, the box QP for NU <= 4 (81 configurations).  It is bound by bytes: at NX = 4, NU = 2 it reads
+// 68 floats a stage and problem (40 with hess_tconst) and writes 10, with
+// no derivative arithmetic.  Design: one thread per problem, the t loop
+// inside the thread from T-1 down to 0, (v_x, v_xx) in registers,
+// coalesced batch-innermost loads.
+//
+// K5 (boxqp_gains) replaces the unconstrained gain solve of a stage: the
+// 3^NU free / at-lower / at-upper configurations are enumerated at compile
+// time in itertools.product order, each free subsystem solved with the
+// same Gauss-Jordan, and the first configuration whose KKT conditions hold
+// (exact comparisons, in _boxqp_lane_gains' order) is taken; clamped rows
+// get zero feedback, and the clipped Newton step is the fallback.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "problems.cuh"
+
+namespace mas {
+
+constexpr int MAX_REG_LEVELS = 32;
+struct RegLevels {
+  float v[MAX_REG_LEVELS];
+  int n;
+};
+
+// Determinant of the K x K block of Q on rows R0 .. R0 + K - 1 and the
+// columns in the bit set `cols` (ascending), expanded along its first row
+// exactly as riccati_pallas._det_rect does: the first term, then the
+// others added and subtracted in turn.
+template <int N, int K>
+struct DetRect {
+  static __device__ __forceinline__ float eval(const float (&Q)[N][N], int r0, unsigned cols) {
+    float total = 0.0f;
+    int pos = 0;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (!(cols & (1u << c))) continue;
+      const float term = Q[r0][c] * DetRect<N, K - 1>::eval(Q, r0 + 1, cols & ~(1u << c));
+      if (pos == 0)
+        total = term;
+      else if (pos % 2 == 0)
+        total = total + term;
+      else
+        total = total - term;
+      ++pos;
+    }
+    return total;
+  }
+};
+
+template <int N>
+struct DetRect<N, 1> {
+  static __device__ __forceinline__ float eval(const float (&Q)[N][N], int r0, unsigned cols) {
+    float v = 0.0f;
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (cols & (1u << c)) v = Q[r0][c];
+    return v;
+  }
+};
+
+// Sylvester's test of q + shift I: every leading minor, from the 1 x 1
+// block up, > 0.
+template <int NU, int K = 2>
+__device__ __forceinline__ bool minors_from(const float (&Q)[NU][NU], bool ok) {
+  if constexpr (K > NU) {
+    return ok;
+  } else {
+    return minors_from<NU, K + 1>(Q, ok && (DetRect<NU, K>::eval(Q, 0, (1u << K) - 1u) > 0.0f));
+  }
+}
+
+template <int NU>
+__device__ __forceinline__ bool sylvester_ok(const float (&q)[NU][NU], float shift) {
+  float Q[NU][NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Q[i][j] = q[i][j] + (i == j ? shift : 0.0f);
+  return minors_from<NU>(Q, Q[0][0] > 0.0f);
+}
+
+// Solve Q X = rhs by Gauss-Jordan without pivoting (Q is SPD after
+// regularization), in riccati_pallas._gauss_jordan_solve's order.
+template <int N, int M>
+__device__ __forceinline__ void gauss_jordan(float (&A)[N][N], float (&X)[N][M]) {
+#pragma unroll
+  for (int col = 0; col < N; ++col) {
+    const float inv_piv = 1.0f / A[col][col];
+#pragma unroll
+    for (int j = col; j < N; ++j) A[col][j] = A[col][j] * inv_piv;
+#pragma unroll
+    for (int j = 0; j < M; ++j) X[col][j] = X[col][j] * inv_piv;
+#pragma unroll
+    for (int row = 0; row < N; ++row) {
+      if (row == col) continue;
+      const float factor = A[row][col];
+#pragma unroll
+      for (int j = col; j < N; ++j) A[row][j] = A[row][j] - factor * A[col][j];
+#pragma unroll
+      for (int j = 0; j < M; ++j) X[row][j] = X[row][j] - factor * X[col][j];
+    }
+  }
+}
+
+// K5: the box-QP stage solve.  Configuration c gives dimension i the side
+// box_side(c, i) -- dimension 0 is the slowest digit, as in
+// itertools.product((FREE, AT_LB, AT_UB), repeat=NU).
+enum : int { FREE = 0, AT_LB = 1, AT_UB = 2 };
+
+__host__ __device__ constexpr int pow3(int n) { return n == 0 ? 1 : 3 * pow3(n - 1); }
+
+template <int NU>
+__host__ __device__ constexpr int box_side(int c, int i) { return (c / pow3(NU - 1 - i)) % 3; }
+
+template <int NU>
+__host__ __device__ constexpr int box_n_free(int c) {
+  int n = 0;
+  for (int i = 0; i < NU; ++i) n += box_side<NU>(c, i) == FREE ? 1 : 0;
+  return n;
+}
+
+// The dimension of the p-th free variable of configuration c.
+template <int NU>
+__host__ __device__ constexpr int box_free_dim(int c, int p) {
+  for (int i = 0; i < NU; ++i) {
+    if (box_side<NU>(c, i) == FREE) {
+      if (p == 0) return i;
+      --p;
+    }
+  }
+  return 0;
+}
+
+// Configurations C .. 3^NU - 1, in order: solve the free subsystem, test
+// the KKT conditions, take the first that holds.
+template <int NX, int NU, int C>
+__device__ __forceinline__ void boxqp_configs(
+    const float (&Q)[NU][NU], const float (&q_u)[NU], const float (&q_ux)[NU][NX],
+    const float (&lb)[NU], const float (&ub)[NU], float zeros, bool base_ok, bool& found,
+    float (&k)[NU], float (&K)[NU][NX]) {
+  if constexpr (C < pow3(NU)) {
+    constexpr int NF = box_n_free<NU>(C);
+    float v[NU], du[NU], Kc[NU][NX];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      const int side = box_side<NU>(C, i);
+      v[i] = side == AT_LB ? lb[i] : (side == AT_UB ? ub[i] : zeros);
+      du[i] = v[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Kc[i][j] = zeros;
+    }
+    if constexpr (NF > 0) {
+      float S[NF][NF], X[NF][NX + 1];
+#pragma unroll
+      for (int p = 0; p < NF; ++p) {
+        const int i = box_free_dim<NU>(C, p);
+#pragma unroll
+        for (int q = 0; q < NF; ++q) S[p][q] = Q[i][box_free_dim<NU>(C, q)];
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < NU; ++c)
+          if (box_side<NU>(C, c) != FREE) s = s + Q[i][c] * v[c];
+        X[p][0] = q_u[i] + s;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) X[p][1 + j] = q_ux[i][j];
+      }
+      gauss_jordan<NF, NX + 1>(S, X);
+#pragma unroll
+      for (int p = 0; p < NF; ++p) {
+        const int i = box_free_dim<NU>(C, p);
+        du[i] = -X[p][0];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) Kc[i][j] = -X[p][1 + j];
+      }
+    }
+    bool ok = base_ok;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) s = s + Q[i][j] * du[j];
+      const float grad = q_u[i] + s;
+      const int side = box_side<NU>(C, i);
+      if (side == FREE)
+        ok = ok && (du[i] >= lb[i] && du[i] <= ub[i]);
+      else if (side == AT_LB)
+        ok = ok && (grad >= 0.0f);
+      else
+        ok = ok && (grad <= 0.0f);
+    }
+    if (ok && !found) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        k[i] = du[i];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) K[i][j] = Kc[i][j];
+      }
+    }
+    found = found || ok;
+    boxqp_configs<NX, NU, C + 1>(Q, q_u, q_ux, lb, ub, zeros, base_ok, found, k, K);
+  }
+}
+
+// Exact box-constrained gains for the regularized q_uu (Q), with the
+// unconstrained Newton step clipped to the box (full feedback) where no
+// configuration passes.  zeros = 0 q_u[0] as in the TPU kernel, so a
+// non-finite q_u takes the fallback there and here alike.
+template <int NX, int NU>
+__device__ __forceinline__ void boxqp_gains(
+    const float (&Q)[NU][NU], const float (&q_u)[NU], const float (&q_ux)[NU][NX],
+    const float (&lb)[NU], const float (&ub)[NU], float (&k)[NU], float (&K)[NU][NX]) {
+  const float zeros = 0.0f * q_u[0];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    k[i] = zeros;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) K[i][j] = zeros;
+  }
+  bool found = zeros > 1.0f;
+  boxqp_configs<NX, NU, 0>(Q, q_u, q_ux, lb, ub, zeros, zeros <= 0.0f, found, k, K);
+
+  float Qc[NU][NU], X[NU][NX + 1];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Qc[i][j] = Q[i][j];
+    X[i][0] = q_u[i];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) X[i][1 + j] = q_ux[i][j];
+  }
+  gauss_jordan<NU, NX + 1>(Qc, X);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    if (!found) k[i] = clamp_nan(-X[i][0], lb[i], ub[i]);
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      if (!found) K[i][j] = -X[i][1 + j];
+  }
+}
+
+// One Riccati stage (riccati_pallas._stage_core): updates (vx, vxx) in
+// place to the new symmetrized value function.  BOXQP takes the gains
+// from K5 with the stage's delta bounds lb / ub (unused otherwise).
+template <int NX, int NU, bool BOXQP>
+__device__ __forceinline__ void stage_core(
+    const float (&A)[NX][NX], const float (&Bm)[NX][NU], const float (&lx)[NX],
+    const float (&lu)[NU], const float (&lxx)[NX][NX], const float (&luu)[NU][NU],
+    const float (&lux)[NU][NX], const float (&lb)[NU], const float (&ub)[NU],
+    float (&vx)[NX], float (&vxx)[NX][NX], const RegLevels& reg, float (&k)[NU],
+    float (&K)[NU][NX]) {
+  float q_x[NX], q_u[NU], q_xx[NX][NX], q_ux[NU][NX], q_uu[NU][NU];
+  float vA[NX][NX], vB[NX][NU];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    float s = A[0][j] * vx[0];
+#pragma unroll
+    for (int i = 1; i < NX; ++i) s = s + A[i][j] * vx[i];
+    q_x[j] = lx[j] + s;
+  }
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    float s = Bm[0][j] * vx[0];
+#pragma unroll
+    for (int i = 1; i < NX; ++i) s = s + Bm[i][j] * vx[i];
+    q_u[j] = lu[j] + s;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = vxx[i][0] * A[0][j];
+#pragma unroll
+      for (int kk = 1; kk < NX; ++kk) s = s + vxx[i][kk] * A[kk][j];
+      vA[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = A[0][i] * vA[0][j];
+#pragma unroll
+      for (int kk = 1; kk < NX; ++kk) s = s + A[kk][i] * vA[kk][j];
+      q_xx[i][j] = lxx[i][j] + s;
+    }
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = Bm[0][i] * vA[0][j];
+#pragma unroll
+      for (int kk = 1; kk < NX; ++kk) s = s + Bm[kk][i] * vA[kk][j];
+      q_ux[i][j] = lux[i][j] + s;
+    }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      float s = vxx[i][0] * Bm[0][j];
+#pragma unroll
+      for (int kk = 1; kk < NX; ++kk) s = s + vxx[i][kk] * Bm[kk][j];
+      vB[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      float s = Bm[0][i] * vB[0][j];
+#pragma unroll
+      for (int kk = 1; kk < NX; ++kk) s = s + Bm[kk][i] * vB[kk][j];
+      q_uu[i][j] = luu[i][j] + s;
+    }
+
+  // Smallest cumulative level whose shifted q_uu passes Sylvester's test
+  // (the largest level when none does).
+  float best = reg.v[reg.n - 1];
+  for (int j = 0; j < reg.n; ++j) {
+    if (sylvester_ok<NU>(q_uu, reg.v[j])) {
+      best = reg.v[j];
+      break;
+    }
+  }
+
+  float Qr[NU][NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Qr[i][j] = q_uu[i][j] + (i == j ? best : 0.0f);
+  if constexpr (BOXQP) {
+    boxqp_gains<NX, NU>(Qr, q_u, q_ux, lb, ub, k, K);
+  } else {
+    float X[NU][NX + 1];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      X[i][0] = q_u[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) X[i][1 + j] = q_ux[i][j];
+    }
+    gauss_jordan<NU, NX + 1>(Qr, X);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      k[i] = -X[i][0];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) K[i][j] = -X[i][1 + j];
+    }
+  }
+
+  // Value recursion with the unregularized q_uu.
+  float q_uu_k[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    float s = q_uu[i][0] * k[0];
+#pragma unroll
+    for (int j = 1; j < NU; ++j) s = s + q_uu[i][j] * k[j];
+    q_uu_k[i] = s;
+  }
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    float s1 = K[0][j] * q_u[0], s2 = q_ux[0][j] * k[0], s3 = K[0][j] * q_uu_k[0];
+#pragma unroll
+    for (int u = 1; u < NU; ++u) {
+      s1 = s1 + K[u][j] * q_u[u];
+      s2 = s2 + q_ux[u][j] * k[u];
+      s3 = s3 + K[u][j] * q_uu_k[u];
+    }
+    vx[j] = ((q_x[j] + s1) + s2) + s3;
+  }
+  float KQ[NX][NX], nv[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = K[0][i] * q_ux[0][j];
+#pragma unroll
+      for (int u = 1; u < NU; ++u) s = s + K[u][i] * q_ux[u][j];
+      KQ[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float kqk = 0.0f;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        float s = q_uu[u][0] * K[0][j];
+#pragma unroll
+        for (int v = 1; v < NU; ++v) s = s + q_uu[u][v] * K[v][j];
+        kqk = (u == 0) ? K[u][i] * s : kqk + K[u][i] * s;
+      }
+      nv[i][j] = ((q_xx[i][j] + KQ[i][j]) + KQ[j][i]) + kqk;
+    }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) vxx[i][j] = 0.5f * (nv[i][j] + nv[j][i]);
+}
+
+// Cost Hessians of stage t from [H, NX, NX, B] / [H, NU, NU, B] /
+// [H, NU, NX, B] stacks.
+template <int NX, int NU>
+__device__ __forceinline__ void load_hessians(
+    const float* __restrict__ lxx_in, const float* __restrict__ luu_in,
+    const float* __restrict__ lux_in, size_t t, int b, size_t sB, float (&lxx)[NX][NX],
+    float (&luu)[NU][NU], float (&lux)[NU][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) lxx[i][j] = lxx_in[((t * NX + i) * NX + j) * sB + b];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) luu[i][j] = luu_in[((t * NU + i) * NU + j) * sB + b];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) lux[i][j] = lux_in[((t * NU + i) * NX + j) * sB + b];
+}
+
+// Delta bounds of stage t from [T, NU, B] stacks.
+template <int NU>
+__device__ __forceinline__ void load_bounds(const float* __restrict__ lb_in,
+                                            const float* __restrict__ ub_in, size_t t, int b,
+                                            size_t sB, float (&lb)[NU], float (&ub)[NU]) {
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    lb[i] = lb_in[(t * NU + i) * sB + b];
+    ub[i] = ub_in[(t * NU + i) * sB + b];
+  }
+}
+
+// Terminal value function (riccati_pallas._terminal_into_scratch): phi_x,
+// and phi_xx from its upper triangle (inner tangent i, outer tangent j),
+// mirrored.  Shared by K1 and K4.
+template <int NX, typename Term>
+__device__ __forceinline__ void terminal_value(const Term& term, const float* __restrict__ xT,
+                                               int b, size_t sB, float (&vx)[NX],
+                                               float (&vxx)[NX][NX]) {
+  using D2 = Dual<Dual<float, NX>, NX>;
+  D2 z[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) z[i] = seed2<NX>(xT[i * sB + b], i);
+  const D2 r = term(z);
+#pragma unroll
+  for (int j = 0; j < NX; ++j) vx[j] = r.v.d[j];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = i; j < NX; ++j) {
+      vxx[i][j] = r.d[j].d[i];
+      vxx[j][i] = r.d[j].d[i];
+    }
+}
+
+// The explicit-terminal mode's initial value (the TPU kernel with
+// terminal_fn=None): the given v_x0 [NX, B] and v_xx0 [NX, NX, B].
+struct GivenValue {
+  static GivenValue from(const float*) { return GivenValue{}; }
+};
+
+template <int NX>
+__device__ __forceinline__ void initial_value(const GivenValue&, const float* __restrict__ vx0,
+                                              const float* __restrict__ vxx0, int b, size_t sB,
+                                              float (&vx)[NX], float (&vxx)[NX][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    vx[i] = vx0[i * sB + b];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) vxx[i][j] = vxx0[(i * NX + j) * sB + b];
+  }
+}
+
+// The in-kernel terminal mode: the value of the terminal cost at x_T.
+template <int NX, typename Term>
+__device__ __forceinline__ void initial_value(const Term& term, const float* __restrict__ xT,
+                                              const float*, int b, size_t sB, float (&vx)[NX],
+                                              float (&vxx)[NX][NX]) {
+  terminal_value<NX>(term, xT, b, sB, vx, vxx);
+}
+
+template <int NX, int NU>
+__device__ __forceinline__ void store_gains(float* __restrict__ k_out, float* __restrict__ K_out,
+                                            size_t t, int b, size_t sB, const float (&k)[NU],
+                                            const float (&K)[NU][NX]) {
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    k_out[(t * NU + i) * sB + b] = k[i];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) K_out[((t * NU + i) * NX + j) * sB + b] = K[i][j];
+  }
+}
+
+template <typename Dyn, typename Cost, typename Term, bool BOXQP, bool DISCRETE>
+__global__ void __launch_bounds__(128) riccati_fusedlin_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us,
+    const float* __restrict__ lxx_in, const float* __restrict__ luu_in,
+    const float* __restrict__ lux_in, const float* __restrict__ lb_in,
+    const float* __restrict__ ub_in, const float* __restrict__ xT,
+    float* __restrict__ k_out, float* __restrict__ K_out, Dyn dyn, Cost cost, Term term,
+    Step h, RegLevels reg, int T, int B) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = static_cast<size_t>(B);
+
+  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+  load_hessians<NX, NU>(lxx_in, luu_in, lux_in, 0, b, sB, lxx, luu, lux);
+  float vx[NX], vxx[NX][NX];
+  terminal_value<NX>(term, xT, b, sB, vx, vxx);
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t st = static_cast<size_t>(t);
+    float x[NX], u[NU];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xs[(st * NX + i) * sB + b];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) u[i] = us[(st * NU + i) * sB + b];
+    float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
+    stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
+    float lb[NU], ub[NU];
+    if constexpr (BOXQP) load_bounds<NU>(lb_in, ub_in, st, b, sB, lb, ub);
+    float k[NU], K[NU][NX];
+    stage_core<NX, NU, BOXQP>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, vx, vxx, reg, k, K);
+    store_gains<NX, NU>(k_out, K_out, st, b, sB, k, K);
+  }
+}
+
+// K4: the stage recursion on precomputed stacks.  Term = GivenValue is the
+// explicit-terminal mode: xT then carries v_x0 and vxx0 v_xx0; otherwise
+// the terminal value is derived in the kernel from x_T (vxx0 unused).
+template <typename Term, int NX, int NU, bool BOXQP, bool HCONST>
+__global__ void __launch_bounds__(128) riccati_backward_kernel(
+    const float* __restrict__ A_in, const float* __restrict__ B_in,
+    const float* __restrict__ lx_in, const float* __restrict__ lu_in,
+    const float* __restrict__ lxx_in, const float* __restrict__ luu_in,
+    const float* __restrict__ lux_in, const float* __restrict__ lb_in,
+    const float* __restrict__ ub_in, const float* __restrict__ xT,
+    const float* __restrict__ vxx0, float* __restrict__ k_out, float* __restrict__ K_out,
+    Term term, RegLevels reg, int T, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = static_cast<size_t>(B);
+
+  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+  if constexpr (HCONST) load_hessians<NX, NU>(lxx_in, luu_in, lux_in, 0, b, sB, lxx, luu, lux);
+  float vx[NX], vxx[NX][NX];
+  initial_value<NX>(term, xT, vxx0, b, sB, vx, vxx);
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t st = static_cast<size_t>(t);
+    float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) A[i][j] = A_in[((st * NX + i) * NX + j) * sB + b];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bm[i][j] = B_in[((st * NX + i) * NU + j) * sB + b];
+      lx[i] = lx_in[(st * NX + i) * sB + b];
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) lu[i] = lu_in[(st * NU + i) * sB + b];
+    if constexpr (!HCONST) load_hessians<NX, NU>(lxx_in, luu_in, lux_in, st, b, sB, lxx, luu, lux);
+    float lb[NU], ub[NU];
+    if constexpr (BOXQP) load_bounds<NU>(lb_in, ub_in, st, b, sB, lb, ub);
+    float k[NU], K[NU][NX];
+    stage_core<NX, NU, BOXQP>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, vx, vxx, reg, k, K);
+    store_gains<NX, NU>(k_out, K_out, st, b, sB, k, K);
+  }
+}
+
+inline int reg_levels_from(const float* levels, int n_levels, RegLevels& reg) {
+  if (n_levels < 1 || n_levels > MAX_REG_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+  reg.n = n_levels;
+  for (int j = 0; j < n_levels; ++j) reg.v[j] = levels[j];
+  return 0;
+}
+
+constexpr int BLOCK = 128;
+
+// lb == nullptr: clamp mode; else boxqp with delta bounds lb / ub [T, NU, B].
+template <typename Dyn, typename Cost, typename Term>
+int launch_riccati_fusedlin(const float* xs, const float* us, const float* lxx,
+                            const float* luu, const float* lux, const float* lb,
+                            const float* ub, const float* xT, float* k, float* K, int T, int B,
+                            int discrete, const float* dyn_p, const float* cost_p,
+                            const float* term_p, const float* step_p, const float* levels,
+                            int n_levels, cudaStream_t stream) {
+  RegLevels reg;
+  if (const int err = reg_levels_from(levels, n_levels, reg)) return err;
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  const Dyn dyn = Dyn::from(dyn_p);
+  const Cost cost = Cost::from(cost_p);
+  const Term term = Term::from(term_p);
+  const Step h = Step::from(step_p);
+#define MAS_FUSEDLIN(BOX, DISC)                                                      \
+  riccati_fusedlin_kernel<Dyn, Cost, Term, BOX, DISC><<<grid, BLOCK, 0, stream>>>( \
+      xs, us, lxx, luu, lux, lb, ub, xT, k, K, dyn, cost, term, h, reg, T, B)
+  if (lb != nullptr && discrete)
+    MAS_FUSEDLIN(true, true);
+  else if (lb != nullptr)
+    MAS_FUSEDLIN(true, false);
+  else if (discrete)
+    MAS_FUSEDLIN(false, true);
+  else
+    MAS_FUSEDLIN(false, false);
+#undef MAS_FUSEDLIN
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Term, int NX, int NU, bool BOXQP, bool HCONST>
+void launch_backward_one(const float* A, const float* Bm, const float* lx, const float* lu,
+                         const float* lxx, const float* luu, const float* lux, const float* lb,
+                         const float* ub, const float* xT, const float* vxx0, float* k,
+                         float* K, const Term& term, const RegLevels& reg, int T, int B,
+                         cudaStream_t stream) {
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  riccati_backward_kernel<Term, NX, NU, BOXQP, HCONST><<<grid, BLOCK, 0, stream>>>(
+      A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT, vxx0, k, K, term, reg, T, B);
+}
+
+// The dynamics only fix (NX, NU): K4 evaluates the terminal cost alone.
+// lb == nullptr: clamp mode; hess_tconst != 0: Hessian stacks of one stage.
+template <typename Dyn, typename Term>
+int launch_riccati_backward(const float* A, const float* Bm, const float* lx, const float* lu,
+                            const float* lxx, const float* luu, const float* lux,
+                            const float* lb, const float* ub, const float* xT, float* k,
+                            float* K, int T, int B, int hess_tconst, const float* term_p,
+                            const float* levels, int n_levels, cudaStream_t stream) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  RegLevels reg;
+  if (const int err = reg_levels_from(levels, n_levels, reg)) return err;
+  const Term term = Term::from(term_p);
+  const bool box = lb != nullptr;
+  if (box && hess_tconst)
+    launch_backward_one<Term, NX, NU, true, true>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT,
+                                                  nullptr, k, K, term, reg, T, B, stream);
+  else if (box)
+    launch_backward_one<Term, NX, NU, true, false>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT,
+                                                   nullptr, k, K, term, reg, T, B, stream);
+  else if (hess_tconst)
+    launch_backward_one<Term, NX, NU, false, true>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT,
+                                                   nullptr, k, K, term, reg, T, B, stream);
+  else
+    launch_backward_one<Term, NX, NU, false, false>(A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT,
+                                                    nullptr, k, K, term, reg, T, B, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's explicit-terminal mode: per-stage Hessian stacks (H = T), the
+// initial value v_x0 [NX, B], v_xx0 [NX, NX, B] given.  lb == nullptr: clamp
+// mode, else boxqp with delta bounds lb / ub [T, NU, B].
+template <int NX, int NU>
+int launch_riccati_explicit(const float* A, const float* Bm, const float* lx, const float* lu,
+                            const float* lxx, const float* luu, const float* lux,
+                            const float* lb, const float* ub, const float* vx0,
+                            const float* vxx0, float* k, float* K, int T, int B,
+                            const float* levels, int n_levels, cudaStream_t stream) {
+  RegLevels reg;
+  if (const int err = reg_levels_from(levels, n_levels, reg)) return err;
+  const GivenValue given{};
+  if (lb != nullptr)
+    launch_backward_one<GivenValue, NX, NU, true, false>(A, Bm, lx, lu, lxx, luu, lux, lb, ub,
+                                                         vx0, vxx0, k, K, given, reg, T, B,
+                                                         stream);
+  else
+    launch_backward_one<GivenValue, NX, NU, false, false>(A, Bm, lx, lu, lxx, luu, lux, lb,
+                                                          ub, vx0, vxx0, k, K, given, reg, T,
+                                                          B, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mas

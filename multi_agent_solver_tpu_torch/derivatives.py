@@ -6,6 +6,9 @@ PyTorch counterpart of the ``ad`` bundle of
 finite-difference parity mode is not ported yet.
 
 * ``fx(x, u) -> [nx, nx]``, ``fu(x, u) -> [nx, nu]``: continuous dynamics
+* ``step_fx(x, u) -> [nx, nx]``, ``step_fu(x, u) -> [nx, nu]``: the
+  Jacobians of one discrete (RK4) step, which the OCP builds
+  (``ocp.step_jacobians``); None where the spec was built without them
 * ``lx/lu(x, u, t) -> [n]``, ``lxx/luu(x, u, t) -> [n, n]``,
   ``lux(x, u, t) -> [nu, nx]``; for a context cost
   (``ocp.with_context_cost``) each takes the stage's context as a fourth
@@ -14,14 +17,18 @@ finite-difference parity mode is not ported yet.
 * ``phix(x) -> [nx]``, ``phixx(x) -> [nx, nx]``
 * ``eq_gx/ineq_gx(x, u) -> [m, nx]``, ``eq_gu/ineq_gu(x, u) -> [m, nu]``:
   the constraint Jacobians, None where the problem has no such constraint
+
+:func:`map_leading` maps such a one-problem function over leading batch
+and stage axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
-from torch.func import grad, jacfwd
+from torch.func import grad, jacfwd, vmap
 
 from .types import ConstraintsFunction, MotionModel, StageCostFunction, TerminalCostFunction
 
@@ -39,6 +46,8 @@ class Derivatives:
     lux: Callable
     phix: Callable
     phixx: Callable
+    step_fx: Optional[Callable] = None
+    step_fu: Optional[Callable] = None
     eq_gx: Optional[Callable] = None
     eq_gu: Optional[Callable] = None
     ineq_gx: Optional[Callable] = None
@@ -86,3 +95,14 @@ def make_derivatives(
     if unknown:
         raise ValueError(f"unknown derivative overrides: {sorted(unknown)}")
     return derivs.replace(**overrides) if overrides else derivs
+
+
+def map_leading(fn: Callable, *args, lead: tuple):
+    """``fn`` of one problem (or problem-stage) over the leading axes
+    ``lead`` of ``args`` -- ``torch.func.vmap`` over their flattening -- in
+    the dtype of the first argument: forward-mode AD of some PyTorch builds
+    (2.13 on the CPU) gives a 0-d tensor times a Python float a float64
+    tangent."""
+    n = math.prod(lead)
+    out = vmap(fn)(*(a.reshape((n,) + a.shape[len(lead):]) for a in args))
+    return out.reshape(tuple(lead) + out.shape[1:]).to(args[0].dtype)

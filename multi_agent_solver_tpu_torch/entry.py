@@ -12,18 +12,27 @@
   folded into four AL inequality rows (``state_bound_specs``,
   :data:`AL_CONFIG`), and the input-pinning equality problem of
   ``tests/test_constraints.py`` (``equality_specs``, :data:`EQ_CONFIG`).
+* The single problem of ``examples/single_track_ocp.py``
+  (``single_track_ocp``, :data:`SINGLE_PARAMS`), solved through
+  ``make_solver("ilqr", ...).solve(ocp)``, and the non-fused path's
+  configurations of the main-path batch: :data:`NONFUSED_ROUTES`
+  (``fused=False`` with either linearizer), :data:`CONTINUOUS_CONFIG`,
+  ``untagged_specs`` (the lane-follow cost as a plain torch callable).
 
 ``chip_smoke.py`` and the tests use them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
 from .multi_agent import MultiAgentProblem
-from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost,
+from .derivatives import make_derivatives
+from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost, synthesized_objective,
                   with_state_bound_constraints)
 from .models import (
     single_track_control_jacobian,
@@ -63,6 +72,16 @@ EQ_CONFIG = ILQRConfig(max_iterations=40, tolerance=1e-8, constraint_tolerance=1
 EQ_COST = diagonal_quadratic_cost(w_x=(0.0, 1.0, 0.0, 0.0), r_x=(0.0, 0.0, 0.0, 0.0),
                                   w_u=(0.1, 0.1), r_u=(0.0, 0.0))
 EQ_ROW = bound_rows(("u", 1, 0.3, "upper"))
+# examples/single_track_ocp.py's solver parameters, and the main path in
+# the continuous Jacobian mode (the reference's continuous_jacobians=1).
+SINGLE_PARAMS = {"max_iterations": 10, "tolerance": 1e-5, "max_ms": 100}
+CONTINUOUS_CONFIG = dataclasses.replace(BENCH_CONFIG, jacobian_mode="continuous")
+# The non-fused routes of the main path: solve_ilqr_batched's keyword
+# arguments for the vmapped torch linearizer (per iteration K4 explicit and
+# K2 select) and for K7 in its place.
+NONFUSED_ROUTES = {"xla": dict(fused=False, linearize="xla"),
+                   "pallas": dict(fused=False, linearize="pallas")}
+W_LANE, W_SPEED, W_DELTA, W_ACC, DESIRED_VELOCITY = 10.0, 1.0, 0.1, 0.1, 1.0
 
 
 def single_track_spec(horizon: int = 80, dtype=torch.float32, device="cuda") -> OCPSpec:
@@ -175,3 +194,57 @@ def equality_specs(batch: int, device="cuda", horizon: int = 30) -> OCPSpec:
               equality_constraints=EQ_ROW, device=device)
     ocp.initialize_problem()
     return batch_specs(ocp.spec(), equality_x0(batch))
+
+
+def single_track_ocp(dtype=torch.float32, device="cuda") -> OCP:
+    """``examples/single_track_ocp.py``'s problem: x0 = (0, 1, 0, 0), T = 80,
+    dt = 0.1, inputs bounded to +-0.7 / +-1, the lane-follow cost with its
+    analytic gradients and Hessians and the model's analytic Jacobians (as
+    the example sets them), initialized on ``device``."""
+
+    def cost_state_gradient(x, u, t):
+        z = torch.zeros_like(x[..., 0])
+        return torch.stack([z, 2.0 * W_LANE * x[..., 1], z,
+                            2.0 * W_SPEED * (x[..., 3] - DESIRED_VELOCITY)], -1)
+
+    def cost_control_gradient(x, u, t):
+        return torch.stack([2.0 * W_DELTA * u[..., 0], 2.0 * W_ACC * u[..., 1]], -1)
+
+    def cost_state_hessian(x, u, t):
+        return torch.diag_embed(torch.zeros_like(x) + x.new_tensor(
+            [0.0, 2.0 * W_LANE, 0.0, 2.0 * W_SPEED]))
+
+    def cost_control_hessian(x, u, t):
+        return torch.diag_embed(torch.zeros_like(u) + u.new_tensor([2.0 * W_DELTA, 2.0 * W_ACC]))
+
+    ocp = OCP(
+        state_dim=4, control_dim=2, horizon_steps=80, dt=0.1,
+        initial_state=torch.tensor([0.0, 1.0, 0.0, 0.0], dtype=dtype),
+        dynamics=single_track_model, stage_cost=LANE_FOLLOW_COST,
+        cost_state_gradient=cost_state_gradient, cost_control_gradient=cost_control_gradient,
+        cost_state_hessian=cost_state_hessian, cost_control_hessian=cost_control_hessian,
+        dynamics_state_jacobian=single_track_state_jacobian,
+        dynamics_control_jacobian=single_track_control_jacobian,
+        input_lower_bounds=torch.tensor([-0.7, -1.0], dtype=dtype),
+        input_upper_bounds=torch.tensor([0.7, 1.0], dtype=dtype),
+        device=device,
+    )
+    ocp.initialize_problem()
+    return ocp
+
+
+def untagged_specs(batch: int, device="cuda", horizon: int = 80) -> OCPSpec:
+    """The main-path batch with its cost written as a plain torch callable
+    without a device-function tag: the kernels cannot evaluate it, so on
+    the card it takes the non-fused path with the torch rollout and forward
+    pass (K4's explicit mode needs no user function)."""
+    specs = bench_specs(batch, device=device, horizon=horizon)
+
+    def cost(x, u, t):
+        return (W_LANE * x[..., 1] ** 2 + W_SPEED * (x[..., 3] - DESIRED_VELOCITY) ** 2
+                + W_DELTA * u[..., 0] ** 2 + W_ACC * u[..., 1] ** 2)
+
+    return specs.replace(stage_cost=cost, objective_function=synthesized_objective(
+        cost, specs.terminal_cost), derivs=make_derivatives(
+        specs.dynamics, cost, specs.terminal_cost, step_fx=specs.derivs.step_fx,
+        step_fu=specs.derivs.step_fu))

@@ -31,23 +31,27 @@ tag_device_fn(single_track_model, "single_track", (WHEELBASE,))
 
 
 def single_track_state_jacobian(x: Tensor, u: Tensor) -> Tensor:
-    """Analytic continuous-time A, ``[..., 4, 4]``."""
+    """Analytic continuous-time A, ``[..., 4, 4]`` (written without in-place
+    writes, so ``torch.func.vmap`` maps it)."""
     psi, v = x[..., 2], x[..., 3]
     delta = u[..., 0]
-    A = torch.zeros(x.shape[:-1] + (4, 4), dtype=x.dtype, device=x.device)
-    A[..., 0, 2] = -v * torch.sin(psi)
-    A[..., 0, 3] = torch.cos(psi)
-    A[..., 1, 2] = v * torch.cos(psi)
-    A[..., 1, 3] = torch.sin(psi)
-    A[..., 2, 3] = torch.tan(delta) / WHEELBASE
-    return A
+    z = torch.zeros_like(v)
+    return torch.stack([
+        torch.stack([z, z, -v * torch.sin(psi), torch.cos(psi)], -1),
+        torch.stack([z, z, v * torch.cos(psi), torch.sin(psi)], -1),
+        torch.stack([z, z, z, torch.tan(delta) / WHEELBASE], -1),
+        torch.stack([z, z, z, z], -1),
+    ], -2)
 
 
 def single_track_control_jacobian(x: Tensor, u: Tensor) -> Tensor:
     """Analytic continuous-time B incl. d(psi_dot)/d(delta) = v/(L cos^2 delta)."""
     v = x[..., 3]
     delta = u[..., 0]
-    Bm = torch.zeros(x.shape[:-1] + (4, 2), dtype=x.dtype, device=x.device)
-    Bm[..., 2, 0] = v / (WHEELBASE * torch.cos(delta) ** 2)
-    Bm[..., 3, 1] = 1.0
-    return Bm
+    z = torch.zeros_like(v)
+    return torch.stack([
+        torch.stack([z, z], -1),
+        torch.stack([z, z], -1),
+        torch.stack([v / (WHEELBASE * torch.cos(delta) ** 2), z], -1),
+        torch.stack([z, torch.ones_like(v)], -1),
+    ], -2)

@@ -35,7 +35,7 @@ import torch
 from torch.func import jacfwd
 
 from .derivatives import Derivatives, make_derivatives
-from .integrators import integrate_horizon
+from .integrators import integrate_horizon, integrate_rk4
 from .types import Tensor, resolve_device, tag_device_fn
 
 
@@ -192,6 +192,15 @@ def synthesized_objective(stage_cost: Callable, terminal_cost: Callable) -> Call
     return lambda X, U: compute_trajectory_cost(X, U, stage_cost, terminal_cost)
 
 
+@functools.lru_cache(maxsize=None)
+def step_jacobians(dynamics: Callable, dt: float):
+    """Memoized ``(step_fx, step_fu)``: the Jacobians of one RK4 step of
+    ``dynamics`` by ``jacfwd`` through the integrator, the oracles of the
+    discrete Jacobian mode."""
+    step = lambda x, u: integrate_rk4(x, u, dt, dynamics)
+    return jacfwd(step, argnums=0), jacfwd(step, argnums=1)
+
+
 def with_context_cost(spec: OCPSpec, stage_cost_ctx: Callable) -> OCPSpec:
     """A spec whose stage cost ``stage_cost_ctx(x, u, t, ctx_t)`` takes a
     per-stage context; the derivative bundle is rebuilt for the 4-argument
@@ -203,7 +212,8 @@ def with_context_cost(spec: OCPSpec, stage_cost_ctx: Callable) -> OCPSpec:
         raise ValueError("context costs require AD derivative mode")
     derivs = make_derivatives(spec.dynamics, stage_cost_ctx, spec.terminal_cost,
                               spec.equality_constraints, spec.inequality_constraints,
-                              fx=spec.derivs.fx, fu=spec.derivs.fu)
+                              fx=spec.derivs.fx, fu=spec.derivs.fu,
+                              step_fx=spec.derivs.step_fx, step_fu=spec.derivs.step_fu)
     return spec.replace(stage_cost=stage_cost_ctx, derivs=derivs)
 
 
@@ -289,8 +299,14 @@ class OCP:
         self.equality_constraints = None
         self.inequality_constraints = None
 
+        # Analytic derivative oracles (None: AD), as the reference's OCP
+        # takes them.
         self.dynamics_state_jacobian = None
         self.dynamics_control_jacobian = None
+        self.cost_state_gradient = None
+        self.cost_control_gradient = None
+        self.cost_state_hessian = None
+        self.cost_control_hessian = None
 
         self.initial_state = None
         self.initial_states = None
@@ -360,6 +376,7 @@ class OCP:
         derivative bundle is built once and cached; call :meth:`invalidate`
         after changing the problem's functions."""
         if self._derivs is None:
+            step_fx, step_fu = step_jacobians(self.dynamics, float(self.dt))
             self._derivs = make_derivatives(
                 self.dynamics,
                 self.stage_cost,
@@ -367,8 +384,14 @@ class OCP:
                 self.equality_constraints,
                 self.inequality_constraints,
                 mode=self.derivative_mode,
+                step_fx=step_fx,
+                step_fu=step_fu,
                 fx=self.dynamics_state_jacobian,
                 fu=self.dynamics_control_jacobian,
+                lx=self.cost_state_gradient,
+                lu=self.cost_control_gradient,
+                lxx=self.cost_state_hessian,
+                luu=self.cost_control_hessian,
             )
         derivs = self._derivs
         objective = self.objective_function

@@ -109,13 +109,22 @@ def build_library() -> Path:
     procs = []
     for src in sources:
         obj = obj_dir / (src.stem + ".o")
+        out = open(obj_dir / (src.stem + ".log"), "w+")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        procs.append((src, obj, out, subprocess.Popen(
+            cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
+    # Each source's compile time, for the build report.
+    seconds = {}
+    while len(seconds) < len(procs):
+        for src, _, _, proc in procs:
+            if src.name not in seconds and proc.poll() is not None:
+                seconds[src.name] = time.perf_counter() - start
+        time.sleep(0.05)
     log, failed = [], []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+    for src, _, out, proc in procs:
+        out.seek(0)
+        log.append(f"== {src.name} (rc {proc.returncode}, {seconds[src.name]:.1f} s)\n{out.read()}")
+        out.close()
         if proc.returncode != 0:
             failed.append(src.name)
     (BUILD_DIR / "build.log").write_text("\n".join(log))
@@ -123,7 +132,7 @@ def build_library() -> Path:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     tmp = obj_dir / lib_path.name
     link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+        [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
@@ -243,3 +252,12 @@ def step_constants(dt: float) -> tuple:
     """RK4 step constants ``(0.5 dt, dt, dt / 6)`` rounded to float32 from
     double, as the reference rounds its Python-float coefficients."""
     return (0.5 * dt, float(dt), dt / 6.0)
+
+
+def stage_major(a: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous float32 ``[..., B]`` copy of batch-first ``a
+    [B, ...]``: the kernels' layout, converted once by the batch-first
+    wrappers (the select kernel works in place, so it must never alias the
+    caller's tensor)."""
+    a = a.movedim(0, -1)
+    return torch.empty(a.shape, dtype=torch.float32, device=a.device).copy_(a)

@@ -7,7 +7,8 @@ mode; one launch counter without a context, ``STATS``, and one with,
 ``CTX_STATS``):
 
 * :func:`rollout_cost` -- the initial rollout and its cost: alpha 0, zero
-  gains, no clamp, merit +inf.  ``x0 [nx, B]``, ``us [T, nu, B]`` ->
+  gains, no clamp, merit +inf (a NaN cost becomes +inf, and a state that is
+  not finite makes every later control NaN, as the TPU kernel's).  ``x0 [nx, B]``, ``us [T, nu, B]`` ->
   ``xs [T, nx, B]`` holding x_1..x_T, ``cost [B]``.
 * :func:`forward_select` -- stage-out mode: every candidate alpha scored,
   the largest one that beats ``merit`` on an active problem re-rolled.
@@ -35,6 +36,12 @@ named by the constraints' device-function tags (``none``, the tag of
 ``types.no_constraint``, for an absent side), and an untagged constraint
 on a CUDA tensor raises
 ``NotImplementedError``.  The rollout mode takes no AL.
+
+The non-fused path calls the kernel through two batch-first wrappers,
+the JAX package's ``forward_select_pallas`` and ``rollout_select``
+(:func:`forward_select_pallas`, :func:`rollout_select`): trajectories
+``[B, T+1, nx]``, controls ``[B, T, nu]``, gains ``[B, T, ...]`` of any
+float dtype, converted once to the port's layout and back.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 from ..integrators import integrate_rk4
 from ..types import Tensor, no_constraint
 from ._build import (KernelStats, check_context, check_tensor, launch, problem_symbol,
-                     step_constants)
+                     stage_major, step_constants)
 
 STATS = KernelStats()       # launches and plain calls without a context
 CTX_STATS = KernelStats()   # ... and with one (the context mode, K6)
@@ -116,11 +123,13 @@ def rollout_cost_plain(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     """Plain PyTorch version of the K2 rollout mode."""
     _stats(ctx).plain_calls += 1
     T, nu, B = us.shape
-    x = x0.T
+    x = x_start = x0.T
     xs = torch.empty((T, x0.shape[0], B), dtype=torch.float32, device=x0.device)
     total = torch.zeros(B, dtype=torch.float32, device=x0.device)
     for t in range(T):
-        u = us[t].T
+        # u_ref + 0 k + 0 (x - x_0), as the TPU kernel's alpha-0, zero-gain
+        # control: NaN from the first stage whose state is not finite on.
+        u = us[t].T + (0.0 * (x - x_start)).sum(-1, keepdim=True)
         total = total + stage_fn(spec, ctx, t)(x, u, t)
         x = integrate_rk4(x, u, spec.dt, spec.dynamics)
         xs[t] = x.T
@@ -275,3 +284,66 @@ def _symbol(spec, nx, nu, *constraints):
     if not constraints:
         params = params + [(), ()]
     return symbol, params
+
+
+
+def _bounds(spec, B: int):
+    """The spec's input bounds as ``[nu, B]`` float32, or ``(None, None)``."""
+    if not spec.has_input_bounds:
+        return None, None
+    nu = spec.control_dim
+    return tuple(stage_major(b.expand(B, nu))
+                 for b in (spec.input_lower_bounds, spec.input_upper_bounds))
+
+
+def _context(spec):
+    """The spec's context ``[B, T, ...]`` as ``[T, ..., B]`` float32, or None."""
+    return None if spec.context is None else stage_major(spec.context)
+
+
+def forward_select_pallas(spec, xs, us, k, K, merit, alphas, eq_mult=None, ineq_mult=None,
+                          rho=None, act_tol: float = 1e-6, select=None):
+    """The select kernel on batch-first tensors (the JAX package's
+    ``forward_select_pallas``): ``xs [B, T+1, nx]``, ``us [B, T, nu]``,
+    ``k [B, T, nu]``, ``K [B, T, nu, nx]``, ``merit [B]``, the spec's bounds
+    and context, and in the AL mode ``eq_mult`` / ``ineq_mult [B, T, m]``
+    and ``rho [B]``.  Returns float32 ``(xs_new [B, T+1, nx], us_new
+    [B, T, nu], merit_new [B], accepted [B] bool)``: an accepted problem's
+    winning trajectory with ``x_0`` prepended; the others' reference
+    trajectory and their incoming merit.  The JAX kernel runs its
+    non-stage-out mode here; this runs the stage-out kernel with every
+    problem active, which returns the same.  ``select`` is the select
+    function (None: :func:`forward_select`; :func:`forward_select_plain`
+    runs the plain version on any device)."""
+    select = forward_select if select is None else select
+    B = xs.shape[0]
+    xs_st = stage_major(xs[:, :-1])                                  # [T, nx, B]
+    xT = stage_major(xs[:, -1])                                      # [nx, B]
+    us_st = stage_major(us)
+    al = ()
+    if rho is not None:
+        al = (None if eq_mult is None else stage_major(eq_mult),
+              None if ineq_mult is None else stage_major(ineq_mult),
+              rho.to(torch.float32).contiguous(), float(act_tol))
+    active = torch.ones(B, dtype=torch.bool, device=xs.device)
+    merit_new, accepted = select(spec, xs_st, us_st, xT, stage_major(k), stage_major(K),
+                                 stage_major(merit), active, *_bounds(spec, B),
+                                 tuple(float(a) for a in alphas), _context(spec), *al)
+    xs_new = torch.cat([xs[:, :1].to(torch.float32), xs_st.movedim(-1, 0)[:, 1:],
+                        xT.movedim(-1, 0)[:, None]], 1)
+    return xs_new, us_st.movedim(-1, 0), merit_new, accepted
+
+
+def rollout_select(spec, x0: Tensor, us: Tensor, rollout=None):
+    """Plain batched rollout and cost through the select kernel's rollout
+    mode (the JAX package's ``rollout_select``): ``x0 [B, nx]``,
+    ``us [B, T, nu]`` applied raw -- bounds stripped, no AL -- with the
+    spec's context.  Returns float32 ``xs [B, T+1, nx]`` and ``costs [B]``;
+    a cost that does not beat ``+inf`` (NaN) is ``+inf``, as the JAX
+    kernel keeps the merit it was given.  ``rollout`` is the rollout
+    function (None: :func:`rollout_cost`)."""
+    rollout = rollout_cost if rollout is None else rollout
+    x0_st = stage_major(x0)
+    xs_tail, cost = rollout(spec, x0_st, stage_major(us), _context(spec))
+    xs = torch.cat([x0_st.movedim(-1, 0)[:, None], xs_tail.movedim(-1, 0)], 1)
+    return xs, cost

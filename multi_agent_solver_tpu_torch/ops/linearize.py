@@ -1,7 +1,11 @@
-"""K3: whole-horizon linearization (A, B, lx, lu and optionally the cost Hessians).
+"""K3: whole-horizon linearization (A, B, lx, lu and optionally the cost
+Hessians), and K7: the same derivatives on a flat grid of problem-stages.
 
-Port of ``multi_agent_solver_tpu/ops/linearize_pallas.py ::
-linearize_pallas_tiled``; the CUDA kernel is ``csrc/linearize.cu``.
+Ports of ``multi_agent_solver_tpu/ops/linearize_pallas.py ::
+linearize_pallas_tiled`` (K3) and ``linearize_pallas`` (K7); the CUDA
+kernels are in ``csrc/linearize.cu``.  Both take the Jacobian mode:
+``discrete=True`` differentiates the RK4 step map, ``discrete=False`` the
+continuous dynamics ``f(x, u)`` (the reference's ``continuous_jacobians``).
 
 Layout (the fused loop's, batch innermost): ``xs [T, nx, B]``,
 ``us [T, nu, B]`` in; ``A [T, nx, nx, B]``, ``B [T, nx, nu, B]``,
@@ -12,8 +16,19 @@ With ``ctx [T, K, C, B]`` (the context mode, the TPU kernel's ``ctx_l``)
 the stage cost is ``stage_cost(x, u, t, ctx_t)``; the context is a
 constant of the derivatives.
 
-:func:`linearize` launches the kernel for CUDA tensors and raises on
-anything it does not take; for CPU tensors it runs :func:`linearize_plain`.
+K7 (:func:`linearize_pallas`, the non-fused path's ``linearize="pallas"``)
+is batch-first: ``xs [B, T+1, nx]`` (the last state unused), ``us
+[B, T, nu]`` of any float dtype in; ``A [B, T, nx, nx]``, ``B
+[B, T, nx, nu]``, ``lx [B, T, nx]``, ``lu [B, T, nu]``, ``lxx
+[B, T, nx, nx]``, ``luu [B, T, nu, nu]``, ``lux [B, T, nu, nx]`` float32
+out, Hessians always; lane ``b T + t`` is one problem-stage, its stage
+index a float.
+
+:func:`linearize` and :func:`linearize_pallas` launch the kernel for CUDA
+tensors and raise on anything it does not take; for CPU tensors they run
+the plain versions.  Launches are counted per mode: ``STATS`` (discrete),
+``CONT_STATS`` (continuous), ``CTX_STATS`` (a context, either mode) and
+``FLAT_STATS`` (K7).
 """
 
 from __future__ import annotations
@@ -28,10 +43,14 @@ from ._build import (KernelStats, check_context, check_tensor, launch, problem_s
 
 STATS = KernelStats()       # launches and plain calls without a context
 CTX_STATS = KernelStats()   # ... and with one (the context mode)
+CONT_STATS = KernelStats()  # ... without one, in the continuous Jacobian mode
+FLAT_STATS = KernelStats()  # K7
 
 
-def _stats(ctx) -> KernelStats:
-    return STATS if ctx is None else CTX_STATS
+def _stats(ctx, discrete=True) -> KernelStats:
+    if ctx is not None:
+        return CTX_STATS
+    return STATS if discrete else CONT_STATS
 
 
 def _basis(n: int, j: int, like: Tensor) -> Tensor:
@@ -40,13 +59,17 @@ def _basis(n: int, j: int, like: Tensor) -> Tensor:
     return e
 
 
-def stage_derivatives(spec, x: Tensor, u: Tensor, t):
+def stage_derivatives(spec, x: Tensor, u: Tensor, t, discrete: bool = True):
     """``(A [..., nx, nx], B [..., nx, nu], lx [..., nx], lu [..., nu])`` of
-    the RK4 step map and the stage cost at ``x [..., nx]``, ``u [..., nu]``:
-    one ``torch.func.jvp`` per column, as the TPU kernel takes one jvp per
+    the RK4 step map (``discrete``; else of the continuous dynamics) and
+    the stage cost at ``x [..., nx]``, ``u [..., nu]``: one
+    ``torch.func.jvp`` per column, as the TPU kernel takes one jvp per
     basis direction."""
     nx, nu = x.shape[-1], u.shape[-1]
-    step = lambda xx, uu: integrate_rk4(xx, uu, spec.dt, spec.dynamics)
+    if discrete:
+        step = lambda xx, uu: integrate_rk4(xx, uu, spec.dt, spec.dynamics)
+    else:
+        step = spec.dynamics
     zeros = torch.zeros_like(x[..., 0])
     A = torch.stack(
         [jvp(lambda xx: step(xx, u), (x,), (_basis(nx, j, x),))[1] for j in range(nx)], -1)
@@ -84,9 +107,10 @@ def cost_hessians(spec, x: Tensor, u: Tensor, t):
     return stack2(lxx), stack2(luu), stack2(lux)
 
 
-def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
+def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
+                    discrete: bool = True):
     """Plain PyTorch version of the K3 kernel (same layout and outputs)."""
-    _stats(ctx).plain_calls += 1
+    _stats(ctx, discrete).plain_calls += 1
     T = xs.shape[0]
     x = xs.permute(0, 2, 1)                      # [T, B, nx]
     u = us.permute(0, 2, 1)
@@ -95,7 +119,7 @@ def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Te
         spec = spec.replace(stage_cost=lambda a, b, tt, c=spec.stage_cost: c(a, b, tt, ctx_b))
     # The TPU kernel passes the stage index as a float lane value.
     t = torch.arange(T, dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
-    A, Bm, lx, lu = stage_derivatives(spec, x, u, t)
+    A, Bm, lx, lu = stage_derivatives(spec, x, u, t, discrete)
     outs = [A.permute(0, 2, 3, 1), Bm.permute(0, 2, 3, 1), lx.permute(0, 2, 1), lu.permute(0, 2, 1)]
     if hessians:
         lxx, luu, lux = cost_hessians(spec, x, u, t)
@@ -103,14 +127,16 @@ def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Te
     return tuple(o.to(torch.float32).contiguous() for o in outs)
 
 
-def linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
+def linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
+              discrete: bool = True):
     """K3 on the card for CUDA tensors, the plain version for CPU tensors."""
     if xs.device.type == "cpu":
-        return linearize_plain(spec, xs, us, hessians, ctx)
-    return launch_linearize(spec, xs, us, hessians, ctx)
+        return linearize_plain(spec, xs, us, hessians, ctx, discrete)
+    return launch_linearize(spec, xs, us, hessians, ctx, discrete)
 
 
-def launch_linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None):
+def launch_linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
+                     discrete: bool = True):
     """The CUDA launch of K3."""
     T, nx, B = xs.shape
     nu = us.shape[1]
@@ -122,7 +148,57 @@ def launch_linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: T
     outs = [empty(T, nx, nx, B), empty(T, nx, nu, B), empty(T, nx, B), empty(T, nu, B)]
     hess = [empty(T, nx, nx, B), empty(T, nu, nu, B), empty(T, nu, nx, B)] if hessians else [None] * 3
     with torch.cuda.device(xs.device):
-        launch(symbol, xs, us, *outs, *hess, ctx, T, B, n_ctx, nx, int(hessians), dyn_p, cost_p,
-               step_constants(spec.dt))
-    _stats(ctx).launches += 1
+        launch(symbol, xs, us, *outs, *hess, ctx, T, B, n_ctx, nx, int(hessians), int(discrete),
+               dyn_p, cost_p, step_constants(spec.dt))
+    _stats(ctx, discrete).launches += 1
     return tuple(outs + (hess if hessians else []))
+
+
+def _flat(xs: Tensor, us: Tensor):
+    """``(x [L, nx], u [L, nu], t [L])`` float32 of the lanes ``b T + t``."""
+    B, T, nu = us.shape
+    x = xs[:, :-1].reshape(B * T, -1).to(torch.float32)
+    u = us.reshape(B * T, nu).to(torch.float32)
+    t = torch.arange(T, dtype=torch.float32, device=us.device).repeat(B)
+    return x, u, t
+
+
+def linearize_pallas_plain(spec, xs: Tensor, us: Tensor, discrete: bool):
+    """Plain PyTorch version of the K7 kernel (same layout and outputs)."""
+    FLAT_STATS.plain_calls += 1
+    B, T, nu = us.shape
+    nx = xs.shape[-1]
+    x, u, t = _flat(xs, us)
+    outs = stage_derivatives(spec, x, u, t, discrete) + cost_hessians(spec, x, u, t)
+    inner = ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx), (nu, nu), (nu, nx))
+    return tuple(o.to(torch.float32).reshape((B, T) + s).contiguous() for o, s in zip(outs, inner))
+
+
+def linearize_pallas(spec, xs: Tensor, us: Tensor, discrete: bool):
+    """K7 on the card for CUDA tensors, the plain version for CPU tensors."""
+    if xs.device.type == "cpu":
+        return linearize_pallas_plain(spec, xs, us, discrete)
+    return launch_linearize_pallas(spec, xs, us, discrete)
+
+
+def launch_linearize_pallas(spec, xs: Tensor, us: Tensor, discrete: bool):
+    """The CUDA launch of K7 (inputs cast to contiguous float32)."""
+    B, T, nu = us.shape
+    nx = xs.shape[-1]
+    if tuple(xs.shape) != (B, T + 1, nx):
+        raise ValueError(f"xs: shape {tuple(xs.shape)}, expected {(B, T + 1, nx)}")
+    if spec.context is not None:
+        raise ValueError("K7 takes no per-stage context")
+    xs = xs.to(torch.float32).contiguous()
+    us = us.to(torch.float32).contiguous()
+    check_tensor(us, "us", (B, T, nu), xs.device)
+    symbol, (dyn_p, cost_p) = problem_symbol("linearize_flat", nx, nu, spec.dynamics,
+                                             spec.stage_cost)
+    empty = lambda *s: torch.empty((B, T) + s, dtype=torch.float32, device=xs.device)
+    outs = [empty(nx, nx), empty(nx, nu), empty(nx), empty(nu), empty(nx, nx), empty(nu, nu),
+            empty(nu, nx)]
+    with torch.cuda.device(xs.device):
+        launch(symbol, xs, us, *outs, T, B, int(discrete), dyn_p, cost_p,
+               step_constants(spec.dt))
+    FLAT_STATS.launches += 1
+    return tuple(outs)

@@ -6,6 +6,11 @@ Ports of ``multi_agent_solver_tpu/ops/riccati_pallas.py``:
   pass with in-kernel linearization, stationary cost;
 * :func:`riccati_backward` -- K4, ``riccati_backward_pallas_tiled`` with its
   terminal function in the kernel: the pass on precomputed stacks;
+* :func:`riccati_backward_explicit` -- K4's explicit-terminal mode (the
+  given ``vx0 [nx, B]``, ``vxx0 [nx, nx, B]`` in place of the terminal
+  function), and :func:`riccati_backward_pallas`, its batch-first wrapper
+  (``riccati_backward_pallas``: ``[B, T, ...]`` stacks, converted once to
+  the port's layout and back), the backward pass of the non-fused path;
 * :func:`boxqp_lane_gains_plain` -- K5, ``_boxqp_lane_gains``: the exact
   box-QP stage solve that K1 and K4 run under ``bound_mode="boxqp"`` (a
   device function inside both CUDA kernels, so it has no launch of its own).
@@ -23,6 +28,10 @@ takes ``A [T, nx, nx, B]``, ``B [T, nx, nu, B]``, ``lx [T, nx, B]``,
 ``H = 1`` (``hess_tconst``: one block for every stage).  Under boxqp both
 take the delta bounds ``lb``, ``ub`` ``[T, nu, B]`` (the box around the
 current controls).  Out: gains ``k [T, nu, B]``, ``K [T, nu, nx, B]``.
+K1 takes the Jacobian mode (``discrete=False``: the Jacobians of the
+continuous dynamics).  Launches are counted per kernel and mode:
+``STATS`` (K1), ``CONT_STATS`` (K1, continuous), ``BACKWARD_STATS`` (K4),
+``EXPLICIT_STATS`` (K4 explicit-terminal) and ``BOXQP_STATS`` (K5).
 """
 
 from __future__ import annotations
@@ -34,14 +43,20 @@ import torch
 from torch.func import jvp
 
 from ..types import Tensor
-from ._build import KernelStats, check_tensor, launch, problem_symbol, step_constants
+from ._build import (KernelStats, check_tensor, launch, problem_symbol, stage_major,
+                     step_constants)
 from .linearize import _basis, stage_derivatives
 
 STATS = KernelStats()            # K1
+CONT_STATS = KernelStats()       # K1 in the continuous Jacobian mode
 BACKWARD_STATS = KernelStats()   # K4
+EXPLICIT_STATS = KernelStats()   # K4 in the explicit-terminal mode
 # K5 runs inside K1 and K4: one count for each of their launches (or
 # plain calls) under boxqp.
 BOXQP_STATS = KernelStats()
+# (nx, nu) with an instantiation of K4's explicit-terminal mode
+# (csrc/riccati_explicit*.cu).
+EXPLICIT_DIMS = ((4, 2), (2, 1), (6, 3), (8, 4))
 
 
 def reg_ladder(reg_init: float, reg_factor: float, reg_levels: int) -> tuple:
@@ -231,14 +246,15 @@ def _rows(a: Tensor, s: int):
     return [[a[i, j] for j in range(a.shape[1])] for i in range(a.shape[0])]
 
 
-def _backward_recursion(stage_inputs, xT, terminal_cost, T, nx, nu, reg_levels, lb, ub, device):
-    """The stage recursion shared by the plain K1 and K4: terminal value at
-    ``xT``, then stages T-1 .. 0, ``stage_inputs(s)`` giving
-    ``(A, Bm, lx, lu, lxx, luu, lux)`` as nested lists of ``[B]`` tensors."""
-    B = xT.shape[1]
+def _backward_recursion(stage_inputs, value, T, nx, nu, reg_levels, lb, ub, device):
+    """The stage recursion shared by the plain K1 and K4: the terminal
+    value ``value = (v_x, v_xx)`` (lists of ``[B]`` tensors), then stages
+    T-1 .. 0, ``stage_inputs(s)`` giving ``(A, Bm, lx, lu, lxx, luu, lux)``
+    as nested lists of ``[B]`` tensors."""
+    v_x, v_xx = value
+    B = v_x[0].shape[0]
     boxqp = lb is not None
     BOXQP_STATS.plain_calls += int(boxqp)
-    v_x, v_xx = terminal_derivatives(terminal_cost, xT.T)
     k = torch.empty((T, nu, B), dtype=torch.float32, device=device)
     K = torch.empty((T, nu, nx, B), dtype=torch.float32, device=device)
     for s in range(T - 1, -1, -1):
@@ -252,16 +268,17 @@ def _backward_recursion(stage_inputs, xT, terminal_cost, T, nx, nu, reg_levels, 
     return k, K
 
 
-def riccati_fusedlin_plain(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, lb=None, ub=None):
+def riccati_fusedlin_plain(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, lb=None, ub=None,
+                           discrete: bool = True):
     """Plain PyTorch version of the K1 kernel (same layout and outputs)."""
-    STATS.plain_calls += 1
+    (STATS if discrete else CONT_STATS).plain_calls += 1
     T, nx, B = xs.shape
     nu = us.shape[1]
     x = xs.permute(0, 2, 1)
     u = us.permute(0, 2, 1)
     # Real stage times, as the float lane values the TPU kernel passes.
     t = torch.arange(T, dtype=xs.dtype, device=xs.device)[:, None].expand(T, B)
-    A_all, B_all, lx_all, lu_all = stage_derivatives(spec, x, u, t)
+    A_all, B_all, lx_all, lu_all = stage_derivatives(spec, x, u, t, discrete)
     hess = [_rows(h[None], 0) for h in (lxx, luu, lux)]
 
     def stage_inputs(s):
@@ -271,8 +288,8 @@ def riccati_fusedlin_plain(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, l
         lu = [lu_all[s, :, j] for j in range(nu)]
         return (A, Bm, lx, lu, *hess)
 
-    return _backward_recursion(stage_inputs, xT, spec.terminal_cost, T, nx, nu, reg_levels,
-                               lb, ub, xs.device)
+    return _backward_recursion(stage_inputs, terminal_derivatives(spec.terminal_cost, xT.T), T,
+                               nx, nu, reg_levels, lb, ub, xs.device)
 
 
 def _check_bounds(lb, ub, T, nu, B, dev):
@@ -283,12 +300,15 @@ def _check_bounds(lb, ub, T, nu, B, dev):
         check_tensor(ub, "ub", (T, nu, B), dev)
 
 
-def riccati_fusedlin(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, lb=None, ub=None):
+def riccati_fusedlin(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, lb=None, ub=None,
+                     discrete: bool = True):
     """K1 on the card for CUDA tensors, the plain version for CPU tensors.
     ``reg_levels`` is the ladder of :func:`reg_ladder`; ``lb``/``ub``
-    ``[T, nu, B]`` delta bounds select the box-QP gains (K5)."""
+    ``[T, nu, B]`` delta bounds select the box-QP gains (K5);
+    ``discrete=False`` the continuous Jacobian mode."""
     if xs.device.type == "cpu":
-        return riccati_fusedlin_plain(spec, xs, us, lxx, luu, lux, xT, reg_levels, lb, ub)
+        return riccati_fusedlin_plain(spec, xs, us, lxx, luu, lux, xT, reg_levels, lb, ub,
+                                      discrete)
     T, nx, B = xs.shape
     nu = us.shape[1]
     dev = xs.device
@@ -302,9 +322,9 @@ def riccati_fusedlin(spec, xs, us, lxx, luu, lux, xT, reg_levels: tuple, lb=None
     k = torch.empty((T, nu, B), dtype=torch.float32, device=dev)
     K = torch.empty((T, nu, nx, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        launch(symbol, xs, us, lxx, luu, lux, lb, ub, xT, k, K, T, B, dyn_p, cost_p, term_p,
-               step_constants(spec.dt), tuple(reg_levels), len(reg_levels))
-    STATS.launches += 1
+        launch(symbol, xs, us, lxx, luu, lux, lb, ub, xT, k, K, T, B, int(discrete), dyn_p, cost_p,
+               term_p, step_constants(spec.dt), tuple(reg_levels), len(reg_levels))
+    (STATS if discrete else CONT_STATS).launches += 1
     BOXQP_STATS.launches += int(lb is not None)
     return k, K
 
@@ -317,8 +337,9 @@ def riccati_backward_plain(spec, A, Bm, lx, lu, lxx, luu, lux, xT, reg_levels: t
     T, nx, _, B = A.shape
     nu = Bm.shape[2]
     stacks = (A, Bm, lx, lu, lxx, luu, lux)
-    return _backward_recursion(lambda s: tuple(_rows(a, s) for a in stacks), xT,
-                               spec.terminal_cost, T, nx, nu, reg_levels, lb, ub, A.device)
+    return _backward_recursion(lambda s: tuple(_rows(a, s) for a in stacks),
+                               terminal_derivatives(spec.terminal_cost, xT.T), T, nx, nu,
+                               reg_levels, lb, ub, A.device)
 
 
 def riccati_backward(spec, A, Bm, lx, lu, lxx, luu, lux, xT, reg_levels: tuple,
@@ -355,3 +376,79 @@ def riccati_backward(spec, A, Bm, lx, lu, lxx, luu, lux, xT, reg_levels: tuple,
     BACKWARD_STATS.launches += 1
     BOXQP_STATS.launches += int(lb is not None)
     return k, K
+
+
+def riccati_backward_explicit_plain(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0, reg_levels: tuple,
+                                    lb=None, ub=None):
+    """Plain PyTorch version of K4's explicit-terminal mode (same layout and
+    outputs as :func:`riccati_backward_explicit`)."""
+    EXPLICIT_STATS.plain_calls += 1
+    T, nx, _, B = A.shape
+    nu = Bm.shape[2]
+    stacks = (A, Bm, lx, lu, lxx, luu, lux)
+    value = (_rows(vx0[None], 0), _rows(vxx0[None], 0))
+    return _backward_recursion(lambda s: tuple(_rows(a, s) for a in stacks), value, T, nx, nu,
+                               reg_levels, lb, ub, A.device)
+
+
+def riccati_backward_explicit(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0, reg_levels: tuple,
+                              lb=None, ub=None):
+    """K4's explicit-terminal mode on the card for CUDA tensors, the plain
+    version for CPU tensors: the stage recursion on ``[T, ..., B]`` stacks
+    (per-stage Hessians) from the given terminal value ``vx0 [nx, B]``,
+    ``vxx0 [nx, nx, B]``; ``lb``/``ub`` ``[T, nu, B]`` delta bounds select
+    the box-QP gains (K5).  It runs no user function, so it is instantiated
+    per ``(nx, nu)`` (:data:`EXPLICIT_DIMS`)."""
+    if A.device.type == "cpu":
+        return riccati_backward_explicit_plain(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0,
+                                               reg_levels, lb, ub)
+    return launch_riccati_explicit(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0, reg_levels, lb, ub)
+
+
+def launch_riccati_explicit(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0, reg_levels: tuple,
+                            lb=None, ub=None):
+    """The CUDA launch of K4's explicit-terminal mode."""
+    T, nx, _, B = A.shape
+    nu = Bm.shape[2]
+    dev = A.device
+    if (nx, nu) not in EXPLICIT_DIMS:
+        raise NotImplementedError(
+            f"K4's explicit-terminal mode has no instantiation for (nx, nu) = {(nx, nu)} "
+            f"(csrc/riccati_explicit*.cu has {EXPLICIT_DIMS}; ROADMAP: queue 1, model zoo "
+            "and derivative oracles)")
+    for t, name, shape in ((A, "A", (T, nx, nx, B)), (Bm, "Bm", (T, nx, nu, B)),
+                           (lx, "lx", (T, nx, B)), (lu, "lu", (T, nu, B)),
+                           (lxx, "lxx", (T, nx, nx, B)), (luu, "luu", (T, nu, nu, B)),
+                           (lux, "lux", (T, nu, nx, B)), (vx0, "vx0", (nx, B)),
+                           (vxx0, "vxx0", (nx, nx, B))):
+        check_tensor(t, name, shape, dev)
+    _check_bounds(lb, ub, T, nu, B, dev)
+    k = torch.empty((T, nu, B), dtype=torch.float32, device=dev)
+    K = torch.empty((T, nu, nx, B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch(f"mas_riccati_explicit__{nx}x{nu}", A, Bm, lx, lu, lxx, luu, lux, lb, ub, vx0,
+               vxx0, k, K, T, B, tuple(reg_levels), len(reg_levels))
+    EXPLICIT_STATS.launches += 1
+    BOXQP_STATS.launches += int(lb is not None)
+    return k, K
+
+
+def riccati_backward_pallas(A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0, reg_init: float = 1e-6,
+                            reg_factor: float = 10.0, reg_levels: int = 16, lb=None, ub=None,
+                            explicit=None):
+    """Batched Riccati backward pass on batch-first stacks (the JAX
+    package's ``riccati_backward_pallas``): ``A [B, T, nx, nx]``,
+    ``Bm [B, T, nx, nu]``, ``lx [B, T, nx]``, ``lu [B, T, nu]``, Hessians
+    ``[B, T, ...]``, the terminal value ``vx0 [B, nx]``, ``vxx0 [B, nx, nx]``
+    and optional delta bounds ``lb``/``ub`` ``[B, T, nu]``; returns float32
+    ``k [B, T, nu]``, ``K [B, T, nu, nx]``.  The stacks are converted once
+    to ``[T, ..., B]`` and the gains back.  ``explicit`` is the
+    explicit-mode function (None: :func:`riccati_backward_explicit`;
+    :func:`riccati_backward_explicit_plain` runs the plain version on any
+    device)."""
+    explicit = riccati_backward_explicit if explicit is None else explicit
+    levels = reg_ladder(reg_init, reg_factor, reg_levels)
+    bounds = (stage_major(lb), stage_major(ub)) if lb is not None else (None, None)
+    k, K = explicit(
+        *(stage_major(a) for a in (A, Bm, lx, lu, lxx, luu, lux, vx0, vxx0)), levels, *bounds)
+    return k.movedim(-1, 0), K.movedim(-1, 0)

@@ -4,14 +4,20 @@ Counterpart of ``multi_agent_solver_tpu/solvers/base.py``: each solver is a
 host class with the reference's ``set_params(dict)`` surface and a batched
 functional core, ``_solve_batched_fn(specs, config)``, through which the
 strategies run their sweeps.  ``make_solver(name)`` is the registry-based
-factory.  Only iLQR's batched fused path is ported; the single-problem
-``solve(ocp)`` is the JAX package's non-fused path and waits for it.
+factory.  ``solve(problem)`` is the reference's mutating single-problem
+solve: it runs ``solve_spec`` on the problem's spec (with the opt-in
+``state_bounds_al`` transform) and writes the result back.
+
+The reference's ``max_ms`` budget: with ``enforce_max_ms`` the solve hands
+the solver a host-clock deadline that it checks once an iteration -- the
+counterpart of the JAX package's ``io_callback`` deadline.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+import time
 from typing import Dict, Optional, Type
 
 from ..types import SolverParams, Tensor
@@ -64,11 +70,29 @@ class SolverBase:
         every call, found once for a strategy's sweeps (None: nothing)."""
         return None
 
-    def solve(self, problem) -> None:
-        """The reference's mutating single-problem ``solve(OCP&)``."""
-        raise NotImplementedError(
-            "single-problem solve() runs the JAX package's non-fused path, which is not "
-            "ported yet (ROADMAP: queue 1, non-fused pure-torch iLQR)")
+    def solve_spec(self, spec, deadline=None) -> SolveResult:
+        """Solve one problem's frozen spec; ``deadline``: a
+        ``time.perf_counter()`` time after which to stop, or None."""
+        raise NotImplementedError(f"{self.name}: no single-problem solve is ported")
+
+    def solve(self, problem) -> SolveResult:
+        """Solve and write ``best_states`` / ``best_controls`` / ``best_cost``
+        back into the problem, like the reference's mutating ``solve(OCP&)``;
+        ``state_bounds_al`` folds the finite state bounds into AL
+        inequality rows first, and ``enforce_max_ms`` stops the solve once
+        ``max_ms`` have passed since the call."""
+        deadline = None
+        max_ms = getattr(self.config, "max_ms", 0.0)
+        if getattr(self.config, "enforce_max_ms", False) and max_ms > 0:
+            deadline = time.perf_counter() + max_ms / 1000.0
+        spec = problem.spec()
+        if getattr(self.config, "state_bounds_al", False):
+            from ..ocp import with_state_bound_constraints
+
+            spec = with_state_bound_constraints(spec)
+        result = self.solve_spec(spec, deadline)
+        problem.set_result(result.states, result.controls, result.cost)
+        return result
 
 
 _SOLVERS: Dict[str, Type[SolverBase]] = {}

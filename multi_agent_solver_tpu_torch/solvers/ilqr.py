@@ -1,10 +1,15 @@
-"""Batched iLQR: the lane-resident fused loop.
+"""Batched iLQR -- the lane-resident fused loop and the kernel-per-phase
+(non-fused) path -- and the single-problem solve.
 
 PyTorch counterpart of ``multi_agent_solver_tpu/solvers/ilqr.py``
 (``ILQRConfig``, the cost-structure probe, ``_solve_ilqr_batched_fused``
-with its lane AL machinery, and the ``ILQR`` solver class).  Per solve it
-launches K2 (``ops/forward_select.rollout_cost``) once for the initial
-rollout and cost, then by the cost structure that
+with its lane AL machinery, the scan functions ``compute_merit``,
+``_linearize``, ``_cost_hessians``, ``_add_al_terms``, ``_backward_pass``,
+``_forward_pass``, ``solve_ilqr``, the router and non-fused body of
+``solve_ilqr_batched``, and the ``ILQR`` solver class).
+
+**The fused loop.**  Per solve it launches K2 (``ops/forward_select.rollout_cost``)
+once for the initial rollout and cost, then by the cost structure that
 :func:`resolve_cost_structure` finds:
 
 * stationary quadratic (the main path): K3 (``ops/linearize.linearize``)
@@ -18,7 +23,8 @@ rollout and cost, then by the cost structure that
 
 and per iteration K2 in select mode.  ``bound_mode="boxqp"`` runs the
 box-QP stage solve (K5) inside K1 or K4 on the delta bounds around the
-current controls.
+current controls.  ``jacobian_mode="continuous"`` runs K1 and K3 in their
+continuous-Jacobian mode.
 
 A spec with a per-stage ``context`` (a coupled Nash game's view of the
 other agents) packs it once per solve to ``[T, K, C, B]`` float32 and hands
@@ -40,35 +46,53 @@ kept trajectory, the multiplier updates and the penalty schedule
 ``constraint_tolerance``) follow; a problem converges once its merit stops
 improving and both violation norms are below the tolerance, and is then
 frozen.  An AL problem is never stationary, so K1 does not run.  AL with a
-context is not ported.
+context is not ported.  State is carried batch-innermost (``[T, dim, B]``,
+``[dim, B]``), the counterpart of the TPU lane layout; it is converted
+once on entry and once on exit.
 
-Routing differs from the JAX package's ``fused="auto"`` on the CPU: JAX
-sends context (coupled) and AL-constrained solves on the CPU to its
-kernel-per-phase path and fuses them only off the CPU (or with
-``fused=1``); the port has no kernel-per-phase path yet, so such a solve
-takes the fused loop on every device -- with the CUDA kernels on the card
-and their plain versions on the CPU.
+**The non-fused path** carries batch-first ``[B, T, ...]`` state in the
+spec's dtype: the initial rollout (K2 through ``rollout_select``, or
+torch), then per iteration the merit, the stage derivatives (the
+``torch.func.vmap``-ed derivative oracles with the Hessians hoisted for a
+quadratic cost, or K7, ``linearize="pallas"``), the AL terms folded in,
+the backward pass (K4's explicit-terminal mode through
+``riccati_backward_pallas``, or the torch scan :func:`_backward_pass`), the
+forward pass (K2 / K6 through ``forward_select_pallas``, or the torch
+:func:`_forward_pass`), the true objective, the dual updates, the penalty
+schedule and per-problem freeze masks.  The router of
+:func:`solve_ilqr_batched` follows the JAX package's; where JAX asks
+whether its Pallas kernels can trace a problem, the port asks whether its
+kernels take it -- on the CPU any torch callable (the plain versions), on
+the card callables that carry ``DeviceFn`` tags.  JAX's CPU is the
+port's CPU: ``fused="auto"`` fuses context and AL solves on the card only.
 
-State is carried batch-innermost (``[T, dim, B]``, ``[dim, B]``), the
-counterpart of the TPU lane layout; it is converted once on entry and once
-on exit.  Branches this slice does not port raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+:func:`solve_ilqr` is the single problem's loop over the same functions
+(stop at convergence, or when ``enforce_max_ms``'s host-clock deadline has
+passed).  The ``ddp``, ``differentiable``, ``assoc`` and ``fd`` branches
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 from torch.func import jvp
 
+from ..constraints import eval_constraints_horizon
+from ..derivatives import map_leading
+from ..integrators import integrate_rk4
 from ..ocp import OCPSpec
 from ..ops import forward_select as _k2
 from ..ops import linearize as _k3
 from ..ops import riccati as _k1
-from ..types import SolverParams, get_param, param_flag, resolve_device
+from ..ops.boxqp import boxqp_gains
+from ..ops.small import leading_minors_positive, psd_solve_with_escalation, reg_levels
+from ..types import SolverParams, device_fn_of, get_param, param_flag, resolve_device
 from .base import SolveResult, SolverBase, register_solver
 
 
@@ -243,54 +267,39 @@ def resolve_cost_structure(spec: OCPSpec, config: ILQRConfig) -> "tuple[bool, bo
 
 
 @dataclasses.dataclass(frozen=True)
-class FusedOps:
-    """The five operations of the fused loop."""
+class KernelOps:
+    """The kernel operations of both paths: the fused loop's (layout
+    ``[T, ..., B]``) and the non-fused path's batch-first wrappers."""
 
     rollout: Callable
     linearize: Callable
     riccati: Callable            # K1, in-kernel linearization
     riccati_backward: Callable   # K4, precomputed stacks
     select: Callable
+    rollout_select: Callable            # K2 rollout, batch-first
+    forward_select_pallas: Callable     # K2 / K6 select, batch-first
+    riccati_backward_pallas: Callable   # K4 explicit-terminal, batch-first
+    linearize_pallas: Callable          # K7
 
 
 # The wrappers: CUDA kernels on CUDA tensors, plain versions on CPU tensors.
-KERNEL_OPS = FusedOps(_k2.rollout_cost, _k3.linearize, _k1.riccati_fusedlin,
-                      _k1.riccati_backward, _k2.forward_select)
+KERNEL_OPS = KernelOps(_k2.rollout_cost, _k3.linearize, _k1.riccati_fusedlin,
+                       _k1.riccati_backward, _k2.forward_select, _k2.rollout_select,
+                       _k2.forward_select_pallas, _k1.riccati_backward_pallas,
+                       _k3.linearize_pallas)
 # The plain PyTorch versions on any device: the reference the kernels are
 # held against on the card (chip_smoke.py).
-PLAIN_OPS = FusedOps(_k2.rollout_cost_plain, _k3.linearize_plain, _k1.riccati_fusedlin_plain,
-                     _k1.riccati_backward_plain, _k2.forward_select_plain)
+PLAIN_OPS = KernelOps(
+    _k2.rollout_cost_plain, _k3.linearize_plain, _k1.riccati_fusedlin_plain,
+    _k1.riccati_backward_plain, _k2.forward_select_plain,
+    functools.partial(_k2.rollout_select, rollout=_k2.rollout_cost_plain),
+    functools.partial(_k2.forward_select_pallas, select=_k2.forward_select_plain),
+    functools.partial(_k1.riccati_backward_pallas, explicit=_k1.riccati_backward_explicit_plain),
+    _k3.linearize_pallas_plain)
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
-def _check_route(specs: OCPSpec, config: ILQRConfig, backward: str, fused) -> None:
-    """Raise for every branch of the JAX router this slice does not port."""
-    if config.differentiable:
-        raise _not_ported("differentiable=True", "queue 1, constraints and iLQR modes")
-    if config.ddp:
-        raise _not_ported("ddp=True", "queue 1, constraints and iLQR modes")
-    if fused is False or fused == "off" or (fused == "auto" and config.fused == "off"):
-        raise _not_ported("the non-fused pure-torch iLQR (fused=False)",
-                          "queue 1, non-fused pure-torch iLQR")
-    if backward not in ("auto", "pallas") or (
-            backward == "auto" and not (specs.state_dim <= 16 and specs.control_dim <= 4)):
-        raise _not_ported(f"the scan backward pass (backward={backward!r})",
-                          "queue 1, non-fused pure-torch iLQR")
-    if (specs.eq_dim > 0 or specs.ineq_dim > 0) and specs.context is not None:
-        raise _not_ported("AL constraints with a per-stage context",
-                          "queue 1, AL constraints with a context")
-    if not _constraints_batched(specs):
-        raise _not_ported("a constraint that does not give [..., m] on batched values",
-                          "queue 1, non-fused pure-torch iLQR")
-    if not specs.objective_is_default:
-        raise _not_ported("a user objective_function", "queue 1, non-fused pure-torch iLQR")
-    if specs.derivative_mode != "ad":
-        raise _not_ported("derivative_mode='fd'", "queue 1, model zoo and derivative oracles")
-    if config.jacobian_mode != "discrete":
-        raise _not_ported("jacobian_mode='continuous'", "queue 1, non-fused pure-torch iLQR")
 
 
 def _constraints_batched(specs: OCPSpec) -> bool:
@@ -311,6 +320,81 @@ def _constraints_batched(specs: OCPSpec) -> bool:
         if shape not in ((2, m), (m,)):
             return False
     return True
+
+
+def _kernels_take(specs: OCPSpec, dev: torch.device) -> bool:
+    """Do the select and linearize kernels take the problem's dynamics and
+    costs (the JAX router's ``_lane_cost_traceable`` and lane tracing of
+    ``spec_supports_lane_forward``)?  On the CPU any torch callable (the
+    plain versions run it); on the card callables with a ``DeviceFn`` tag."""
+    if dev.type == "cpu":
+        return True
+    return all(device_fn_of(f) is not None
+               for f in (specs.dynamics, specs.stage_cost, specs.terminal_cost))
+
+
+def _lane_forward_ok(specs: OCPSpec, dev: torch.device) -> bool:
+    """The JAX router's ``spec_supports_lane_forward``: the kernels take the
+    problem, and each constraint has at most 8 rows, gives ``[..., m]`` on
+    batched values and, on the card, carries a tag."""
+    for fn, m in ((specs.equality_constraints, specs.eq_dim),
+                  (specs.inequality_constraints, specs.ineq_dim)):
+        if m > 0 and (m > 8 or (dev.type != "cpu" and device_fn_of(fn) is None)):
+            return False
+    return _constraints_batched(specs) and _kernels_take(specs, dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The router's decision for one batched solve."""
+
+    fused: bool
+    backward: str = "pallas"        # non-fused: "pallas" (K4) or "scan" (torch)
+    lane_forward: bool = False      # non-fused: K2 rollout and select
+    lane_linearize: bool = False    # non-fused: K7
+
+
+def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize: str = "xla",
+          fused="auto", device_type: str = "cuda") -> Route:
+    """The JAX router of ``solve_ilqr_batched`` (ilqr.py:1351-1510 of the
+    JAX package), run before the solve on ``device_type``'s terms: JAX's
+    ``interpret`` (the CPU) is the port's CPU.  Raises for the branches that
+    are not ported."""
+    if config.differentiable:
+        raise _not_ported("differentiable=True", "queue 1, iLQR modes")
+    if config.ddp:
+        raise _not_ported("ddp=True", "queue 1, iLQR modes")
+    if specs.derivative_mode != "ad":
+        raise _not_ported("derivative_mode='fd'", "queue 1, model zoo and derivative oracles")
+    if linearize not in ("xla", "pallas"):
+        raise ValueError(f"linearize={linearize!r}: 'xla' or 'pallas'")
+    if fused in ("on", "off"):
+        fused = fused == "on"
+    if fused == "auto" and config.fused != "auto":
+        fused = config.fused == "on"
+    nx, nu = specs.state_dim, specs.control_dim
+    if backward == "auto":
+        backward = "pallas" if (nx <= 16 and nu <= 4) else "scan"
+    if config.bound_mode == "boxqp" and specs.has_input_bounds and backward == "assoc":
+        backward = "scan"
+    if backward == "assoc":
+        raise _not_ported("backward='assoc'", "queue 1, ops/riccati_assoc.py")
+    if backward not in ("pallas", "scan"):
+        raise ValueError(f"backward={backward!r}: 'auto', 'pallas', 'scan' or 'assoc'")
+    al = specs.eq_dim > 0 or specs.ineq_dim > 0
+    if al and specs.context is not None:
+        raise _not_ported("AL constraints with a per-stage context",
+                          "queue 1, AL constraints with a context")
+    dev = torch.device(device_type)
+    interpret = dev.type == "cpu"
+    lane_forward = (backward == "pallas" and specs.objective_is_default
+                    and _lane_forward_ok(specs, dev))
+    if (fused in ("auto", True) and lane_forward
+            and (specs.context is None and not al or fused is True or not interpret)):
+        return Route(fused=True)
+    lane_linearize = (linearize == "pallas" and lane_forward and specs.context is None
+                      and _kernels_take(specs, dev))
+    return Route(False, backward, lane_forward, lane_linearize)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +523,7 @@ def _unbatch(specs: OCPSpec) -> OCPSpec:
         context=None if specs.context is None else specs.context[0])
 
 
-def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps = None,
+def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: KernelOps = None,
                              structure=None) -> SolveResult:
     """The fused loop on the device of ``specs``.
 
@@ -477,6 +561,7 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
         ub = pack(specs.input_upper_bounds.expand(B, nu), (1, 0))
     use_boxqp = config.bound_mode == "boxqp" and specs.has_input_bounds
 
+    discrete = config.jacobian_mode == "discrete"
     ladder_full = _alpha_ladder_floats(config.alpha_min)
     ladder_short = tuple(float(a) for a in config.alpha_ladder) if config.alpha_ladder else ladder_full
     use_schedule = config.alpha_warmup > 0 and ladder_short != ladder_full
@@ -498,9 +583,10 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     fusedlin = stationary and config.stationary_fusedlin
     hess = None
     if stationary:
-        hess = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True)[4:]
+        hess = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True, None,
+                             discrete)[4:]
     elif quad:
-        hess = ops.linearize(specs, xs, us, True, ctx)[4:]
+        hess = ops.linearize(specs, xs, us, True, ctx, discrete)[4:]
     levels = _k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
 
     # The AL carries: multipliers [T, m, B], penalty [B], violation norms [B].
@@ -522,9 +608,10 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
         # Delta bounds: the box around the current controls.
         blb, bub = (lb[None] - us, ub[None] - us) if use_boxqp else (None, None)
         if fusedlin:
-            k, K = ops.riccati(specs, xs, us, *(h[0] for h in hess), xT, levels, blb, bub)
+            k, K = ops.riccati(specs, xs, us, *(h[0] for h in hess), xT, levels, blb, bub,
+                               discrete)
         else:
-            lin = ops.linearize(specs, xs, us, hess is None, ctx)
+            lin = ops.linearize(specs, xs, us, hess is None, ctx, discrete)
             if hess is not None:
                 lin = lin + tuple(hess)
             if has_al:
@@ -572,55 +659,438 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: FusedOps =
     )
 
 
-def solve_ilqr_batched(
-    specs: OCPSpec, config: ILQRConfig, backward: str = "auto", fused="auto",
-    device="cuda",
-) -> SolveResult:
+# ---------------------------------------------------------------------------
+# The scan functions (ilqr.py:264-798 of the JAX package) on leading batch
+# axes: one problem (``states [T+1, nx]``) or a batch (``[B, T+1, nx]``; the
+# forward pass adds a candidate axis in front).  Derivative oracles and
+# constraints are single-problem functions, mapped over the leading axes by
+# torch.func.vmap (derivatives.map_leading).
+# ---------------------------------------------------------------------------
+
+
+def _sym(M: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def compute_merit(spec: OCPSpec, config: ILQRConfig, states, controls, eq_mult, ineq_mult, rho):
+    """AL merit with the inequality activation mask (``[...]``): the
+    objective plus ``sum lambda g + 0.5 rho sum g^2`` and ``sum (mu a) s +
+    0.5 rho sum s^2``, ``s = max(h, 0) a``, ``a = [h > -act_tol]``."""
+    merit = spec.cost(states, controls)
+    if spec.eq_dim > 0:
+        g = eval_constraints_horizon(spec.equality_constraints, states, controls)
+        merit = merit + (eq_mult * g).sum((-2, -1)) + 0.5 * rho * (g ** 2).sum((-2, -1))
+    if spec.ineq_dim > 0:
+        h = eval_constraints_horizon(spec.inequality_constraints, states, controls)
+        slack = torch.maximum(h, h.new_zeros(()))
+        active = (h > -config.inequality_activation_tolerance).to(states.dtype)
+        active_slack = slack * active
+        merit = merit + ((ineq_mult * active) * active_slack).sum((-2, -1))
+        merit = merit + 0.5 * rho * (active_slack ** 2).sum((-2, -1))
+    return merit
+
+
+def _cost_args(spec: OCPSpec, xs, us):
+    """``(x_t, u_t, t[, ctx_t])`` stacks of the stage-cost oracles."""
+    ts = torch.arange(spec.horizon_steps, device=us.device).expand(us.shape[:-1])
+    return (xs[..., :-1, :], us, ts) + (() if spec.context is None else (spec.context,))
+
+
+def _linearize(spec: OCPSpec, config: ILQRConfig, xs, us, hess=None):
+    """Stage derivatives ``(A, B, lx, lu, lxx, luu, lux)`` over the horizon:
+    the step Jacobians ``step_fx`` / ``step_fu`` in the discrete mode, the
+    continuous ``fx`` / ``fu`` (the user's analytic Jacobians where the OCP
+    sets them) in the continuous mode; ``hess`` the hoisted
+    ``(lxx, luu, lux)`` of a quadratic cost."""
+    d = spec.derivs
+    lead = us.shape[:-1]
+    x, u = xs[..., :-1, :], us
+    if config.jacobian_mode == "discrete" and d.step_fx is not None:
+        A, Bm = map_leading(d.step_fx, x, u, lead=lead), map_leading(d.step_fu, x, u, lead=lead)
+    else:
+        A, Bm = map_leading(d.fx, x, u, lead=lead), map_leading(d.fu, x, u, lead=lead)
+    args = _cost_args(spec, xs, us)
+    lx, lu = map_leading(d.lx, *args, lead=lead), map_leading(d.lu, *args, lead=lead)
+    if hess is None:
+        hess = tuple(map_leading(f, *args, lead=lead) for f in (d.lxx, d.luu, d.lux))
+    return (A, Bm, lx, lu) + tuple(hess)
+
+
+def _cost_hessians(spec: OCPSpec, xs, us):
+    """The hoist of a quadratic cost: ``((lxx, luu, lux), phixx)`` at a
+    nominal trajectory, the terminal Hessian symmetrized."""
+    d = spec.derivs
+    args = _cost_args(spec, xs, us)
+    hess = tuple(map_leading(f, *args, lead=us.shape[:-1]) for f in (d.lxx, d.luu, d.lux))
+    return hess, _sym(map_leading(d.phixx, xs[..., -1, :], lead=xs.shape[:-2]))
+
+
+def _add_al_terms(spec: OCPSpec, config: ILQRConfig, xs, us, lx, lu, lxx, luu, lux, eq_mult,
+                  ineq_mult, rho):
+    """The AL terms folded into the stage derivatives, out of place (the
+    hoisted Hessians are shared by every iteration): gradients gain
+    ``G^T (lambda + rho g)``, Hessians ``rho G^T G`` -- inequality rows
+    weighted by their activation."""
+    d = spec.derivs
+    lead = us.shape[:-1]
+    x, u = xs[..., :-1, :], us
+    r = rho[..., None, None]
+    r3 = rho[..., None, None, None]
+    sides = ((spec.eq_dim, spec.equality_constraints, d.eq_gx, d.eq_gu, eq_mult, True),
+             (spec.ineq_dim, spec.inequality_constraints, d.ineq_gx, d.ineq_gu, ineq_mult, False))
+    for m, fn, gx, gu, mult, eq in sides:
+        if m == 0:
+            continue
+        g = eval_constraints_horizon(fn, xs, us)                                    # [..., T, m]
+        Gx, Gu = map_leading(gx, x, u, lead=lead), map_leading(gu, x, u, lead=lead)       # [..., T, m, n]
+        if eq:
+            dual = mult + r * g
+            w = torch.ones_like(g)
+        else:
+            w = (g > -config.inequality_activation_tolerance).to(g.dtype)
+            dual = mult * w + r * torch.maximum(g, g.new_zeros(())) * w
+        lx = lx + torch.einsum("...tmi,...tm->...ti", Gx, dual)
+        lu = lu + torch.einsum("...tmi,...tm->...ti", Gu, dual)
+        lxx = lxx + r3 * torch.einsum("...tmi,...tm,...tmj->...tij", Gx, w, Gx)
+        lux = lux + r3 * torch.einsum("...tmi,...tm,...tmj->...tij", Gu, w, Gx)
+        luu = luu + r3 * torch.einsum("...tmi,...tm,...tmj->...tij", Gu, w, Gu)
+    return lx, lu, lxx, luu, lux
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _backward_pass(spec: OCPSpec, config: ILQRConfig, xs, A, B, lx, lu, lxx, luu, lux, us=None,
+                   phixx_const=None):
+    """The Riccati recursion as a reverse loop over the stages: Q-terms, the
+    gains from the first level of the cumulative regularization ladder
+    whose shifted q_uu passes Sylvester's test (or, with
+    ``bound_mode="boxqp"``, input bounds and ``us``, the exact box-QP
+    gains on the delta bounds), the value recursion with a symmetrized
+    v_xx.  Returns ``k [..., T, nu]``, ``K [..., T, nu, nx]``."""
+    use_boxqp = (config.bound_mode == "boxqp" and spec.has_input_bounds
+                 and spec.control_dim <= 4 and us is not None)
+    v_x = map_leading(spec.derivs.phix, xs[..., -1, :], lead=xs.shape[:-2])
+    v_xx = phixx_const if phixx_const is not None else _sym(
+        map_leading(spec.derivs.phixx, xs[..., -1, :], lead=xs.shape[:-2]))
+    nu = spec.control_dim
+    eye = torch.eye(nu, dtype=xs.dtype, device=xs.device)
+    ks, Ks = [], []
+    for t in range(spec.horizon_steps - 1, -1, -1):
+        A_t, B_t = A[..., t, :, :], B[..., t, :, :]
+        A_T, B_T = A_t.transpose(-1, -2), B_t.transpose(-1, -2)
+        q_x = lx[..., t, :] + _mv(A_T, v_x)
+        q_u = lu[..., t, :] + _mv(B_T, v_x)
+        q_xx = lxx[..., t, :, :] + A_T @ v_xx @ A_t
+        q_ux = lux[..., t, :, :] + B_T @ v_xx @ A_t
+        q_uu = luu[..., t, :, :] + B_T @ v_xx @ B_t
+        if use_boxqp:
+            levels = reg_levels(config.reg_init, config.reg_factor, config.reg_levels, q_uu)
+            cands = q_uu[None] + levels.reshape((-1,) + (1,) * q_uu.dim()) * eye
+            ok = leading_minors_positive(cands)
+            idx = torch.where(ok.any(0), torch.argmax(ok.to(torch.uint8), 0),
+                              torch.full_like(ok[0], config.reg_levels - 1, dtype=torch.int64))
+            u_t = us[..., t, :]
+            k_t, K_t = boxqp_gains(q_uu + levels[idx][..., None, None] * eye, q_u, q_ux,
+                                   spec.input_lower_bounds - u_t, spec.input_upper_bounds - u_t)
+        else:
+            rhs = torch.cat([q_u[..., None], q_ux], -1)
+            sol, _ = psd_solve_with_escalation(q_uu, rhs, config.reg_init, config.reg_factor,
+                                               config.reg_levels)
+            k_t, K_t = -sol[..., 0], -sol[..., 1:]
+        K_T = K_t.transpose(-1, -2)
+        q_ux_T = q_ux.transpose(-1, -2)
+        v_x = q_x + _mv(K_T, q_u) + _mv(q_ux_T, k_t) + _mv(K_T, _mv(q_uu, k_t))
+        v_xx = _sym(q_xx + K_T @ q_ux + q_ux_T @ K_t + K_T @ q_uu @ K_t)
+        ks.append(k_t)
+        Ks.append(K_t)
+    return torch.stack(ks[::-1], -2), torch.stack(Ks[::-1], -3)
+
+
+def _forward_pass(spec: OCPSpec, config: ILQRConfig, xs, us, k, K, eq_mult, ineq_mult, rho,
+                  current_merit):
+    """Every candidate step at once -- one feedback rollout per alpha of
+    the ladder (``config.alpha_ladder`` or the reference ladder), clamped
+    to the input bounds -- and the largest alpha whose merit beats
+    ``current_merit`` wins; without one the trajectory stays.  Returns
+    ``(xs_new, us_new, merit_new)``."""
+    ladder = config.alpha_ladder or _alpha_ladder_floats(config.alpha_min)
+    alphas = torch.tensor(ladder, dtype=xs.dtype, device=xs.device)
+    n_a = alphas.shape[0]
+    a = alphas.reshape((n_a,) + (1,) * (us.dim() - 1))
+    x = xs[..., 0, :].expand((n_a,) + xs.shape[:-2] + xs.shape[-1:])
+    x_list, u_list = [x], []
+    for t in range(spec.horizon_steps):
+        u = us[..., t, :] + a * k[..., t, :] + _mv(K[..., t, :, :], x - xs[..., t, :])
+        if spec.has_input_bounds:
+            u = torch.minimum(torch.maximum(u, spec.input_lower_bounds), spec.input_upper_bounds)
+        x = integrate_rk4(x, u, spec.dt, spec.dynamics)
+        x_list.append(x)
+        u_list.append(u)
+    xs_c, us_c = torch.stack(x_list, -2), torch.stack(u_list, -2)   # [A, ..., T(+1), n]
+    merits = compute_merit(spec, config, xs_c, us_c, eq_mult, ineq_mult, rho)
+    accept = merits < current_merit
+    found = accept.any(0)
+    idx = torch.argmax(accept.to(torch.uint8), 0)
+    pick = lambda c: torch.take_along_dim(c, idx.reshape((1,) + idx.shape + (1, 1)), 0)[0]
+    sel = lambda new, old: torch.where(found.reshape(found.shape + (1,) * (old.dim()
+                                                                          - found.dim())),
+                                       new, old)
+    merit_new = torch.where(found, torch.take_along_dim(merits, idx[None], 0)[0], current_merit)
+    return sel(pick(xs_c), xs), sel(pick(us_c), us), merit_new
+
+
+def _violations(spec: OCPSpec, states, controls, eq_mult, ineq_mult, rho, config):
+    """Dual updates at a trajectory: ``(eq_mult, ineq_mult, eq_viol,
+    ineq_viol)`` -- ``lambda + rho g``, ``max(mu + rho max(h, 0), 0)`` and
+    the norms ``sqrt(sum g^2)``, ``sqrt(sum max(h, 0)^2)``."""
+    zero = states.new_zeros(states.shape[:-2])
+    eq_viol = ineq_viol = zero
+    r = rho[..., None, None]
+    if spec.eq_dim > 0:
+        g = eval_constraints_horizon(spec.equality_constraints, states, controls)
+        eq_mult = eq_mult + r * g
+        eq_viol = torch.sqrt((g ** 2).sum((-2, -1)))
+    if spec.ineq_dim > 0:
+        h = eval_constraints_horizon(spec.inequality_constraints, states, controls)
+        positive = torch.maximum(h, h.new_zeros(()))
+        ineq_mult = torch.maximum(ineq_mult + r * positive, h.new_zeros(()))
+        ineq_viol = torch.sqrt((positive ** 2).sum((-2, -1)))
+    return eq_mult, ineq_mult, eq_viol, ineq_viol
+
+
+def _penalty(rho, eq_viol, ineq_viol, config: ILQRConfig):
+    tol = config.constraint_tolerance
+    return torch.where((eq_viol > tol) | (ineq_viol > tol), rho * config.penalty_increase, rho)
+
+
+def solve_ilqr(spec: OCPSpec, config: ILQRConfig, deadline=None) -> SolveResult:
+    """The single problem's AL-iLQR solve (``spec`` without a batch axis),
+    on the spec's device and in its dtype: per iteration the merit under
+    the current multipliers, :func:`_linearize` (Hessians hoisted for a
+    quadratic cost), :func:`_add_al_terms`, :func:`_backward_pass`,
+    :func:`_forward_pass`, the dual updates and the penalty schedule.  It
+    stops after ``max_iterations``, at convergence (merit improvement
+    below ``tolerance`` and both violation norms below
+    ``constraint_tolerance``), or once the host clock
+    (``time.perf_counter()``) has passed ``deadline`` -- checked after each
+    iteration, the iteration kept; ``SolverBase.solve`` sets it from
+    ``max_ms`` under ``enforce_max_ms``."""
+    T, dtype, dev = spec.horizon_steps, spec.initial_state.dtype, spec.initial_state.device
+    us = spec.initial_controls
+    xs = spec.rollout(us)
+    cost = spec.cost(xs, us)
+    eq_mult = torch.zeros((T, spec.eq_dim), dtype=dtype, device=dev)
+    ineq_mult = torch.zeros((T, spec.ineq_dim), dtype=dtype, device=dev)
+    rho = torch.tensor(config.penalty, dtype=dtype, device=dev)
+    merit = compute_merit(spec, config, xs, us, eq_mult, ineq_mult, rho)
+    hess = phixx = None
+    if resolve_cost_structure(spec, config)[0]:
+        hess, phixx = _cost_hessians(spec, xs, us)
+    eq_viol = ineq_viol = torch.zeros((), dtype=dtype, device=dev)
+    converged = False
+    it = 0
+    while it < config.max_iterations:
+        merit = compute_merit(spec, config, xs, us, eq_mult, ineq_mult, rho)
+        A, Bm, lx, lu, lxx, luu, lux = _linearize(spec, config, xs, us, hess)
+        lx, lu, lxx, luu, lux = _add_al_terms(spec, config, xs, us, lx, lu, lxx, luu, lux,
+                                              eq_mult, ineq_mult, rho)
+        k, K = _backward_pass(spec, config, xs, A, Bm, lx, lu, lxx, luu, lux, us, phixx)
+        xs, us, merit_new = _forward_pass(spec, config, xs, us, k, K, eq_mult, ineq_mult, rho,
+                                          merit)
+        improvement = merit - merit_new
+        merit = merit_new
+        cost = spec.cost(xs, us)
+        eq_mult, ineq_mult, eq_viol, ineq_viol = _violations(spec, xs, us, eq_mult, ineq_mult,
+                                                             rho, config)
+        rho = _penalty(rho, eq_viol, ineq_viol, config)
+        tol = config.constraint_tolerance
+        converged = bool((improvement < config.tolerance) & (eq_viol < tol) & (ineq_viol < tol))
+        if config.debug:
+            print(f"iLQR iter {it}: cost={float(cost)} merit={float(merit)} "
+                  f"d_merit={float(improvement)} eq_violation={float(eq_viol)} "
+                  f"ineq_violation={float(ineq_viol)}")
+        it += 1
+        if converged or (deadline is not None and time.perf_counter() > deadline):
+            break
+    return SolveResult(states=xs, controls=us, cost=cost,
+                       iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+                       converged=torch.tensor(converged, device=dev), merit=merit,
+                       eq_violation=eq_viol, ineq_violation=ineq_viol)
+
+
+def _batched_backward_pallas(specs: OCPSpec, config: ILQRConfig, xs, us, lin, ops: KernelOps,
+                             phixx_const=None, boxqp=False):
+    """The non-fused backward pass through K4's explicit-terminal mode:
+    ``phix`` by vmap, ``phixx`` symmetrized (or hoisted), the delta bounds
+    around the current controls under boxqp; gains cast to the dtype."""
+    B = xs.shape[0]
+    xT = xs[:, -1]
+    phix = map_leading(specs.derivs.phix, xT, lead=(B,))
+    phixx = phixx_const if phixx_const is not None else _sym(
+        map_leading(specs.derivs.phixx, xT, lead=(B,)))
+    lb = ub = None
+    if boxqp:
+        nu = specs.control_dim
+        lb = specs.input_lower_bounds.expand(B, nu)[:, None, :] - us
+        ub = specs.input_upper_bounds.expand(B, nu)[:, None, :] - us
+    k, K = ops.riccati_backward_pallas(*lin, phix, phixx, config.reg_init, config.reg_factor,
+                                       config.reg_levels, lb, ub)
+    return k.to(xs.dtype), K.to(xs.dtype)
+
+
+def solve_ilqr_batched_nonfused(specs: OCPSpec, config: ILQRConfig, route_: Route,
+                                ops: KernelOps = None, structure=None) -> SolveResult:
+    """The kernel-per-phase path (ilqr.py:1440-1665 of the JAX package) on
+    the device of ``specs``, batch-first in the spec's dtype; kernel
+    outputs are cast to it.  ``route_`` says which phases run a kernel;
+    every problem is frozen once it converges, and the loop stops when all
+    have (a host check once per iteration) or after ``max_iterations``."""
+    ops = KERNEL_OPS if ops is None else ops
+    B, T = specs.initial_state.shape[0], specs.horizon_steps
+    dtype, dev = specs.initial_state.dtype, specs.initial_state.device
+    use_boxqp = config.bound_mode == "boxqp" and specs.has_input_bounds
+    al = specs.eq_dim > 0 or specs.ineq_dim > 0
+    us = specs.initial_controls
+    if route_.lane_forward:
+        xs, cost = ops.rollout_select(specs, specs.initial_state, us)
+        xs, cost = xs.to(dtype), cost.to(dtype)
+    else:
+        xs = specs.rollout(us)
+        cost = specs.cost(xs, us)
+    eq_mult = torch.zeros((B, T, specs.eq_dim), dtype=dtype, device=dev)
+    ineq_mult = torch.zeros((B, T, specs.ineq_dim), dtype=dtype, device=dev)
+    rho = torch.full((B,), config.penalty, dtype=dtype, device=dev)
+    merit = compute_merit(specs, config, xs, us, eq_mult, ineq_mult, rho)
+    if structure is None:
+        structure = resolve_cost_structure(_unbatch(specs), config)
+    hess = phixx = None
+    if structure[0]:
+        hess, phixx = _cost_hessians(specs, xs, us)
+    # The select kernel scores the reference ladder, as JAX passes it.
+    ladder = _alpha_ladder_floats(config.alpha_min)
+    discrete = config.jacobian_mode == "discrete"
+    eq_viol = ineq_viol = torch.zeros(B, dtype=dtype, device=dev)
+    converged = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    def mask(new, old, active):
+        return torch.where(active.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+
+    it = 0
+    while it < config.max_iterations and not bool(converged.all()):
+        active = ~converged
+        merit = compute_merit(specs, config, xs, us, eq_mult, ineq_mult, rho)
+        if route_.lane_linearize:
+            lin = tuple(o.to(dtype) for o in ops.linearize_pallas(specs, xs, us, discrete))
+        else:
+            lin = _linearize(specs, config, xs, us, hess)
+        lin = lin[:2] + _add_al_terms(specs, config, xs, us, *lin[2:], eq_mult, ineq_mult, rho)
+        if route_.backward == "pallas":
+            k, K = _batched_backward_pallas(specs, config, xs, us, lin, ops, phixx, use_boxqp)
+        else:
+            k, K = _backward_pass(specs, config, xs, *lin, us, phixx)
+        if route_.lane_forward:
+            xs_sel, us_sel, merit_sel, accepted = ops.forward_select_pallas(
+                specs, xs, us, k, K, merit, ladder,
+                eq_mult if specs.eq_dim > 0 else None,
+                ineq_mult if specs.ineq_dim > 0 else None, rho if al else None,
+                config.inequality_activation_tolerance)
+            # Rejected problems keep their trajectory and merit exactly.
+            xs_new = mask(xs_sel.to(dtype), xs, accepted)
+            us_new = mask(us_sel.to(dtype), us, accepted)
+            merit_new = torch.where(accepted, merit_sel.to(dtype), merit)
+            cost_new = specs.cost(xs_new, us_new) if al else merit_new
+        else:
+            xs_new, us_new, merit_new = _forward_pass(specs, config, xs, us, k, K, eq_mult,
+                                                      ineq_mult, rho, merit)
+            cost_new = specs.cost(xs_new, us_new)
+        improvement = merit - merit_new
+        eq_new, ineq_new, eqv_new, inv_new = _violations(specs, xs_new, us_new, eq_mult,
+                                                         ineq_mult, rho, config)
+        rho_new = _penalty(rho, eqv_new, inv_new, config)
+        tol = config.constraint_tolerance
+        newly = (improvement < config.tolerance) & (eqv_new < tol) & (inv_new < tol)
+        xs, us, cost, merit = (mask(xs_new, xs, active), mask(us_new, us, active),
+                               mask(cost_new, cost, active), mask(merit_new, merit, active))
+        eq_mult, ineq_mult, rho = (mask(eq_new, eq_mult, active),
+                                   mask(ineq_new, ineq_mult, active), mask(rho_new, rho, active))
+        eq_viol, ineq_viol = mask(eqv_new, eq_viol, active), mask(inv_new, ineq_viol, active)
+        converged = converged | newly
+        it += 1
+    return SolveResult(
+        states=xs, controls=us, cost=cost,
+        iterations=torch.full((B,), it, dtype=torch.int32, device=dev), converged=converged,
+        merit=merit, eq_violation=eq_viol, ineq_violation=ineq_viol)
+
+
+def solve_ilqr_batched(specs: OCPSpec, config: ILQRConfig, backward: str = "auto",
+                       linearize: str = "xla", fused="auto", device="cuda", ops: KernelOps = None,
+                       structure=None) -> SolveResult:
     """Batched iLQR over specs whose leaves carry a leading batch axis.
 
     Runs on ``device`` (default ``"cuda"``; raises when CUDA is absent):
-    the spec's tensors are moved there, and the fused loop runs its CUDA
-    kernels on the card, or the plain PyTorch versions on ``"cpu"``.  The
-    JAX router's fused branches in AD mode are ported (clamp and boxqp;
-    unconstrained with or without a per-stage context, or AL-constrained
-    without one); every other branch raises ``NotImplementedError``.
+    the spec's tensors are moved there and :func:`route` picks the fused
+    loop or the non-fused path with its kernels, as the JAX package's
+    router does (``backward``: ``"auto"``, ``"pallas"`` -- K4 -- or
+    ``"scan"``; ``linearize``: ``"xla"`` or ``"pallas"`` -- K7; ``fused``:
+    ``"auto"``, True or False).  The kernels run on the card, their plain
+    versions on ``"cpu"``; ``ops`` picks the kernels (None:
+    :data:`KERNEL_OPS`) or :data:`PLAIN_OPS`.  ``structure``: the cost's
+    ``(quadratic, stationary)`` when the caller has resolved it already.
     """
-    return solve_ilqr_batched_fused(_routed(specs, config, backward, fused, device), config)
-
-
-def _routed(specs: OCPSpec, config: ILQRConfig, backward, fused, device) -> OCPSpec:
-    """``specs`` on ``device`` once the route is checked."""
     dev = resolve_device(device)
-    _check_route(specs, config, backward, fused)
+    decision = route(specs, config, backward, linearize, fused, dev.type)
+    specs = _on_device(specs, dev)
+    if decision.fused:
+        return solve_ilqr_batched_fused(specs, config, ops, structure)
+    return solve_ilqr_batched_nonfused(specs, config, decision, ops, structure)
+
+
+def _on_device(spec: OCPSpec, dev: torch.device) -> OCPSpec:
+    """``spec`` with its tensors on ``dev``."""
     move = lambda t: None if t is None else t.to(dev)
-    return specs.replace(
-        initial_state=move(specs.initial_state),
-        initial_controls=move(specs.initial_controls),
-        input_lower_bounds=move(specs.input_lower_bounds),
-        input_upper_bounds=move(specs.input_upper_bounds),
-        context=move(specs.context),
+    return spec.replace(
+        initial_state=move(spec.initial_state),
+        initial_controls=move(spec.initial_controls),
+        input_lower_bounds=move(spec.input_lower_bounds),
+        input_upper_bounds=move(spec.input_upper_bounds),
+        state_lower_bounds=move(spec.state_lower_bounds),
+        state_upper_bounds=move(spec.state_upper_bounds),
+        context=move(spec.context),
     )
 
 
 @register_solver
 class ILQR(SolverBase):
-    """The iLQR solver with the reference's ``set_params`` surface.
+    """The iLQR solver with the reference's ``set_params`` / ``solve``
+    surface.
 
-    ``device`` (default ``"cuda"``) is where its batched solves run;
-    ``ops`` picks the kernels (None: :data:`KERNEL_OPS`) or
-    :data:`PLAIN_OPS`.
+    ``device`` (default ``"cuda"``) is where its solves run; ``ops`` picks
+    the kernels of its batched solves (None: :data:`KERNEL_OPS`) or
+    :data:`PLAIN_OPS`.  The single-problem ``solve(ocp)`` runs
+    :func:`solve_ilqr`, torch on the device, as the JAX package runs its
+    scan path in XLA.
     """
 
     name = "ilqr"
     config_cls = ILQRConfig
 
-    def __init__(self, device="cuda", ops: FusedOps = None, **params):
+    def __init__(self, device="cuda", ops: KernelOps = None, **params):
         self.ops = ops
         super().__init__(device=device, **params)
 
+    def solve_spec(self, spec: OCPSpec, deadline=None) -> SolveResult:
+        config = self.config
+        if config.differentiable:
+            raise _not_ported("differentiable=True", "queue 1, iLQR modes")
+        if config.ddp:
+            raise _not_ported("ddp=True", "queue 1, iLQR modes")
+        return solve_ilqr(_on_device(spec, resolve_device(self.device)), config, deadline)
+
     def _solve_batched_fn(self, specs: OCPSpec, config: ILQRConfig, structure=None) -> SolveResult:
-        specs = _routed(specs, config, "auto", "auto", self.device)
-        return solve_ilqr_batched_fused(specs, config, self.ops, structure)
+        return solve_ilqr_batched(specs, config, device=self.device, ops=self.ops,
+                                  structure=structure)
 
     def resolve_structure(self, specs: OCPSpec, config: ILQRConfig):
         """The cost's ``(quadratic, stationary)`` of batched ``specs``."""

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..derivatives import make_derivatives
-from ..ocp import OCPSpec, synthesized_objective
+from ..ocp import OCPSpec, step_jacobians, synthesized_objective
 from ..solvers.ilqr import ILQRConfig
 from ..types import resolve_device
 
@@ -47,6 +47,7 @@ def spec_from_numpy(
         for name in LEAVES
     }
     x0, us = tensors["initial_state"], tensors["initial_controls"]
+    step_fx, step_fu = step_jacobians(dynamics, float(dt))
     if us.shape[-2] != horizon_steps:
         raise ValueError(f"initial_controls has {us.shape[-2]} stages, expected {horizon_steps}")
     return OCPSpec(
@@ -55,7 +56,8 @@ def spec_from_numpy(
         stage_cost=stage_cost,
         terminal_cost=terminal_cost,
         objective_function=synthesized_objective(stage_cost, terminal_cost),
-        derivs=make_derivatives(dynamics, stage_cost, terminal_cost),
+        derivs=make_derivatives(dynamics, stage_cost, terminal_cost, step_fx=step_fx,
+                                step_fu=step_fu),
         state_dim=int(x0.shape[-1]),
         control_dim=int(us.shape[-1]),
         horizon_steps=int(horizon_steps),

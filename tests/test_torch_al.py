@@ -11,9 +11,10 @@
   operations; XLA:CPU's and PyTorch's float32 sin/cos/tan differ in the
   last ulps, so rtol = atol = 1e-5, as tests/test_torch_kernels.py.
 * The fused AL solve against the JAX package's fused loop
-  (``solve_ilqr_batched(..., fused=True)``; JAX's ``fused="auto"`` keeps
-  AL solves on its non-fused path on the CPU, the port has only the fused
-  loop): two float32 implementations of the same algorithm over 8
+  (``solve_ilqr_batched(..., fused=True)`` on both sides: both routers'
+  ``fused="auto"`` keep AL solves on the non-fused path on the CPU, which
+  tests/test_torch_nonfused.py holds): two float32 implementations of the
+  same algorithm over 8
   iterations, to the tolerances tests/test_fused_loop.py holds JAX's own
   fused loop to against its regular path (cost rtol 1e-4, violations atol
   1e-4).
@@ -323,7 +324,7 @@ def test_speed_cap_solve_matches_jax_fused_loop(jax_speed_cap):
     for s in stats:
         s.reset()
     got = solve_ilqr_batched(_speed_cap_specs(), ILQRConfig(max_iterations=8, tolerance=1e-8),
-                             device="cpu")
+                             fused=True, device="cpu")
     want = jax_speed_cap
     it = int(got.iterations[0])
     assert it == int(np.asarray(want.iterations)[0]) == 8
@@ -345,7 +346,8 @@ def test_equality_solve_matches_jax_fused_loop(jax_equality):
     iteration is compared: equality violations atol 1e-4 and costs rtol
     1e-3."""
     got = solve_ilqr_batched(entry.equality_specs(3, device="cpu"),
-                             dataclasses.replace(entry.EQ_CONFIG, max_iterations=1), device="cpu")
+                             dataclasses.replace(entry.EQ_CONFIG, max_iterations=1), fused=True,
+                             device="cpu")
     want = jax_equality
     np.testing.assert_allclose(got.eq_violation.numpy(), np.asarray(want.eq_violation), atol=1e-4)
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=1e-3)
@@ -360,7 +362,7 @@ def test_speed_cap_solve_converges_feasible():
     chaotic in float32 (at T = 40 one problem of the three ends 2.3e-3
     above the cap after 40 iterations), as the JAX package's tests note."""
     r = solve_ilqr_batched(_speed_cap_specs(horizon=12),
-                           ILQRConfig(max_iterations=40, tolerance=1e-8), device="cpu")
+                           ILQRConfig(max_iterations=40, tolerance=1e-8), fused=True, device="cpu")
     done = r.converged
     assert int(done.sum()) >= 2
     v = r.states[done, :, 3]

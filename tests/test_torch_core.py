@@ -63,7 +63,8 @@ def _jax_zero_terminal(x):
 class TestImportBoundary:
     def test_port_imports_without_jax(self):
         code = ("import sys, multi_agent_solver_tpu_torch, multi_agent_solver_tpu_torch.entry, "
-                "multi_agent_solver_tpu_torch.constraints, multi_agent_solver_tpu_torch.utils.carry; "
+                "multi_agent_solver_tpu_torch.constraints, multi_agent_solver_tpu_torch.utils.carry, "
+                "multi_agent_solver_tpu_torch.ops.small, multi_agent_solver_tpu_torch.ops.boxqp; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m == 'multi_agent_solver_tpu' or m.startswith('multi_agent_solver_tpu.')]; "
                 "assert not bad, bad")

@@ -15,7 +15,9 @@ and the context builders run in float64 on both sides and must agree to
 
 The game runs a ring of 12 cars, 3 nearest neighbours each (T = 10,
 coupling 25, 2 sweeps, 5 iterations) through JAX's float32 fused loop
-(``"fused": 1``) and the port's plain versions, held to the tolerances of
+(``"fused": 1``) and the port's fused loop on its plain versions (also
+``"fused": 1``: on the CPU both routers send a context solve to the
+non-fused path by default), held to the tolerances of
 tests/test_fused_loop.py for two float32 implementations of one algorithm:
 per-agent cost rtol 1e-5, controls and states atol 2e-4 (measured on
 these inputs: 4.4e-9, 1.7e-5, 2.9e-5).  The coupling moves this ring's
@@ -263,7 +265,8 @@ def test_sequential_coupled_game_matches_jax(jax_game):
     for s in stats:
         s.reset()
     problem, strategy = entry.coupled_game(GAME["agents"], GAME["neighbors"], GAME["sweeps"],
-                                           GAME["params"], dtype=torch.float64, device="cpu")
+                                           {**GAME["params"], "fused": 1}, dtype=torch.float64,
+                                           device="cpu")
     solution = strategy(problem)
     got = np.asarray(solution.costs)
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -295,7 +298,7 @@ def test_strategy_probes_once_per_call(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["linesearch", "trustregion", "centralized", "heterogeneous",
-                                  "build_global_ocp", "single_solve"])
+                                  "build_global_ocp"])
 def test_unported_strategy_routes_raise(case):
     problem, _ = entry.coupled_game(3, device="cpu")
     solver = make_solver("ilqr", device="cpu")
@@ -307,10 +310,8 @@ def test_unported_strategy_routes_raise(case):
             other.stage_cost = lambda x, u, t: (x[..., 0] ** 2)
             problem.add_agent(Agent(7, other))
             make_strategy("sequential", solver, GAME["params"], 2)(problem)
-        elif case == "build_global_ocp":
-            problem.build_global_ocp()
         else:
-            solver.solve(problem.agents[0].ocp)
+            problem.build_global_ocp()
 
 
 def test_al_constrained_context_solve_still_raises():
@@ -358,7 +359,7 @@ def test_zero_coupling_solves_as_the_uncoupled_track():
     config = dataclasses.replace(entry.SWEEP_CONFIG, max_iterations=3)
     for s in (k2.CTX_STATS, k3.CTX_STATS):
         s.reset()
-    got = solve_ilqr_batched(ctx_specs, config, device="cpu")
+    got = solve_ilqr_batched(ctx_specs, config, fused=True, device="cpu")
     want = solve_ilqr_batched(sweep, config, device="cpu")
     it = int(got.iterations[0])
     assert torch.equal(got.cost, want.cost) and torch.equal(got.controls, want.controls)

@@ -20,7 +20,7 @@ import torch
 from multi_agent_solver_tpu.solvers.ilqr import ILQRConfig as JConfig
 from multi_agent_solver_tpu.solvers.ilqr import solve_ilqr_batched as j_solve
 
-from multi_agent_solver_tpu_torch import OCP, entry
+from multi_agent_solver_tpu_torch import entry
 from multi_agent_solver_tpu_torch.derivatives import make_derivatives
 from multi_agent_solver_tpu_torch.models import single_track_model
 from multi_agent_solver_tpu_torch.ocp import with_context_cost, zero_terminal_cost
@@ -101,22 +101,6 @@ def test_cpu_solve_runs_plain_versions_only():
     assert (r.controls[..., 0].abs() <= 0.7 + 1e-6).all()
 
 
-def _constrained_specs():
-    """An AL problem whose constraint indexes one problem's state (``x[3]``,
-    not ``x[..., 3]``): it fails on batched values, which the JAX router
-    sends to its non-fused path (not ported; AL itself is, see
-    tests/test_torch_al.py)."""
-    ocp = OCP(
-        state_dim=4, control_dim=2, horizon_steps=10, dt=0.1,
-        initial_state=torch.tensor([0.0, 1.0, 0.0, 0.5]),
-        dynamics=single_track_model, stage_cost=entry.LANE_FOLLOW_COST,
-        inequality_constraints=lambda x, u: torch.stack([x[3] - 1.5]),
-        device="cpu",
-    )
-    ocp.initialize_problem()
-    return entry.batch_specs(ocp.spec(), np.zeros((2, 4), np.float32))
-
-
 def _time_varying_specs():
     specs = entry.bench_specs(2, device="cpu", horizon=10)
     cost = lambda x, u, t: (1 + t) * x[..., 1] ** 2 + 0.1 * u[..., 0] ** 2
@@ -159,7 +143,9 @@ def _context_specs():
 
 
 def test_context_cost_hoists_per_stage_hessians():
-    """A context cost takes the fused loop: quadratic with a context, K3
+    """With ``fused=True`` (on the CPU both routers' ``"auto"`` take the
+    non-fused path for a context) a context cost takes the fused loop:
+    quadratic with a context, K3
     hoists per-stage Hessians once in context mode, then K3 without
     Hessians, K4 and K2 select run with the context every iteration; the
     result is bit-identical to the general branch, and the reference moves
@@ -168,43 +154,35 @@ def test_context_cost_hoists_per_stage_hessians():
     stats = (k1.BACKWARD_STATS, k2.CTX_STATS, k3.CTX_STATS, k2.STATS, k3.STATS)
     for s in stats:
         s.reset()
-    hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, device="cpu")
+    hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, fused=True, device="cpu")
     it = int(hoisted.iterations[0])
     assert [s.plain_calls for s in stats] == [it, 1 + it, 1 + it, 0, 0]
     general = solve_ilqr_batched(
-        specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), device="cpu")
+        specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), fused=True,
+        device="cpu")
     assert torch.isfinite(hoisted.cost).all()
     assert torch.equal(hoisted.cost, general.cost)
     assert torch.equal(hoisted.controls, general.controls)
     fixed = solve_ilqr_batched(specs.replace(context=torch.zeros(2, 10, 1)), entry.BENCH_CONFIG,
-                               device="cpu")
+                               fused=True, device="cpu")
     assert not torch.allclose(fixed.controls, hoisted.controls)
 
 
-@pytest.mark.parametrize("case", [
-    "al_constrained", "ddp", "differentiable", "not_fused",
-    "fd_derivatives", "continuous_jacobians", "scan_backward", "user_objective",
-])
+@pytest.mark.parametrize("case", ["ddp", "differentiable", "fd_derivatives", "assoc",
+                                  "al_with_context"])
 def test_unported_branches_raise(case):
     specs = entry.bench_specs(2, device="cpu", horizon=10)
     config, kwargs = entry.BENCH_CONFIG, {}
-    if case == "al_constrained":
-        specs = _constrained_specs()
-    elif case == "fd_derivatives":
+    if case == "fd_derivatives":
         specs = specs.replace(derivative_mode="fd")
-    elif case == "user_objective":
-        specs = specs.replace(objective_is_default=False,
-                              objective_function=lambda xs, us: (xs ** 2).sum((-2, -1)))
     elif case == "ddp":
         config = dataclasses.replace(config, ddp=True)
     elif case == "differentiable":
         config = dataclasses.replace(config, differentiable=True)
-    elif case == "not_fused":
-        kwargs = {"fused": False}
-    elif case == "continuous_jacobians":
-        config = dataclasses.replace(config, jacobian_mode="continuous")
-    elif case == "scan_backward":
-        kwargs = {"backward": "scan"}
+    elif case == "assoc":
+        kwargs = {"backward": "assoc"}
+    else:
+        specs = _context_specs().replace(ineq_dim=1, inequality_constraints=lambda x, u: x[..., :1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_ilqr_batched(specs, config, device="cpu", **kwargs)
 
