@@ -15,7 +15,10 @@ circular-track agent sweep of ``scripts/bench_multi_agent.py`` and its
 coupled Nash game (``bench_coupled``: the context modes of K3 and K2, K6),
 the AL solves, the non-fused (kernel-per-phase) routes with K4's
 explicit-terminal mode and K7, the continuous Jacobian modes of K1 and
-K3, and the single-problem ``solve(ocp)``.
+K3, the single-problem ``solve(ocp)``, the coupled game of constrained
+agents (K6 in AL and context mode at once), and the kernels that no
+solve path runs: K8 (the select kernel's emit mode), K9 (the all-alpha
+forward pass) and K10 (the terminal derivatives).
 
 Phases, each reported on its own lines:
 
@@ -95,14 +98,34 @@ and, run after phase 5 and before 6 and 7, in this order:
    and K1 continuous per launch with their plain ms and bounds, the
    non-fused glue per iteration by part, and the single solve's wall ms
    in float32 and float64;
-6. one JSON line listing every ported kernel (K1-K7, K6's AL mode, K4's
-   explicit-terminal mode and the continuous modes of K1 and K3), printed
-   after them;
+22. K6 in AL and context mode at once (the game's inequality row, and a
+   row on each side) against its plain version at B = 8192, T = 10,
+   K = 8 and 63, 3 and 10 candidates; K8 at B = 8192, T = 80 in both
+   Jacobian modes (and with a context at T = 10) against its plain version
+   and its stacks against K3's at the accepted trajectory; K9 at B = 8192,
+   A = 3 and 10, against its plain version, its alpha-0 rollout against
+   K2's rollout mode; K10 at B = 262,144 against its plain version (zero
+   and quadratic terminal costs), and K4's explicit mode fed K10's value
+   against K4's in-kernel terminal value;
+23. the constrained game through ``entry.constrained_game``: a 12-car
+   ring after 3 sweeps of at most 8 iterations on its JAX anchor agent by
+   agent and against the plain versions; 64 cars (all pairs) and 256 (8
+   nearest) on their JAX anchors (``coupled_al_anchors.py``) within the
+   spread of one-ulp-moved games, every converged agent feasible, launch
+   counts per solve; 64 cars over 2 sweeps of at most 8 iterations through
+   the kernels against the plain versions;
+24. agent-solves/s and wall ms of the constrained game at 64, 256 and
+   1,024 cars (median of 5 calls) with K6 AL + context's ms per launch at
+   each row's shapes, its plain ms and bound; K8, K9 (A = 3 and 10) and
+   K10 per launch at B = 262,144, T = 80, with plain ms and bounds;
+6. one JSON line listing every ported kernel (K1-K10, K6's AL mode and
+   its AL and context mode, K4's explicit-terminal mode and the continuous
+   modes of K1 and K3), printed after them;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
-exits 1 and prints no result.  Long output goes to
-``build/chip_smoke.log`` as well.
+exits 1 and prints no result.  Long output goes to ``build/chip_smoke.log``
+as well.
 """
 
 from __future__ import annotations
@@ -252,6 +275,33 @@ OPS_K3_CONT = OPS_K3 - OPS_DUAL_STAGE + OPS_DUAL_CONT
 # the mask, three products, the half-rho product, two sums), and the sum
 # into the step.
 OPS_AL_EQ_ROW, OPS_AL_INEQ_ROW, OPS_AL_STEP = 6, 10, 1
+# The constrained game (phases 22-24): bench_coupled's with every car's
+# speed capped by one AL row, v <= 4.5 (entry.constrained_game).  Its
+# anchors are the JAX package's float32 fused loop on the CPU
+# (coupled_al_anchors.py): a 12-car ring, 3 nearest, after 3 sweeps of at
+# most 8 iterations (AL endgames are knife-edge, so the ring is held agent
+# by agent after a few iterations, to SMALL_GAME_RTOL), and two of
+# bench_coupled's rows at 10 sweeps, held to the spread of one-ulp-moved
+# games as phase 14 holds the unconstrained ones.  Every agent that
+# converged in the last sweep keeps v <= 4.5 + SPEED_CAP_TOL (the
+# constraint tolerance) at its constrained stages.
+CONSTRAINED_SMALL = (12, 3, 3, 8)          # cars, nearest, sweeps, iterations
+CONSTRAINED_SMALL_ANCHOR = (3.5631563663482666, 3.563156843185425, 3.5631558895111084,
+                            3.563157320022583, 3.56315541267395, 3.5631563663482666,
+                            3.5631558895111084, 3.5631563663482666, 3.5631563663482666,
+                            3.5631558895111084, 3.5631563663482666, 3.563156843185425)
+CONSTRAINED_ANCHORS = {
+    (64, None): {"total": 20395.995330810547, "mean": 318.6874270439148,
+                 "min": 191.6533203125, "max": 768.1551513671875},
+    (256, 8): {"total": 296001.6202392578, "mean": 1156.2563290596008,
+               "min": 687.3872680664062, "max": 1560.4189453125},
+}
+SPEED_CAP_VALUE, SPEED_CAP_TOL = 4.5, 1e-3
+# K9's candidate counts (bench.py's ladder and the reference's), and the
+# quadratic terminal cost (weights, targets) that K10 is checked on beside
+# the main path's zero terminal cost.
+K9_ALPHAS = (3, 10)
+QUAD_TERMINAL = ((2.0, 3.0, 0.5, 1.5), (1.0, -0.5, 0.2, 1.0))
 
 
 def log(msg: str = "") -> None:
@@ -1239,7 +1289,7 @@ def perturbed(problem, coord, direction):
 def counted_solves(strategy, stats):
     """Wrap the strategy's batched solve: every solve runs with the counts set
     to 0 just before it and read just after; returns the list the
-    (iterations, launches) of each solve go into."""
+    (iterations, launches, result) of each solve go into."""
     solver = strategy.solver_proto
     inner = solver._solve_batched_fn
     record = []
@@ -1247,19 +1297,21 @@ def counted_solves(strategy, stats):
     def solve(specs, config, structure=None):
         reset_counts(stats)
         result = inner(specs, config, structure)
-        record.append((int(result.iterations[0]), read_counts(stats)))
+        record.append((int(result.iterations[0]), read_counts(stats), result))
         return result
 
     solver._solve_batched_fn = solve
     return record
 
 
-def knife_edge(entry, agents, neighbors, sweeps, nominal):
-    """Totals of the game through the kernels with x0 moved by one ulp
+def knife_edge(entry, agents, neighbors, sweeps, nominal, game=None, params=None):
+    """Totals of the game (``game``, None: ``entry.coupled_game``; with
+    ``params``) through the kernels with x0 moved by one ulp
     (KNIFE_EDGE_MOVES), beside the nominal total: ``(totals, mean, std)``."""
+    game = entry.coupled_game if game is None else game
     totals = [nominal]
     for coord, direction in KNIFE_EDGE_MOVES:
-        problem, strategy = entry.coupled_game(agents, neighbors, sweeps, device=DEVICE)
+        problem, strategy = game(agents, neighbors, sweeps, params, device=DEVICE)
         totals.append(float(strategy(perturbed(problem, coord, direction)).total_cost))
     return totals, float(np.mean(totals)), float(np.std(totals, ddof=1))
 
@@ -1302,11 +1354,11 @@ def coupled_games(entry, ilqr, stats):
             fail(f"coupled game {tag}: {len(costs)} costs, finite {np.all(np.isfinite(costs))}")
         if solution.states[0].shape != (T_SWEEP + 1, 4) or solution.controls[0].shape != (T_SWEEP, 2):
             fail(f"coupled game {tag}: result shapes {tuple(solution.states[0].shape)}")
-        for it, launches in solves:
+        for it, launches, _ in solves:
             check_counts(launches, {"K6": 1 + it, "K3ctx": it, "K4": it}, f"coupled game {tag}",
                          quiet=True)
-        its = [it for it, _ in solves]
-        total_launches = {k: sum(l[k] for _, l in solves) for k in solves[0][1]}
+        its = [it for it, _, _ in solves]
+        total_launches = {k: sum(l[k] for _, l, _ in solves) for k in solves[0][1]}
         log(f"  {len(solves)} solves, iterations {its}; launches per solve K6 = 1 + iterations, "
             f"K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
         totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER, solution.total_cost)
@@ -1347,11 +1399,13 @@ def coupled_games(entry, ilqr, stats):
     return out
 
 
-def game_inputs(entry, agents, neighbors):
-    """The fused loop's first-iteration inputs of one game row's first sweep:
-    spec, x0 [nx, N], us [T, nu, N], ctx [T, K, nx, N] on the card."""
+def game_inputs(entry, agents, neighbors, game=None):
+    """The fused loop's first-iteration inputs of one game row's first sweep
+    (``game``, None: ``entry.coupled_game``): spec, x0 [nx, N], us [T, nu,
+    N], ctx [T, K, nx, N] on the card."""
     from multi_agent_solver_tpu_torch.strategies import stack_agent_specs
-    problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
+    game = entry.coupled_game if game is None else game
+    problem, strategy = game(agents, neighbors, device=DEVICE)
     problem.compute_offsets()
     specs = strategy._prepare(problem, stack_agent_specs(problem, DEVICE))
     sweep = strategy._sweep_specs(specs, specs.initial_controls, strategy._initial_states(specs))
@@ -1870,6 +1924,535 @@ def time_nonfused(ilqr, entry, card):
             "single_ms": single}
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-24: constrained agents in the coupled game (K6 in AL and context
+# mode at once) and the last three kernels, K8, K9 and K10.
+# ---------------------------------------------------------------------------
+
+
+def record_into(errs, kernel, results):
+    """Fold ``compare`` results into ``errs[kernel]``; True if all were ok."""
+    ok = True
+    for good, max_abs, max_rel in results:
+        ok = ok and good
+        a, r = errs.get(kernel, (0.0, 0.0))
+        errs[kernel] = (max(a, max_abs), max(r, max_rel))
+    return ok
+
+
+def constrained_spec(both_sides=False):
+    """One car of the constrained game: the coupled spec with the speed cap
+    (``entry.SPEED_CAP``), and with ``both_sides`` an equality row pinning
+    the steering (``0.1 - u_0``) too."""
+    from multi_agent_solver_tpu_torch import entry
+    from multi_agent_solver_tpu_torch.ocp import bound_rows
+    spec = coupled_spec().replace(inequality_constraints=entry.SPEED_CAP, ineq_dim=1)
+    if both_sides:
+        spec = spec.replace(equality_constraints=bound_rows(("u", 0, 0.1, "lower")), eq_dim=1)
+    return spec
+
+
+def al_multipliers(B, T_, spec, seed):
+    """Seeded AL inputs: equality multipliers U(-2, 2), inequality ones
+    U(0, 3) on 70% of the rows, rho = 10^U(0, 3)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE).contiguous()
+    eq = f32(rng.uniform(-2, 2, (T_, spec.eq_dim, B))) if spec.eq_dim else None
+    ineq = f32(rng.uniform(0, 3, (T_, spec.ineq_dim, B))
+               * (rng.uniform(size=(T_, spec.ineq_dim, B)) < 0.7))
+    return eq, ineq, f32(10.0 ** rng.uniform(0, 3, B))
+
+
+def ring_inputs(entry, k2, k3, k1, spec, K, ring, B, seed):
+    """Phase 13's ring geometry at T_SWEEP: x0 [nx, B] of B / ring rings,
+    controls in the box, the context of K neighbours along the ring, the
+    rollout and the Riccati gains of ``spec``'s plain versions."""
+    import torch
+    rng = np.random.RandomState(seed)
+    us = torch.as_tensor(rng.uniform(-0.5, 0.5, (T_SWEEP, 2, B)), dtype=torch.float32,
+                         device=DEVICE).contiguous()
+    x0 = torch.as_tensor(entry.circular_sweep_x0(ring, B // ring).T.copy(), device=DEVICE)
+    xs_free, _ = k2.rollout_cost_plain(entry.circular_sweep_specs(1, 1, device=DEVICE), x0, us)
+    ctx = ring_context(torch.cat([x0[None], xs_free[:-1]], 0), K, ring)
+    xs_tail, cost = k2.rollout_cost_plain(spec, x0, us, ctx)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    k, K_ = k1.riccati_backward_plain(spec, *k3.linearize_plain(spec, xs, us, True, ctx), xT,
+                                      levels)
+    return dict(x0=x0, us=us, ctx=ctx, xs=xs, xT=xT, cost=cost, k=k, K=K_)
+
+
+def check_al_context_kernels(entry, ilqr, errs):
+    """Phase 22a: K6 in AL and context mode against its plain version at
+    B = CHECK_BATCH, T = T_SWEEP, K = 8 and 63, with the game's inequality
+    row and with a row on each side, at 3 and 10 candidates: phase 13's
+    select tolerances (states and controls atol 5e-4, merit rtol 1e-4) on
+    SELECT_SHARE of the problems, the one-ulp knife-edge measured beside."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B, ok = CHECK_BATCH, True
+    act_tol = entry.AL_CONFIG.inequality_activation_tolerance
+    sides = {"ineq": constrained_spec(), "eq+ineq": constrained_spec(both_sides=True)}
+    lb = torch.full((2, B), -0.5, device=DEVICE)
+    ub = -lb
+    active = torch.as_tensor(np.random.RandomState(22).uniform(size=B) < 0.9, device=DEVICE)
+    log(f"[22] K6 AL + context mode checks, B={B}, T={T_SWEEP}, K = {COUPLED_CHECK_K}")
+    for K, ring in COUPLED_CHECK_K:
+        inp = ring_inputs(entry, k2, k3, k1, sides["ineq"], K, ring, B, seed=22 + K)
+        xs, us, xT, ctx = inp["xs"], inp["us"], inp["xT"], inp["ctx"]
+        moved = xs.clone()
+        moved[0, 1] = torch.nextafter(moved[0, 1], torch.full_like(moved[0, 1], np.inf))
+        for side, spec in sides.items():
+            eq_mult, ineq_mult, rho = al_multipliers(B, T_SWEEP, spec, seed=220 + K)
+            g = ilqr._lane_constraint_vals(spec.equality_constraints, xs, us) if spec.eq_dim else None
+            h = ilqr._lane_constraint_vals(spec.inequality_constraints, xs, us)
+            merit = ilqr._lane_merit(inp["cost"], g, h, eq_mult, ineq_mult, rho, act_tol)
+            for ladder in (entry.BENCH_CONFIG.alpha_ladder, _alpha_ladder_floats(1e-3)):
+                outs = {}
+                for name, fn, start in (("kernel", k2.forward_select, xs),
+                                        ("plain", k2.forward_select_plain, xs),
+                                        ("plain, x0 one ulp up", k2.forward_select_plain, moved)):
+                    bufs = [start.clone(), us.clone(), xT.clone()]
+                    m, a = fn(spec, *bufs, inp["k"], inp["K"], merit, active, lb, ub, ladder, ctx,
+                              eq_mult, ineq_mult, rho, act_tol)
+                    outs[name] = bufs + [m, a]
+                tag = f"K6-AL+ctx {side} K={K} A={len(ladder)}"
+                results = [compare(f"{tag} {n}", a, b, 1e-4, atol)
+                           for n, a, b, atol in zip(("xs", "us", "xT", "merit"), outs["kernel"],
+                                                    outs["plain"], (5e-4,) * 3 + (0.0,))]
+                apart = select_apart(outs["kernel"], outs["plain"])
+                apart_ulp = select_apart(outs["plain, x0 one ulp up"], outs["plain"])
+                share = 1.0 - float(apart.float().mean())
+                good = share >= SELECT_SHARE
+                log(f"  {tag}: {int(outs['kernel'][4].sum())} of {B} accepted, "
+                    f"{int((outs['kernel'][4] != outs['plain'][4]).sum())} accept flags differ; "
+                    f"{int(apart.sum())} problems beyond the tolerances (share within "
+                    f"{share:.4f}, required {SELECT_SHARE}); knife-edge: x0 one ulp up moves "
+                    f"{int(apart_ulp.sum())} plain-version problems beyond them "
+                    f"{'OK' if good else 'MISMATCH'}")
+                ok = ok and good
+                record_into(errs, "K6alctx", [(good, a, r) for _, a, r in results])
+        del inp, outs
+    torch.cuda.synchronize()
+    if not ok:
+        fail("K6's AL and context mode disagrees with its plain version (phase 22)")
+
+
+def check_emit_kernels(entry, spec, errs):
+    """Phase 22b: K8 against its plain version -- the main path's problem
+    at B = CHECK_BATCH, T = 80, both Jacobian modes, 3 and 10 candidates,
+    the trajectory, merit and accept flags to phase 3's select tolerances;
+    its linearization stacks against the plain linearization at K8's own
+    accepted trajectory to phase 19's K3 tolerance (rtol 1e-5, atol 1e-5),
+    and against K3's launch there (the same device functions: equal, or
+    within rtol 1e-6); then the coupled cost at T_SWEEP, K = 8, the
+    trajectory on SELECT_SHARE of the problems (phase 13) and the stacks
+    at K8's trajectory to phase 13's K3 tolerance (rtol 1e-5, absolute
+    floor 1e-5 of each stack's scale)."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B, ok = CHECK_BATCH, True
+    names = ("A", "B", "lx", "lu", "lxx", "luu", "lux")
+
+    def stacks_at_own_trajectory(tag, s, got, x0_stage, ctx, disc, floor):
+        """K8's stacks against the plain linearization and K3's launch at
+        the trajectory K8 accepted."""
+        xs_k = torch.cat([x0_stage, got[0][:-1]], 0).contiguous()
+        plain = k3.linearize_plain(s, xs_k, got[1], True, ctx, disc)
+        results = [compare(f"{tag} {n}", a, b, 1e-5, floor(b))
+                   for n, a, b in zip(names, got[4:], plain)]
+        lin3 = k3.linearize(s, xs_k, got[1], True, ctx, disc)
+        same = all(torch.equal(a, b) for a, b in zip(got[4:], lin3))
+        rel = [compare(f"{tag} vs K3 {n}", a, b, 1e-6, 1e-6 * float(b.abs().max()))
+               for n, a, b in zip(names, got[4:], lin3)]
+        log(f"  {tag}: stacks {'bit-identical to' if same else 'within rtol 1e-6 of'} K3's at "
+            f"the accepted trajectory")
+        return results + rel
+
+    x0, us, lb, ub, _ = main_path_inputs(spec, B, seed=23)
+    xs_tail, cost = k2.rollout_cost_plain(spec, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    k, K = k1.riccati_backward_plain(spec, *k3.linearize_plain(spec, xs, us, True), xs_tail[-1],
+                                     levels)
+    log(f"[22] K8 (emit mode) checks, B={B}, T={T}")
+    for disc in (True, False):
+        for ladder in (entry.BENCH_CONFIG.alpha_ladder, _alpha_ladder_floats(1e-3)):
+            tag = f"K8 {'discrete' if disc else 'continuous'} A={len(ladder)}"
+            got = k2.forward_select_emit_lin(spec, xs, us, k, K, cost, lb, ub, ladder, None, disc)
+            want = k2.forward_select_emit_lin_plain(spec, xs, us, k, K, cost, lb, ub, ladder, None,
+                                                    disc)
+            n_diff = int((got[3] != want[3]).sum())
+            log(f"  {tag}: {int(got[3].sum())} of {B} accepted, {n_diff} differ")
+            results = [compare(f"{tag} xs", got[0], want[0], 1e-4, 1e-4),
+                       compare(f"{tag} us", got[1], want[1], 1e-4, 1e-4),
+                       compare(f"{tag} merit", got[2], want[2], 1e-5, 0.0), (n_diff == 0, 0.0, 0.0)]
+            results += stacks_at_own_trajectory(tag, spec, got, xs[:1], None, disc, lambda b: 1e-5)
+            ok = record_into(errs, "K8", results) and ok
+            del got, want
+    cspec = coupled_spec()
+    inp = ring_inputs(entry, k2, k3, k1, cspec, 8, 256, B, seed=24)
+    lbc = torch.full((2, B), -0.5, device=DEVICE)
+    for disc in (True, False):
+        tag = f"K8 context K=8 {'discrete' if disc else 'continuous'} A=10"
+        args = (cspec, inp["xs"], inp["us"], inp["k"], inp["K"], inp["cost"], lbc, -lbc,
+                _alpha_ladder_floats(1e-3), inp["ctx"], disc)
+        got, want = k2.forward_select_emit_lin(*args), k2.forward_select_emit_lin_plain(*args)
+        results = [compare(f"{tag} {n}", a, b, 1e-4, atol)
+                   for n, a, b, atol in zip(("xs", "us", "merit"), got, want, (5e-4, 5e-4, 0.0))]
+        apart = select_apart((got[0], got[1], got[0][-1], got[2], got[3]),
+                             (want[0], want[1], want[0][-1], want[2], want[3]))
+        share = 1.0 - float(apart.float().mean())
+        good = share >= SELECT_SHARE
+        log(f"  {tag}: {int(got[3].sum())} of {B} accepted, {int((got[3] != want[3]).sum())} "
+            f"differ; {int(apart.sum())} problems beyond the select tolerances (share within "
+            f"{share:.4f}, required {SELECT_SHARE}) {'OK' if good else 'MISMATCH'}")
+        ok = ok and good
+        record_into(errs, "K8", [(good, a, r) for _, a, r in results])
+        ok = record_into(errs, "K8", stacks_at_own_trajectory(
+            tag, cspec, got, inp["xs"][:1], inp["ctx"], disc,
+            lambda b: 1e-5 * float(b.abs().max()))) and ok
+    torch.cuda.synchronize()
+    if not ok:
+        fail("K8 disagrees with its plain version or with K3 (phase 22)")
+
+
+def check_forward_pass_kernel(entry, spec, errs):
+    """Phase 22c: K9 against its plain version at B = CHECK_BATCH, A = 3
+    and 10 (states, controls and costs rtol 1e-5, atol 1e-5, as phase 3's
+    rollout), and its alpha-0 rollout (``rollout_pallas``) against K2's
+    rollout mode (``rollout_select``)."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_pallas as k9
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    B, ok = CHECK_BATCH, True
+    x0, us, _, _, _ = main_path_inputs(spec, B, seed=25)
+    xs_tail, _ = k2.rollout_cost_plain(spec, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    k, K = k1.riccati_backward_plain(spec, *k3.linearize_plain(spec, xs, us, True), xs_tail[-1],
+                                     k1.reg_ladder(1e-6, 10.0, 16))
+    log(f"[22] K9 (all-alpha forward pass) checks, B={B}, T={T}")
+    for A in K9_ALPHAS:
+        alphas = tuple(0.5 ** i for i in range(A))
+        got = k9.forward_pass(spec, xs, us, k, K, alphas)
+        want = k9.forward_pass_plain(spec, xs, us, k, K, alphas)
+        ok = record_into(errs, "K9", [compare(f"K9 A={A} {n}", a, b, 1e-5, 1e-5)
+                                      for n, a, b in zip(("xs", "us", "cost"), got, want)]) and ok
+        del got, want
+    x0_bf, us_bf = x0.T.contiguous(), us.permute(2, 0, 1).contiguous()
+    got = k9.rollout_pallas(spec, x0_bf, us_bf)
+    want = k9.rollout_pallas(spec, x0_bf, us_bf, forward=k9.forward_pass_plain)
+    k2_rollout = k2.rollout_select(spec, x0_bf, us_bf)
+    ok = record_into(errs, "K9", [compare("K9 rollout xs", got[0], want[0], 1e-5, 1e-5),
+                                  compare("K9 rollout cost", got[1], want[1], 1e-5, 0.0),
+                                  compare("K9 rollout vs K2 rollout xs", got[0], k2_rollout[0],
+                                          1e-5, 1e-5),
+                                  compare("K9 rollout vs K2 rollout cost", got[1], k2_rollout[1],
+                                          1e-5, 0.0)]) and ok
+    torch.cuda.synchronize()
+    if not ok:
+        fail("K9 disagrees with its plain version or with K2's rollout (phase 22)")
+
+
+def check_terminal_kernel(entry, spec, errs):
+    """Phase 22d: K10 against its plain version -- the terminal path of K1's
+    and K4's plain versions -- at B = MAIN_BATCH for the main path's zero
+    terminal cost and a quadratic one (rtol 1e-6); and K4's explicit mode
+    fed K10's value against K4 with its in-kernel terminal value (the same
+    second-order-dual device code) at B = CHECK_BATCH."""
+    import torch
+    from multi_agent_solver_tpu_torch.ocp import diagonal_quadratic_terminal_cost
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    B, ok = MAIN_BATCH, True
+    log(f"[22] K10 (terminal derivatives) checks, B={B}")
+    x0, us, _, _, _ = main_path_inputs(spec, B, seed=26)
+    xT = k2.rollout_cost_plain(spec, x0, us)[0][-1].contiguous()
+    quad = spec.replace(terminal_cost=diagonal_quadratic_terminal_cost(*QUAD_TERMINAL))
+    for name, s in (("zero", spec), ("quadratic", quad)):
+        got, want = k3.terminal_derivs_tiled(s, xT), k3.terminal_derivs_tiled_plain(s, xT)
+        ok = record_into(errs, "K10", [compare(f"K10 {name} phix", got[0], want[0], 1e-6, 1e-6),
+                                       compare(f"K10 {name} phixx", got[1], want[1], 1e-6, 1e-6)]) and ok
+    Bc = CHECK_BATCH
+    x0, us = x0[:, :Bc].contiguous(), us[:, :, :Bc].contiguous()
+    xs_tail, _ = k2.rollout_cost_plain(spec, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].contiguous()
+    lin = k3.linearize(spec, xs, us, True)
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    k_in, K_in = k1.riccati_backward(spec, *lin, xT, levels)
+    k_x, K_x = k1.riccati_backward_explicit(*lin, *k3.terminal_derivs_tiled(spec, xT), levels)
+    same = torch.equal(k_in, k_x) and torch.equal(K_in, K_x)
+    log(f"  K4 explicit fed K10's value vs K4's in-kernel terminal value: "
+        f"{'bit-identical' if same else 'differ'}")
+    ok = ok and compare("K4 explicit(K10) k", k_x, k_in, 1e-6, 1e-7)[0]
+    ok = ok and compare("K4 explicit(K10) K", K_x, K_in, 1e-6, 1e-7)[0]
+    torch.cuda.synchronize()
+    if not ok:
+        fail("K10 disagrees with its plain version or with K4's terminal path (phase 22)")
+
+
+def feasible_converged(results, what):
+    """Every agent that converged in the last sweep's solve keeps v <= cap +
+    tolerance at its constrained stages x_0..x_{T-1}; returns (converged,
+    max speed of a converged agent)."""
+    last = results[-1]
+    conv = last.converged.cpu().numpy()
+    v = last.states[:, :-1, 3].double().cpu().numpy().max(1)
+    v_conv = float(v[conv].max()) if conv.any() else float("nan")
+    good = not conv.any() or v_conv <= SPEED_CAP_VALUE + SPEED_CAP_TOL
+    log(f"  feasibility: {int(conv.sum())} of {len(conv)} agents converged in the last sweep, "
+        f"their largest constrained speed {v_conv!r} (cap {SPEED_CAP_VALUE} + "
+        f"{SPEED_CAP_TOL:g}); every agent's {float(v.max())!r} {'OK' if good else 'MISMATCH'}")
+    if not good:
+        fail(f"{what}: a converged agent violates the speed cap")
+    return int(conv.sum()), v_conv
+
+
+def constrained_games(entry, ilqr, stats):
+    """Phase 23: the constrained game through the strategy."""
+    import torch
+    out = {}
+    want_of = lambda it: {"K6": 1, "K6alctx": it, "K3ctx": it, "K4": it}
+    # (a) The 12-car ring after a few sweeps of a few iterations, on its JAX
+    # anchor agent by agent, and against the plain versions.
+    agents, neighbors, sweeps, iters = CONSTRAINED_SMALL
+    params = {**entry.CONSTRAINED_PARAMS, "max_iterations": iters}
+    log(f"[23] constrained game, {agents} cars x {neighbors} nearest, {sweeps} sweeps of at most "
+        f"{iters} iterations")
+    res = {}
+    for name, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+        problem, strategy = entry.constrained_game(agents, neighbors, sweeps, params, device=DEVICE)
+        strategy.solver_proto.ops = ops
+        solves = counted_solves(strategy, stats)
+        res[name] = np.asarray(strategy(problem).costs)
+        if name == "kernels":
+            for it, launches, _ in solves:
+                check_counts(launches, want_of(it), f"constrained ring ({name})", quiet=True)
+            log(f"  kernels: {len(solves)} solves, iterations {[it for it, _, _ in solves]}; "
+                f"launches per solve K6 rollout 1, K6alctx = K3ctx = K4 = iterations")
+    anchor = np.asarray(CONSTRAINED_SMALL_ANCHOR)
+    rel = float(np.max(np.abs(res["kernels"] - anchor) / anchor))
+    rel_p = float(np.max(np.abs(res["kernels"] - res["plain"]) / res["plain"]))
+    good = rel <= SMALL_GAME_RTOL and rel_p <= SMALL_GAME_RTOL
+    log(f"  per-agent cost min {float(res['kernels'].min())!r} max {float(res['kernels'].max())!r}; "
+        f"against the JAX anchor max rel {rel:.3e}, against the plain versions {rel_p:.3e} (rtol "
+        f"{SMALL_GAME_RTOL:g}) {'OK' if good else 'MISMATCH'}")
+    if not good:
+        fail(f"the {agents}-car constrained game is off its anchor or its plain versions")
+
+    # (b) The benchmark's rows on their anchors within the one-ulp spread,
+    # feasible, with launch counts per solve.
+    for (agents, neighbors), anchor in CONSTRAINED_ANCHORS.items():
+        tag = f"{agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}"
+        log(f"[23] constrained game, {tag}, {entry.MAX_OUTER} sweeps")
+        problem, strategy = entry.constrained_game(agents, neighbors, device=DEVICE)
+        solves = counted_solves(strategy, stats)
+        solution = strategy(problem)
+        costs = np.asarray(solution.costs)
+        if not (len(costs) == agents and np.all(np.isfinite(costs))):
+            fail(f"constrained game {tag}: {len(costs)} costs, finite {np.all(np.isfinite(costs))}")
+        if solution.states[0].shape != (T_SWEEP + 1, 4) or solution.controls[0].shape != (T_SWEEP, 2):
+            fail(f"constrained game {tag}: result shapes {tuple(solution.states[0].shape)}")
+        for it, launches, _ in solves:
+            check_counts(launches, want_of(it), f"constrained game {tag}", quiet=True)
+        its = [it for it, _, _ in solves]
+        total_launches = {k: sum(l[k] for _, l, _ in solves) for k in solves[0][1]}
+        log(f"  {len(solves)} solves, iterations {its}; launches per solve K6 rollout 1, "
+            f"K6alctx = K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
+        n_conv, v_conv = feasible_converged([r for _, _, r in solves], f"constrained game {tag}")
+        totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER,
+                                       solution.total_cost, entry.constrained_game)
+        z = abs(anchor["total"] - mean) / std
+        log(f"  total {solution.total_cost!r} anchor {anchor['total']} (rel "
+            f"{abs(solution.total_cost - anchor['total']) / anchor['total']:.3e}); per-agent "
+            f"mean {float(costs.mean())!r} min {float(costs.min())!r} max {float(costs.max())!r} "
+            f"(anchor {anchor['mean']} / {anchor['min']} / {anchor['max']})")
+        log(f"  knife-edge: totals with x0 one ulp moved {[round(t, 4) for t in totals[1:]]}; "
+            f"mean {mean:.4f} std {std:.4f} ({std / mean:.3e} rel) over {len(totals)} games; "
+            f"anchor at {z:.2f} std (limit {KNIFE_EDGE_Z}) {'OK' if z <= KNIFE_EDGE_Z else 'MISMATCH'}")
+        if not z <= KNIFE_EDGE_Z:
+            fail(f"constrained game {tag}: the anchor lies {z:.2f} std from the games' mean")
+        out[(agents, neighbors)] = {"launches": total_launches, "iterations": its,
+                                    "total": solution.total_cost, "knife_edge_totals": totals,
+                                    "converged_last_sweep": n_conv}
+
+    # (c) The 64-car game through the kernels against the plain versions over
+    # 2 sweeps of at most CONSTRAINED_SMALL's iterations (the plain versions
+    # take ~0.75 s an iteration here): the plain total within the kernels'
+    # knife-edge spread.
+    agents, neighbors = 64, None
+    log(f"[23] constrained, {agents} cars, all pairs, 2 sweeps of at most {iters} iterations: "
+        f"kernels vs plain versions")
+    res = {}
+    for name, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+        problem, strategy = entry.constrained_game(agents, neighbors, 2, params, device=DEVICE)
+        strategy.solver_proto.ops = ops
+        t0 = time.perf_counter()
+        res[name] = strategy(problem)
+        log(f"  {name}: total {res[name].total_cost!r}, {time.perf_counter() - t0:.3f} s")
+    totals, mean, std = knife_edge(entry, agents, neighbors, 2, res["kernels"].total_cost,
+                                   entry.constrained_game, params)
+    z = abs(res["plain"].total_cost - mean) / std
+    log(f"  kernels' knife-edge totals {[round(t, 4) for t in totals]}, std {std:.4f}; plain "
+        f"total at {z:.2f} std (limit {KNIFE_EDGE_Z}) {'OK' if z <= KNIFE_EDGE_Z else 'MISMATCH'}")
+    if not z <= KNIFE_EDGE_Z:
+        fail("the 64-car constrained game through the kernels disagrees with the plain versions")
+    torch.cuda.synchronize()
+    return out
+
+
+def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
+    """K6 AL + context's device time per launch at one constrained row's
+    shapes (first-iteration inputs, the game's 10 candidates, multipliers
+    of the first iteration: zero, rho = penalty), its bound, and optionally
+    the plain version's time."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import ILQRConfig, _alpha_ladder_floats
+    spec, x0, us, ctx = game_inputs(entry, agents, neighbors, entry.constrained_game)
+    config = ILQRConfig.from_params(entry.CONSTRAINED_PARAMS)
+    B, K = x0.shape[1], ctx.shape[1]
+    ladder = _alpha_ladder_floats(config.alpha_min)
+    lb = spec.input_lower_bounds.T.contiguous()
+    ub = spec.input_upper_bounds.T.contiguous()
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    xs_tail, cost = k2.rollout_cost(spec, x0, us, ctx)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    lin = k3.linearize(spec, xs, us, True, ctx)
+    k, K_ = k1.riccati_backward(spec, *lin, xT, k1.reg_ladder(1e-6, 10.0, 16))
+    ineq_mult = torch.zeros((T_SWEEP, 1, B), device=DEVICE)
+    rho = torch.full((B,), config.penalty, device=DEVICE)
+    act_tol = config.inequality_activation_tolerance
+    h = ilqr._lane_constraint_vals(spec.inequality_constraints, xs, us)
+    merit = ilqr._lane_merit(cost, None, h, None, ineq_mult, rho, act_tol)
+    fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
+    al = (ctx, None, ineq_mult, rho, act_tol)
+    _, accept = k2.forward_select(spec, *fresh(), k, K_, merit, active, lb, ub, ladder, *al)
+    n_acc = int(accept.sum())
+    reps = 20
+    bufs = [fresh() for _ in range(reps)]
+    ms = event_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, merit, active, lb, ub, ladder, *al)
+                   for b in bufs])
+    plain = None
+    if with_plain:
+        b = fresh()
+        plain = event_ms([lambda: k2.forward_select_plain(spec, *b, k, K_, merit, active, lb, ub,
+                                                          ladder, *al)])
+    nx, nu, f, T_, A = 4, 2, 4, T_SWEEP, len(ladder)
+    bytes_ = (B * f * (T_ * (nx + 2 * nu + nu * nx + 1) + 1 + 2 * nu + 2) + 2 * B
+              + B * f * T_ * K * PAIR_READS + n_acc * f * (T_ * (nx + nu) + nx))
+    ops = (B * T_ * A * (OPS_CONTROL + OPS_TRACK + OPS_RK4 + K * OPS_PAIR + OPS_AL_INEQ_ROW
+                         + OPS_AL_STEP) + n_acc * T_ * (OPS_CONTROL + OPS_RK4))
+    bound = bound_of(bytes_, ops)
+    log(f"  {agents} cars, K={K}: K6 AL+ctx (A={A}) {ms:.6f} ms/launch, plain "
+        f"{'-' if plain is None else f'{plain:.6f}'} ms, bound {bound[0]:.6f} ms ({bound[1]}); "
+        f"accepted {n_acc} of {B}")
+    return ms, plain, bound
+
+
+def time_constrained(entry, ilqr, card):
+    """Phase 24a: agent-solves/s and wall ms of each constrained row (median
+    of GAME_TIMED calls after phase 23's, host clock around the whole
+    strategy call), and K6 AL + context's time per launch at each row's
+    shapes."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    stats = {"K6": k2.CTX_STATS, "K6alctx": k2.AL_CTX_STATS, "K3ctx": k3.CTX_STATS,
+             "K4": k1.BACKWARD_STATS}
+    rows = {}
+    for agents, neighbors in entry.COUPLED_ROWS:
+        problem, strategy = entry.constrained_game(agents, neighbors, device=DEVICE)
+        # Phase 23 warmed these kernels up; the counts are read around the
+        # first timed call.
+        times = []
+        for i in range(GAME_TIMED):
+            if i == 0:
+                reset_counts(stats)
+            t0 = time.perf_counter()
+            strategy(problem)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = read_counts(stats)
+        wall = float(np.median(times))
+        rate = agents * entry.MAX_OUTER / wall
+        ms, plain, bound = time_al_context_kernel(entry, ilqr, agents, neighbors, agents == 64)
+        log(f"[24] constrained {agents} cars, "
+            f"{'all pairs' if neighbors is None else f'{neighbors} nearest'}: wall "
+            f"{[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, {rate:.1f} "
+            f"agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call {launches}; "
+            f"K6 AL+ctx {launches['K6alctx']} x {ms:.6f} ms = "
+            f"{launches['K6alctx'] * ms:.3f} ms of the wall; card {card}")
+        rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
+                                     "launches": launches, "ms": ms, "plain": plain,
+                                     "bound": bound}
+    return rows
+
+
+def time_lane_kernels(entry, spec):
+    """Phase 24b: K8, K9 and K10 per launch at the main path's shapes (B =
+    MAIN_BATCH, T = 80; K9 at A = 3 and 10, outputs 1.5 and 5.0 GB), with
+    their plain versions' times and bounds."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_pallas as k9
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    B = MAIN_BATCH
+    x0, us, lb, ub, _ = main_path_inputs(spec, B, seed=27)
+    us.zero_()                                   # the main path's warm start
+    xs_tail, cost = k2.rollout_cost(spec, x0, us)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].contiguous()
+    lin = k3.linearize(spec, xs, us, True)
+    k, K = k1.riccati_backward(spec, *lin, xT, k1.reg_ladder(1e-6, 10.0, 16))
+    del lin
+    ladder = entry.BENCH_CONFIG.alpha_ladder
+    A3 = len(ladder)
+    n_acc = int(k2.forward_select_emit_lin(spec, xs, us, k, K, cost, lb, ub, ladder)[3].sum())
+    torch.cuda.empty_cache()
+    reps = 3
+    ms = {"K8": event_ms([lambda: k2.forward_select_emit_lin(spec, xs, us, k, K, cost, lb, ub,
+                                                             ladder)] * reps),
+          "K8_continuous": event_ms([lambda: k2.forward_select_emit_lin(
+              spec, xs, us, k, K, cost, lb, ub, ladder, None, False)] * reps),
+          "K10": event_ms([lambda: k3.terminal_derivs_tiled(spec, xT)] * 20)}
+    for A in K9_ALPHAS:
+        alphas = tuple(0.5 ** i for i in range(A))
+        ms[f"K9_A{A}"] = event_ms([lambda: k9.forward_pass(spec, xs, us, k, K, alphas)] * reps)
+        torch.cuda.empty_cache()
+    plain = {"K8": event_ms([lambda: k2.forward_select_emit_lin_plain(spec, xs, us, k, K, cost,
+                                                                      lb, ub, ladder)]),
+             "K10": event_ms([lambda: k3.terminal_derivs_tiled_plain(spec, xT)])}
+    torch.cuda.empty_cache()
+    for A in K9_ALPHAS:
+        alphas = tuple(0.5 ** i for i in range(A))
+        plain[f"K9_A{A}"] = event_ms([lambda: k9.forward_pass_plain(spec, xs, us, k, K, alphas)])
+        torch.cuda.empty_cache()
+    nx, nu, f = 4, 2, 4
+    lin_out = nx * nx + nx * nu + nx + nu + nx * nx + nu * nu + nu * nx
+    ref_in = T * (nx + 2 * nu + nu * nx)                 # x, u, k, K a stage
+    bytes_ = {"K8": B * f * (ref_in + 1 + 2 * nu) + B * f * (T * (nx + nu + lin_out) + 1) + B,
+              "K10": B * f * (nx + nx + nx * nx)}
+    bytes_["K8_continuous"] = bytes_["K8"]
+    ops = {"K8": B * T * A3 * (OPS_CONTROL + OPS_COST + OPS_RK4) + B * T * (OPS_CONTROL + OPS_RK4 + OPS_K3),
+           "K8_continuous": B * T * A3 * (OPS_CONTROL + OPS_COST + OPS_RK4)
+                            + B * T * (OPS_CONTROL + OPS_RK4 + OPS_K3_CONT),
+           "K10": 0}
+    for A in K9_ALPHAS:
+        bytes_[f"K9_A{A}"] = B * f * (ref_in + 2 * nu) + A * B * f * (T * (nx + nu) + 1)
+        ops[f"K9_A{A}"] = A * B * T * (OPS_CONTROL + OPS_COST + OPS_RK4)
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ms}
+    log(f"[24] K8 / K9 / K10 per launch, B={B}, T={T} (K8 at {A3} candidates, {n_acc} accepted)")
+    log(f"  kernel ms/launch {json.dumps({k_: round(v, 6) for k_, v in ms.items()})}")
+    log(f"  plain ms/call {json.dumps({k_: round(v, 6) for k_, v in plain.items()})}")
+    log(f"  bound ms {json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}")
+    return ms, plain, bound
+
+
 def nonfused_kernel_entries(errs, paths, timing, by_path):
     """The JSON line's entries of K4 explicit, K7, K3 and K1 continuous."""
     ms, plain, bound = timing["ms"], timing["plain"], timing["bound"]
@@ -1905,6 +2488,72 @@ def nonfused_kernel_entries(errs, paths, timing, by_path):
         if key == "K3cont":
             e.update(ms_without_hessians=ms["K3cont"], plain_ms_without_hessians=plain["K3cont"],
                      bound_ms_without_hessians=bound["K3cont"][0])
+        out.append(e)
+    return out
+
+
+def phases_22_to_24(entry, ilqr, spec, card, stats, errs):
+    """Phases 22-24, timed.  Returns the games, the timed rows and the K8-K10
+    timing."""
+    t22 = time.perf_counter()
+    check_al_context_kernels(entry, ilqr, errs)
+    check_emit_kernels(entry, spec, errs)
+    check_forward_pass_kernel(entry, spec, errs)
+    check_terminal_kernel(entry, spec, errs)
+    t23 = time.perf_counter()
+    cgames = constrained_games(entry, ilqr, stats)
+    t24 = time.perf_counter()
+    crows = time_constrained(entry, ilqr, card)
+    lane_timing = time_lane_kernels(entry, spec)
+    log(f"  phases 22 / 23 / 24: {t23 - t22:.1f} / {t24 - t23:.1f} / "
+        f"{time.perf_counter() - t24:.1f} s")
+    log(f"  card {card}: " + "; ".join(
+        f"constrained {n} cars {'all pairs' if k is None else f'{k}-NN'} "
+        f"{v['agent_solves_per_s']:.1f} agent-solves/s ({v['wall_ms']:.3f} ms a call)"
+        for (n, k), v in crows.items()))
+    return cgames, crows, lane_timing
+
+
+def lane_kernel_entries(errs, cgames, crows, lane_timing, by_path):
+    """The JSON line's entries of K6 in AL and context mode, K8, K9 and K10.
+    K6 AL + context's launches are those of the 64-car constrained game
+    (its path), its times at that game's shapes; K8, K9 and K10 run on no
+    solve path (0 launches on every path), their times at the main path's
+    shapes."""
+    ms, plain, bound = lane_timing
+    row = crows[(64, None)]
+    k6 = {"name": "K6 forward_select, AL and context modes together", "route": "cuda",
+          "source": "multi_agent_solver_tpu_torch/csrc/forward_select_al_ctx.cu",
+          "replaces": "multi_agent_solver_tpu/ops/forward_select_pallas.py:167",
+          "launches": cgames[(64, None)]["launches"]["K6alctx"],
+          "max_abs_err": errs["K6alctx"][0], "max_rel_err": errs["K6alctx"][1],
+          "ms": row["ms"], "plain_ms": row["plain"], "bound_ms": row["bound"][0],
+          "bound_by": row["bound"][1], "library_ms": None, "batch": 64,
+          "launches_by_path": by_path("K6alctx")}
+    for (n, k), r in crows.items():
+        tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
+        k6.update({f"ms_{tag}": r["ms"], f"bound_ms_{tag}": r["bound"][0]})
+    meta = {
+        "K8": ("K8 forward_select, emit mode (select with the linearization)",
+               "multi_agent_solver_tpu_torch/csrc/forward_select_emit.cu",
+               "multi_agent_solver_tpu/ops/forward_select_pallas.py:229", "K8"),
+        "K9": ("K9 forward_pass (all-alpha rollout)", "multi_agent_solver_tpu_torch/csrc/forward_pass.cu",
+               "multi_agent_solver_tpu/ops/forward_pallas.py:150", "K9_A3"),
+        "K10": ("K10 terminal_derivs_tiled", "multi_agent_solver_tpu_torch/csrc/terminal.cu",
+                "multi_agent_solver_tpu/ops/linearize_pallas.py:226", "K10"),
+    }
+    out = [k6]
+    for key, (name, source, replaces, t) in meta.items():
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": 0, "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
+             "ms": ms[t], "plain_ms": plain[t], "bound_ms": bound[t][0], "bound_by": bound[t][1],
+             "library_ms": None, "batch": MAIN_BATCH, "launches_by_path": by_path(key)}
+        if key == "K8":
+            e.update(ms_continuous=ms["K8_continuous"],
+                     bound_ms_continuous=bound["K8_continuous"][0])
+        if key == "K9":
+            e.update(ms_A10=ms["K9_A10"], plain_ms_A10=plain["K9_A10"],
+                     bound_ms_A10=bound["K9_A10"][0])
         out.append(e)
     return out
 
@@ -2087,6 +2736,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: chip_smoke.py needs an NVIDIA GPU")
     from multi_agent_solver_tpu_torch import entry
     from multi_agent_solver_tpu_torch.ops import _build
+    from multi_agent_solver_tpu_torch.ops import forward_pallas as k9
     from multi_agent_solver_tpu_torch.ops import forward_select as k2
     from multi_agent_solver_tpu_torch.ops import linearize as k3
     from multi_agent_solver_tpu_torch.ops import riccati as k1
@@ -2121,7 +2771,8 @@ def main() -> None:
     stats = {"K1": k1.STATS, "K2": k2.STATS, "K3": k3.STATS, "K4": k1.BACKWARD_STATS,
              "K5": k1.BOXQP_STATS, "K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS, "K6al": k2.AL_STATS,
              "K4x": k1.EXPLICIT_STATS, "K7": k3.FLAT_STATS, "K3cont": k3.CONT_STATS,
-             "K1cont": k1.CONT_STATS}
+             "K1cont": k1.CONT_STATS, "K6alctx": k2.AL_CTX_STATS, "K8": k2.EMIT_STATS,
+             "K9": k9.STATS, "K10": k3.TERMINAL_STATS}
     errs = check_kernels(spec)
     check_end_to_end(ilqr, entry)
 
@@ -2200,6 +2851,10 @@ def main() -> None:
     log(f"  card {card}: " + "; ".join(f"{n} {v['solves_per_s']:.1f} solves/s at {v['batch']}"
                                         for n, v in nf_timing["rates"].items()))
 
+    # Phases 22-24: constrained agents in the coupled game (K6 in AL and
+    # context mode) and K8, K9, K10.
+    cgames, crows, lane_timing = phases_22_to_24(entry, ilqr, spec, card, stats, errs)
+
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
     nms, nplain, nbound = new_timing[MAIN_BATCH]
@@ -2210,7 +2865,9 @@ def main() -> None:
              **{f"coupled game {n} cars {'all pairs' if k is None else f'{k}-NN'}, "
                 f"{len(v['iterations'])} solves": v["launches"] for (n, k), v in games.items()},
              **{n: v["launches"] for n, v in al_paths.items()},
-             **{n: v["launches"] for n, v in nf_paths.items()}}
+             **{n: v["launches"] for n, v in nf_paths.items()},
+             **{f"constrained game {n} cars {'all pairs' if k is None else f'{k}-NN'}, "
+                f"{len(v['iterations'])} solves": v["launches"] for (n, k), v in cgames.items()}}
     by_path = lambda key: {n: c[key] for n, c in paths.items()}
     general = branches["quadratic_cost=False"]["launches"]
     boxqp = branches["bound_mode=boxqp"]["launches"]
@@ -2330,6 +2987,7 @@ def main() -> None:
     }
     kernels += [k4, k5, k6, k6al]
     kernels += nonfused_kernel_entries(errs, nf_paths, nf_timing, by_path)
+    kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

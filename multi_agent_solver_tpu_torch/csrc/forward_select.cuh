@@ -45,7 +45,29 @@
 // inequality row with the activation a = [h > -act_tol] and s = max(h, 0) a
 // (NaN kept), in the TPU kernel's order.  The multipliers do not depend on
 // alpha: each stage's are read once and shared by the candidates.  Phase 2
-// and the rollout mode take no AL.
+// and the rollout mode take no AL.  The AL mode combines with the context
+// mode (a constrained agent of a coupled game; its instantiations are in
+// forward_select_al_ctx.cu): a candidate's step is then the context stage
+// cost, base plus pair costs, plus the AL terms -- stage first, as the TPU
+// kernel sums step_cost = stage(x, u, t) + al_terms(x, u) (:167-171).
+//
+// Emit mode (K8; the TPU kernel's emit_lin, forward_select_pallas.py:
+// 229-283, instantiated in forward_select_emit*.cu): a select mode without
+// AL and without the stage-out contract.  Every problem is live (no active
+// mask), and phase 2 re-rolls every problem at its selected alpha (0 where
+// none improved, which reproduces a reference that is itself a clamped
+// rollout): it writes the new trajectory x_1..x_T and the controls into
+// fresh buffers and, at each accepted (x_t, u_t), the linearization in K3's
+// layout -- A and B through the RK4 step (LIN_DISCRETE) or of the
+// continuous dynamics, lx and lu, and lxx, luu, lux by second-order duals,
+// from the same device functions as K3 (the context a constant).  The
+// emitted stage cost is the un-augmented one; the TPU kernel passes it the
+// integer phase-2 step, K3 a float t, and the device costs read neither.
+// Its bound is the bytes of the stacks it writes, 4 (NX + NU + NX NX + NX NU
+// + NX + NU + NX NX + NU NU + NU NX) bytes a stage; each thread runs its
+// problem's T stages of dual arithmetic one after the other, where K3
+// spreads them over T threads, so at the main path's shapes the emit mode
+// is bound by that serial chain and its occupancy instead.
 //
 // What bounds it on the H100: the arithmetic of A + 1 sequential RK4
 // rollouts per problem (12 sin/cos/tan a step) and the reads of the
@@ -146,8 +168,52 @@ __device__ __forceinline__ float al_terms(const Eq& eq, const In& in, const floa
   return total;
 }
 
+// The emit mode's outputs: the new trajectory x_1..x_T [T, NX, B], the
+// controls [T, NU, B] and the linearization stacks in K3's layout.
+struct EmitOut {
+  float *xs = nullptr, *us = nullptr, *A = nullptr, *Bm = nullptr, *lx = nullptr,
+        *lu = nullptr, *lxx = nullptr, *luu = nullptr, *lux = nullptr;
+};
+
+// One stage's linearization at (x, u) into the EmitOut stacks, written as K3
+// writes them (linearize.cu).
+template <bool LIN_DISCRETE, typename Dyn, typename Cost>
+__device__ __forceinline__ void emit_linearization(const EmitOut& e, const Dyn& dyn,
+                                                   const Cost& cost, const Step& h,
+                                                   const float* x, const float* u,
+                                                   const CtxView& cv, size_t t, size_t sB,
+                                                   int b) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
+  stage_derivatives<LIN_DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu, cv);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) e.A[((t * NX + i) * NX + j) * sB + b] = A[i][j];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) e.Bm[((t * NX + i) * NU + j) * sB + b] = Bm[i][j];
+    e.lx[(t * NX + i) * sB + b] = lx[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) e.lu[(t * NU + i) * sB + b] = lu[i];
+  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+  stage_hessians<NX, NU>(cost, x, u, cv, lxx, luu, lux);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) e.lxx[((t * NX + i) * NX + j) * sB + b] = lxx[i][j];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) e.luu[((t * NU + i) * NU + j) * sB + b] = luu[i][j];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) e.lux[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
+}
+
 template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA,
-          bool INIT>
+          bool INIT, bool EMIT = false, bool LIN_DISCRETE = true>
 __global__ void __launch_bounds__(128) forward_select_kernel(
     const float* __restrict__ x0, float* xs, float* us, float* xT,
     const float* __restrict__ k, const float* __restrict__ K,
@@ -157,11 +223,11 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     const float* __restrict__ ctx, const float* __restrict__ eq_mult,
     const float* __restrict__ ineq_mult, const float* __restrict__ rho, float act_tol,
     Dyn dyn, Cost cost, Term term, Eq eq, In in, Step h, Alphas alphas, int T, int B,
-    int n_ctx, int c_ctx) {
+    int n_ctx, int c_ctx, EmitOut emit) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   constexpr bool AL = Eq::M + In::M > 0;
-  static_assert(!(AL && (INIT || takes_context<Cost>::value)),
-                "the AL mode is a select mode without a context");
+  static_assert(!(AL && INIT), "the AL mode is a select mode");
+  static_assert(!(EMIT && (AL || INIT)), "the emit mode is a select mode without AL");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
@@ -206,9 +272,18 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
           Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
       }
     }
+    // The stage's multipliers, shared by the candidates.
+    float lam_eq[Eq::M > 0 ? Eq::M : 1], lam_in[In::M > 0 ? In::M : 1];
+#pragma unroll
+    for (int m = 0; m < Eq::M; ++m)
+      lam_eq[m] = eq_mult[(static_cast<size_t>(t) * Eq::M + m) * sB + b];
+#pragma unroll
+    for (int m = 0; m < In::M; ++m)
+      lam_in[m] = ineq_mult[(static_cast<size_t>(t) * In::M + m) * sB + b];
     if constexpr (takes_context<Cost>::value) {
       // Every candidate's control, then the pair costs neighbour by
-      // neighbour (one read of each), then base + pairs and the step.
+      // neighbour (one read of each), then base + pairs (+ the AL terms)
+      // and the step.
       const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
       float ua[MAXA][NU], ps[MAXA];
 #pragma unroll
@@ -235,18 +310,13 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 #pragma unroll
       for (int a = 0; a < MAXA; ++a) {
         if (a >= A) break;
-        ca[a] = ca[a] + (cost.base(xa[a], ua[a]) + ps[a]);
+        float step = cost.base(xa[a], ua[a]) + ps[a];
+        if constexpr (AL)
+          step = step + al_terms<NX, NU>(eq, in, xa[a], ua[a], lam_eq, lam_in, half_rho, act_tol);
+        ca[a] = ca[a] + step;
         advance<Dyn, INIT>(dyn, xa[a], ua[a], h, xs, t, sB, b);
       }
     } else {
-      // The stage's multipliers, shared by the candidates.
-      float lam_eq[Eq::M > 0 ? Eq::M : 1], lam_in[In::M > 0 ? In::M : 1];
-#pragma unroll
-      for (int m = 0; m < Eq::M; ++m)
-        lam_eq[m] = eq_mult[(static_cast<size_t>(t) * Eq::M + m) * sB + b];
-#pragma unroll
-      for (int m = 0; m < In::M; ++m)
-        lam_in[m] = ineq_mult[(static_cast<size_t>(t) * In::M + m) * sB + b];
 #pragma unroll
       for (int a = 0; a < MAXA; ++a) {
         if (a >= A) break;
@@ -276,7 +346,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
   } else {
     // Selection: smallest alpha first, so the largest improving one wins.
     const float m = merit[b];
-    const bool live = active[b];
+    const bool live = EMIT || active[b];
     float best = m, sel = 0.0f;
     bool found = false;
 #pragma unroll
@@ -291,9 +361,11 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     }
     cost_out[b] = best;
     accept_out[b] = found;
-    if (!found) return;
+    if (!EMIT && !found) return;
 
-    // Phase 2: re-roll the winner, writing the stage layout in place.
+    // Phase 2: re-roll the winner, writing the stage layout in place (emit
+    // mode: x_1..x_T, the controls and the linearization into fresh
+    // buffers, for every problem).
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xstart[i];
@@ -312,15 +384,26 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
       float u[NU], xn[NX];
       feedback_control<NX, NU>(x, xr, ur, kt, Kt, sel, bounded ? lb : nullptr, ub, u);
       rk4_step(dyn, x, u, h, xn);
+      if constexpr (EMIT) {
 #pragma unroll
-      for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
+        for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
 #pragma unroll
-      for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+        for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+        emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
+                                         ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+      }
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
+    if constexpr (!EMIT) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
+      for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
+    }
   }
 }
 
@@ -339,15 +422,17 @@ struct Args {
 };
 
 template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA,
-          bool INIT>
+          bool INIT, bool EMIT = false, bool LIN_DISCRETE = true>
 void launch_one(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Eq& eq,
-                const In& in, const Step& h, const Alphas& al, cudaStream_t stream) {
+                const In& in, const Step& h, const Alphas& al, cudaStream_t stream,
+                const EmitOut& emit = EmitOut()) {
   const int block = 128;
   const int grid = (a.B + block - 1) / block;
-  forward_select_kernel<Dyn, Cost, Term, Eq, In, MAXA, INIT><<<grid, block, 0, stream>>>(
-      a.x0, a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out,
-      a.accept_out, a.ctx, a.eq_mult, a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h,
-      al, a.T, a.B, a.n_ctx, a.c_ctx);
+  forward_select_kernel<Dyn, Cost, Term, Eq, In, MAXA, INIT, EMIT, LIN_DISCRETE>
+      <<<grid, block, 0, stream>>>(a.x0, a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb,
+                                   a.ub, a.cost_out, a.accept_out, a.ctx, a.eq_mult,
+                                   a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h,
+                                   al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
 }
 
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
@@ -398,6 +483,53 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The emit mode (K8): select mode without AL, every problem live, the new
+// trajectory and the linearization (discrete != 0: through the RK4 step)
+// written to `emit`; candidate registers sized 4 or 16 by n_alphas.
+template <typename Dyn, typename Cost, typename Term>
+int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discrete,
+                               const float* dyn_p, const float* cost_p, const float* term_p,
+                               const float* step_p, const float* alphas, int n_alphas,
+                               cudaStream_t stream) {
+  using NC = NoConstraint;
+  const Dyn dyn = Dyn::from(dyn_p);
+  const Cost cost = Cost::from(cost_p);
+  const Term term = Term::from(term_p);
+  const Step h = Step::from(step_p);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_alphas < 1 || n_alphas > MAX_ALPHAS) return bad;
+  if (takes_context<Cost>::value != (args.ctx != nullptr) || args.n_ctx < 0 ||
+      (args.ctx != nullptr && args.c_ctx < Dyn::NX))
+    return bad;
+  if (args.eq_mult != nullptr || args.ineq_mult != nullptr || args.rho != nullptr ||
+      emit.xs == nullptr || emit.us == nullptr || emit.A == nullptr || emit.Bm == nullptr ||
+      emit.lx == nullptr || emit.lu == nullptr || emit.lxx == nullptr || emit.luu == nullptr ||
+      emit.lux == nullptr)
+    return bad;
+  Alphas al;
+  al.n = n_alphas;
+  for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = a < al.n ? alphas[a] : 0.0f;
+  const NC nc{};
+  if (discrete) {
+    if (al.n <= 4)
+      launch_one<Dyn, Cost, Term, NC, NC, 4, false, true, true>(args, dyn, cost, term, nc, nc, h,
+                                                               al, stream, emit);
+    else
+      launch_one<Dyn, Cost, Term, NC, NC, MAX_ALPHAS, false, true, true>(args, dyn, cost, term,
+                                                                        nc, nc, h, al, stream,
+                                                                        emit);
+  } else {
+    if (al.n <= 4)
+      launch_one<Dyn, Cost, Term, NC, NC, 4, false, true, false>(args, dyn, cost, term, nc, nc,
+                                                                h, al, stream, emit);
+    else
+      launch_one<Dyn, Cost, Term, NC, NC, MAX_ALPHAS, false, true, false>(args, dyn, cost, term,
+                                                                         nc, nc, h, al, stream,
+                                                                         emit);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace mas
 
 // One C entry point per (dynamics, stage cost, terminal cost[, equality,
@@ -421,3 +553,33 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
 
 using LaneFollowCost = mas::DiagQuadratic<4, 2>;
 using mas::NoConstraint;
+
+// The emit mode's C entry point per (dynamics, stage cost, terminal cost):
+// xs [T, NX, B] (x_0..x_{T-1}), us, k, K, merit, the bounds and the
+// context in; merit and accept out, and x_1..x_T, the controls and the
+// seven linearization stacks into the given buffers.
+#define MAS_FORWARD_SELECT_EMIT(NAME, DYN, COST, TERM)                                      \
+  extern "C" int mas_forward_select_emit__##NAME(                                           \
+      const float* xs, const float* us, const float* k, const float* K, const float* merit, \
+      const float* lb, const float* ub, float* cost_out, bool* accept_out, const float* ctx, \
+      int T, int B, int n_ctx, int c_ctx, int discrete, const float* dyn_p,                 \
+      const float* cost_p, const float* term_p, const float* step_p, const float* alphas,   \
+      int n_alphas, float* xs_new, float* us_new, float* A, float* Bm, float* lx,           \
+      float* lu, float* lxx, float* luu, float* lux, void* stream) {                        \
+    const mas::Args args{nullptr, const_cast<float*>(xs), const_cast<float*>(us), nullptr,  \
+                         k, K, merit, nullptr, lb, ub, cost_out, accept_out, ctx, nullptr,  \
+                         nullptr, nullptr, 0.0f, T, B, n_ctx, c_ctx};                        \
+    mas::EmitOut emit;                                                                       \
+    emit.xs = xs_new;                                                                        \
+    emit.us = us_new;                                                                        \
+    emit.A = A;                                                                              \
+    emit.Bm = Bm;                                                                            \
+    emit.lx = lx;                                                                            \
+    emit.lu = lu;                                                                            \
+    emit.lxx = lxx;                                                                          \
+    emit.luu = luu;                                                                          \
+    emit.lux = lux;                                                                          \
+    return mas::launch_forward_select_emit<DYN, COST, TERM>(                                \
+        args, emit, discrete, dyn_p, cost_p, term_p, step_p, alphas, n_alphas,              \
+        static_cast<cudaStream_t>(stream));                                                  \
+  }

@@ -266,6 +266,34 @@ struct ZeroTerminal {
   __device__ __forceinline__ S operator()(const S*) const { return S(0.0f); }
 };
 
+// Diagonal quadratic terminal cost (ocp.diagonal_quadratic_terminal_cost),
+// terms summed in the order the torch callable sums them:
+//   sum_i w_i (x_i - r_i)^2.  Parameters: w, then r.
+template <int NX>
+struct DiagQuadraticTerminal {
+  static constexpr int NPARAMS = 2 * NX;
+  float w[NX], r[NX];
+
+  static DiagQuadraticTerminal from(const float* p) {
+    DiagQuadraticTerminal c;
+    for (int i = 0; i < NX; ++i) c.w[i] = p[i];
+    for (int i = 0; i < NX; ++i) c.r[i] = p[NX + i];
+    return c;
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x) const {
+    S e = x[0] - r[0];
+    S c = w[0] * (e * e);
+#pragma unroll
+    for (int i = 1; i < NX; ++i) {
+      e = x[i] - r[i];
+      c = c + w[i] * (e * e);
+    }
+    return c;
+  }
+};
+
 // RK4 step constants (0.5 dt, dt, dt / 6), rounded to float on the host.
 struct Step {
   float half, full, sixth;

@@ -7,7 +7,9 @@
   agents spread on the circle, tiled over scenarios, solved as batch lanes.
 * The coupled Nash game of ``scripts/bench_multi_agent.py::bench_coupled``:
   the same cars coupled by a collision cost, played by the ``sequential``
-  strategy at 64 agents (all pairs), 256 and 1,024 (8 nearest neighbours).
+  strategy at 64 agents (all pairs), 256 and 1,024 (8 nearest neighbours);
+  and the same game with every car's speed capped by one AL inequality
+  row (``constrained_game``, :data:`SPEED_CAP`, :data:`CONSTRAINED_PARAMS`).
 * The AL-constrained batched solves: the main-path batch with state bounds
   folded into four AL inequality rows (``state_bound_specs``,
   :data:`AL_CONFIG`), and the input-pinning equality problem of
@@ -60,6 +62,14 @@ SWEEP_CONFIG = ILQRConfig(max_iterations=100, tolerance=1e-5)
 COUPLING, MAX_OUTER = 25.0, 10
 COUPLED_PARAMS = {"max_iterations": 100, "tolerance": 1e-5, "max_ms": 1e9}
 COUPLED_ROWS = ((64, None), (256, 8), (1024, 8))
+# The constrained game: bench_coupled's with one inequality row per car,
+# v - 4.5 <= 0.  The track's target speed is 5.0 and the cars start at 4.0,
+# so the cap binds.  Every car shares this one constraint object: the
+# strategy stacks agents whose problem functions are the same objects.
+# Its solver parameters are bench_coupled's with AL_CONFIG's constraint
+# tolerance.
+SPEED_CAP = bound_rows(("x", 3, 4.5, "upper"))
+CONSTRAINED_PARAMS = {**COUPLED_PARAMS, "constraint_tolerance": 1e-3}
 # The AL configurations: the main path's state bounds (the speed cap binds,
 # the cost pulls v to 1) and solver configuration, and the equality
 # problem's configuration.
@@ -162,6 +172,22 @@ def coupled_game(n_agents: int, neighbors=None, max_outer: int = MAX_OUTER, para
     solver = make_solver("ilqr", device=device)
     strategy = make_strategy("sequential", solver, COUPLED_PARAMS if params is None else params,
                              max_outer)
+    return problem, strategy
+
+
+def constrained_game(n_agents: int, neighbors=None, max_outer: int = MAX_OUTER, params=None,
+                     dtype=torch.float32, device="cuda"):
+    """``(problem, strategy)`` of :func:`coupled_game` with :data:`SPEED_CAP`
+    on every car and :data:`CONSTRAINED_PARAMS` (or ``params``): a coupled
+    game of constrained agents, solved through the AL machinery with the
+    context (on the card, the select kernel's AL and context modes at
+    once)."""
+    problem, strategy = coupled_game(n_agents, neighbors, max_outer,
+                                     CONSTRAINED_PARAMS if params is None else params, dtype,
+                                     device)
+    for agent in problem.agents:
+        agent.ocp.inequality_constraints = SPEED_CAP
+        agent.ocp.invalidate()
     return problem, strategy
 
 

@@ -86,6 +86,25 @@ def diagonal_quadratic_cost(w_x, r_x, w_u, r_u) -> Callable:
     return tag_device_fn(stage_cost, "diag_quadratic", w_x + r_x + w_u + r_u)
 
 
+def diagonal_quadratic_terminal_cost(w_x, r_x) -> Callable:
+    """Terminal cost ``sum_i w_x,i (x_i - r_x,i)^2``.
+
+    The callable carries the tag of ``DiagQuadraticTerminal`` in
+    ``csrc/problems.cuh``, which sums the same terms in the same order.
+    """
+    w_x, r_x = (tuple(float(v) for v in a) for a in (w_x, r_x))
+    if len(w_x) != len(r_x):
+        raise ValueError("weights and targets must have matching lengths")
+
+    def terminal_cost(x: Tensor) -> Tensor:
+        c = w_x[0] * (x[..., 0] - r_x[0]) ** 2
+        for i in range(1, len(w_x)):
+            c = c + w_x[i] * (x[..., i] - r_x[i]) ** 2
+        return c
+
+    return tag_device_fn(terminal_cost, "diag_quadratic_terminal", w_x + r_x)
+
+
 # Row codes of BoundRows in csrc/problems.cuh: (variable, side) -> code.
 _ROW_CODES = {("x", "upper"): 0, ("x", "lower"): 1, ("u", "upper"): 2, ("u", "lower"): 3}
 

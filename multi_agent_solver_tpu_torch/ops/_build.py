@@ -49,6 +49,7 @@ DYNAMICS_DIMS = {"single_track": (4, 2)}
 PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
     "diag_quadratic": lambda nx, nu: 2 * (nx + nu),
+    "diag_quadratic_terminal": lambda nx, nu: 2 * nx,
     "circular_track": lambda nx, nu: 6,
     "gaussian_collision": lambda nx, nu: 2,
     "zero": lambda nx, nu: 0,

@@ -35,7 +35,21 @@ Its launches are counted apart (``AL_STATS``); the kernel instantiation is
 named by the constraints' device-function tags (``none``, the tag of
 ``types.no_constraint``, for an absent side), and an untagged constraint
 on a CUDA tensor raises
-``NotImplementedError``.  The rollout mode takes no AL.
+``NotImplementedError``.  The rollout mode takes no AL.  The AL mode takes
+a context too (a constrained agent of a coupled game): each candidate's
+step is then ``stage_cost(x, u, t, ctx_t)`` plus the AL terms, stage
+first, as the TPU kernel sums them; those launches are counted on
+``AL_CTX_STATS``.
+
+:func:`forward_select_emit_lin` is the select kernel's emit mode (K8, the
+TPU kernel's ``emit_lin``): the select without the stage-out contract --
+every problem live, every problem re-rolled at its selected alpha (0 where
+none improved) into fresh buffers -- that also returns the linearization
+at the accepted ``(x_t, u_t)`` in K3's layout, through the RK4 step or the
+continuous dynamics, with or without a context.  No solve path calls it;
+its launches are counted on ``EMIT_STATS``.  With AL multipliers it runs
+only as the plain version (the card raises ``NotImplementedError``; the
+JAX package never reaches that combination).
 
 The non-fused path calls the kernel through two batch-first wrappers,
 the JAX package's ``forward_select_pallas`` and ``rollout_select``
@@ -54,16 +68,19 @@ from ..integrators import integrate_rk4
 from ..types import Tensor, no_constraint
 from ._build import (KernelStats, check_context, check_tensor, launch, problem_symbol,
                      stage_major, step_constants)
+from .linearize import linearize_plain
 
-STATS = KernelStats()       # launches and plain calls without a context
-CTX_STATS = KernelStats()   # ... and with one (the context mode, K6)
-AL_STATS = KernelStats()    # ... and in the AL mode (K6)
+STATS = KernelStats()         # launches and plain calls without a context
+CTX_STATS = KernelStats()     # ... and with one (the context mode, K6)
+AL_STATS = KernelStats()      # ... in the AL mode (K6)
+AL_CTX_STATS = KernelStats()  # ... in the AL mode with a context (K6)
+EMIT_STATS = KernelStats()    # the emit mode (K8)
 MAX_ALPHAS = 16   # candidate registers of the CUDA kernel
 
 
 def _stats(ctx, al=False) -> KernelStats:
     if al:
-        return AL_STATS
+        return AL_STATS if ctx is None else AL_CTX_STATS
     return STATS if ctx is None else CTX_STATS
 
 
@@ -137,15 +154,17 @@ def rollout_cost_plain(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     return xs, torch.where(total < math.inf, total, torch.full_like(total, math.inf))
 
 
-def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None,
-                         eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
-    """Plain PyTorch version of the K2 select mode (same in-place contract)."""
+def _score(spec, xs, us, k, K, merit, live, lbT, ubT, alphas, ctx, eq_mult, ineq_mult, rho,
+           act_tol):
+    """Phase 1 and the selection of the select mode: every candidate rolled
+    out from ``x_0`` with its stage costs (plus the AL terms with ``rho``)
+    summed, the terminal cost added, and from the smallest alpha up the
+    last candidate that beats ``merit`` on a ``live`` problem kept.
+    Returns ``(x_0 [B, nx], best merit [B], selected alpha [B], found
+    [B])``."""
     has_al = rho is not None
-    _stats(ctx, has_al).plain_calls += 1
     half_rho = 0.5 * rho if has_al else None
     T, nx, B = xs.shape
-    lbT = lb.T if lb is not None else None
-    ubT = ub.T if ub is not None else None
     x_start = xs[0].T.clone()
     xa = [x_start for _ in alphas]
     ca = [torch.zeros(B, dtype=torch.float32, device=xs.device) for _ in alphas]
@@ -165,22 +184,66 @@ def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, 
     found = torch.zeros(B, dtype=torch.bool, device=xs.device)
     for a in range(len(alphas) - 1, -1, -1):
         total = ca[a] + spec.terminal_cost(xa[a])
-        ok = (total < merit) & active
+        ok = (total < merit) & live
         sel = torch.where(ok, torch.full_like(sel, alphas[a]), sel)
         best = torch.where(ok, total, best)
         found = found | ok
+    return x_start, best, sel, found
 
-    keep = found[:, None]
+
+def _reroll(spec, x_start, xs, us, k, K, sel, lbT, ubT):
+    """Phase 2: the feedback rollout at the selected alphas, yielding ``(t,
+    x_t, u_t, x_{t+1})`` stage by stage (each stage's reference is read
+    before the caller may overwrite it)."""
     x = x_start
-    for t in range(T):
+    for t in range(xs.shape[0]):
         x_ref, u_ref, k_t, K_t = xs[t].T, us[t].T, k[t].T, K[t].permute(2, 0, 1)
         u = _control(x, x_ref, u_ref, k_t, K_t, sel, lbT, ubT)
         x_next = integrate_rk4(x, u, spec.dt, spec.dynamics)
-        xs[t] = torch.where(keep, x, x_ref).T
-        us[t] = torch.where(keep, u, u_ref).T
+        yield t, x, u, x_next
+        x = x_next
+
+
+def forward_select_plain(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas, ctx=None,
+                         eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
+    """Plain PyTorch version of the K2 select mode (same in-place contract)."""
+    _stats(ctx, rho is not None).plain_calls += 1
+    lbT = lb.T if lb is not None else None
+    ubT = ub.T if ub is not None else None
+    x_start, best, sel, found = _score(spec, xs, us, k, K, merit, active, lbT, ubT, alphas, ctx,
+                                       eq_mult, ineq_mult, rho, act_tol)
+    keep = found[:, None]
+    x = x_start
+    for t, x, u, x_next in _reroll(spec, x_start, xs, us, k, K, sel, lbT, ubT):
+        xs[t] = torch.where(keep, x, xs[t].T).T
+        us[t] = torch.where(keep, u, us[t].T).T
         x = x_next
     xT.copy_(torch.where(keep, x, xT.T).T)
     return best, found
+
+
+def forward_select_emit_lin_plain(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None,
+                                  discrete=True, eq_mult=None, ineq_mult=None, rho=None,
+                                  act_tol=1e-6):
+    """Plain PyTorch version of K8: the select mode's scoring, every problem
+    live, the re-roll of every problem at its selected alpha, and
+    :func:`linearize.linearize_plain` (with Hessians, in the Jacobian mode
+    ``discrete``) at the accepted ``(x_t, u_t)``; the un-augmented stage
+    cost.  Returns ``(xs_new [T, nx, B]`` holding x_1..x_T, ``us_new [T,
+    nu, B]``, ``merit_new [B]``, ``accept [B]``, ``A, B, lx, lu, lxx, luu,
+    lux)``, the stacks in K3's layout."""
+    EMIT_STATS.plain_calls += 1
+    T, nx, B = xs.shape
+    lbT = lb.T if lb is not None else None
+    ubT = ub.T if ub is not None else None
+    live = torch.ones(B, dtype=torch.bool, device=xs.device)
+    x_start, best, sel, found = _score(spec, xs, us, k, K, merit, live, lbT, ubT, alphas, ctx,
+                                       eq_mult, ineq_mult, rho, act_tol)
+    xs_stage, us_new, xs_new = torch.empty_like(xs), torch.empty_like(us), torch.empty_like(xs)
+    for t, x, u, x_next in _reroll(spec, x_start, xs, us, k, K, sel, lbT, ubT):
+        xs_stage[t], us_new[t], xs_new[t] = x.T, u.T, x_next.T
+    lin = linearize_plain(spec, xs_stage, us_new, True, ctx, discrete)
+    return (xs_new, us_new, best, found) + lin
 
 
 def rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
@@ -273,6 +336,62 @@ def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas,
                *params, step_constants(spec.dt), alphas, len(alphas))
     _stats(ctx, has_al).launches += 1
     return merit_new, accept
+
+
+def forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None, discrete=True,
+                            eq_mult=None, ineq_mult=None, rho=None, act_tol=1e-6):
+    """K8 on the card for CUDA tensors, the plain version for CPU tensors.
+
+    ``xs [T, nx, B]`` (x_0..x_{T-1}), ``us [T, nu, B]``, ``k``, ``K``,
+    ``merit [B]``, ``lb``/``ub [nu, B]`` or both None, the candidates and an
+    optional context ``ctx [T, K, C, B]``; the inputs are only read.
+    Returns :func:`forward_select_emit_lin_plain`'s eleven outputs.  AL
+    multipliers (``rho`` with ``eq_mult`` and/or ``ineq_mult``) are taken by
+    the plain version only."""
+    alphas = tuple(float(a) for a in alphas)
+    if not 1 <= len(alphas) <= MAX_ALPHAS:
+        raise ValueError(f"{len(alphas)} alphas; the kernel takes 1..{MAX_ALPHAS}")
+    if (lb is None) != (ub is None):
+        raise ValueError("pass both bounds or neither")
+    if (rho is None) != (eq_mult is None and ineq_mult is None):
+        raise ValueError("the AL mode takes rho with eq_mult and/or ineq_mult")
+    args = (spec, xs, us, k, K, merit, lb, ub, alphas, ctx, bool(discrete))
+    if xs.device.type == "cpu":
+        return forward_select_emit_lin_plain(*args, eq_mult, ineq_mult, rho, float(act_tol))
+    if rho is not None:
+        raise NotImplementedError(
+            "the select kernel's emit mode with AL multipliers has no CUDA instantiation (the "
+            "JAX package never runs it; ROADMAP queue 2): use CPU tensors for the plain version")
+    return launch_forward_select_emit_lin(*args)
+
+
+def launch_forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None,
+                                   discrete=True):
+    """The CUDA launch of K8 (without AL)."""
+    T, nx, B = xs.shape
+    nu = us.shape[1]
+    dev = xs.device
+    for t, name, shape in ((xs, "xs", (T, nx, B)), (us, "us", (T, nu, B)), (k, "k", (T, nu, B)),
+                           (K, "K", (T, nu, nx, B)), (merit, "merit", (B,))):
+        check_tensor(t, name, shape, dev)
+    if lb is not None:
+        check_tensor(lb, "lb", (nu, B), dev)
+        check_tensor(ub, "ub", (nu, B), dev)
+    symbol, params = problem_symbol("forward_select_emit", nx, nu, spec.dynamics,
+                                    spec.stage_cost, spec.terminal_cost)
+    n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    xs_new, us_new = empty(T, nx, B), empty(T, nu, B)
+    merit_new = empty(B)
+    accept = torch.empty(B, dtype=torch.bool, device=dev)
+    lin = (empty(T, nx, nx, B), empty(T, nx, nu, B), empty(T, nx, B), empty(T, nu, B),
+           empty(T, nx, nx, B), empty(T, nu, nu, B), empty(T, nu, nx, B))
+    with torch.cuda.device(dev):
+        launch(symbol, xs, us, k, K, merit, lb, ub, merit_new, accept, ctx, T, B, n_ctx, nx,
+               int(discrete), *params, step_constants(spec.dt), alphas, len(alphas), xs_new,
+               us_new, *lin)
+    EMIT_STATS.launches += 1
+    return (xs_new, us_new, merit_new, accept) + lin
 
 
 def _symbol(spec, nx, nu, *constraints):

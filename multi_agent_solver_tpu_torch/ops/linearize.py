@@ -16,6 +16,14 @@ With ``ctx [T, K, C, B]`` (the context mode, the TPU kernel's ``ctx_l``)
 the stage cost is ``stage_cost(x, u, t, ctx_t)``; the context is a
 constant of the derivatives.
 
+K10 (:func:`terminal_derivs_tiled`, the TPU function of the same name)
+takes terminal states ``xT [nx, B]`` and gives the terminal cost's
+gradient ``phix [nx, B]`` and Hessian ``phixx [nx, nx, B]``, its upper
+triangle mirrored, by jvp over jvp (``csrc/terminal.cu``: second-order
+duals, the device code K1 and K4 run for their terminal value; its plain
+version, :func:`terminal_derivatives`, is the one K1's and K4's plain
+versions run).  No solve path calls it.
+
 K7 (:func:`linearize_pallas`, the non-fused path's ``linearize="pallas"``)
 is batch-first: ``xs [B, T+1, nx]`` (the last state unused), ``us
 [B, T, nu]`` of any float dtype in; ``A [B, T, nx, nx]``, ``B
@@ -26,9 +34,10 @@ index a float.
 
 :func:`linearize` and :func:`linearize_pallas` launch the kernel for CUDA
 tensors and raise on anything it does not take; for CPU tensors they run
-the plain versions.  Launches are counted per mode: ``STATS`` (discrete),
-``CONT_STATS`` (continuous), ``CTX_STATS`` (a context, either mode) and
-``FLAT_STATS`` (K7).
+the plain versions; so does :func:`terminal_derivs_tiled`.  Launches are
+counted per mode: ``STATS`` (discrete), ``CONT_STATS`` (continuous),
+``CTX_STATS`` (a context, either mode), ``FLAT_STATS`` (K7) and
+``TERMINAL_STATS`` (K10).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ STATS = KernelStats()       # launches and plain calls without a context
 CTX_STATS = KernelStats()   # ... and with one (the context mode)
 CONT_STATS = KernelStats()  # ... without one, in the continuous Jacobian mode
 FLAT_STATS = KernelStats()  # K7
+TERMINAL_STATS = KernelStats()  # K10
 
 
 def _stats(ctx, discrete=True) -> KernelStats:
@@ -105,6 +115,54 @@ def cost_hessians(spec, x: Tensor, u: Tensor, t):
             for j in range(nx)] for i in range(nu)]
     stack2 = lambda rows: torch.stack([torch.stack(r, -1) for r in rows], -2)
     return stack2(lxx), stack2(luu), stack2(lux)
+
+
+def terminal_derivatives(terminal_fn, xT: Tensor):
+    """``(phi_x, phi_xx)`` of ``terminal_fn`` at ``xT [B, nx]`` by jvp and
+    jvp over jvp, as lists of ``[B]`` tensors; upper triangle mirrored (entry
+    (i, j), j >= i, the jvp along e_j of the gradient along e_i).  The plain
+    version of K10, and the terminal value of K1's and K4's."""
+    nx = xT.shape[-1]
+    zeros = torch.zeros_like(xT[..., 0])
+    grad_j = lambda a, j: jvp(terminal_fn, (a,), (_basis(nx, j, a),))[1] + zeros
+    vx = [grad_j(xT, j) for j in range(nx)]
+    vxx = [[None] * nx for _ in range(nx)]
+    for i in range(nx):
+        for j in range(i, nx):
+            h = jvp(lambda a: grad_j(a, i), (xT,), (_basis(nx, j, xT),))[1] + zeros
+            vxx[i][j] = vxx[j][i] = h
+    return vx, vxx
+
+
+def terminal_derivs_tiled_plain(spec, xT: Tensor):
+    """Plain PyTorch version of K10: :func:`terminal_derivatives` at ``xT
+    [nx, B]``, stacked to ``(phix [nx, B], phixx [nx, nx, B])`` float32."""
+    TERMINAL_STATS.plain_calls += 1
+    vx, vxx = terminal_derivatives(spec.terminal_cost, xT.T)
+    phix = torch.stack(vx).to(torch.float32)
+    phixx = torch.stack([torch.stack(row) for row in vxx]).to(torch.float32)
+    return phix.contiguous(), phixx.contiguous()
+
+
+def terminal_derivs_tiled(spec, xT: Tensor):
+    """K10 on the card for CUDA tensors, the plain version for CPU tensors."""
+    if xT.device.type == "cpu":
+        return terminal_derivs_tiled_plain(spec, xT)
+    return launch_terminal_derivs_tiled(spec, xT)
+
+
+def launch_terminal_derivs_tiled(spec, xT: Tensor):
+    """The CUDA launch of K10."""
+    nx, B = xT.shape
+    check_tensor(xT, "xT", (nx, B), xT.device)
+    symbol, (dyn_p, term_p) = problem_symbol("terminal_derivs", nx, spec.control_dim,
+                                             spec.dynamics, spec.terminal_cost)
+    phix = torch.empty((nx, B), dtype=torch.float32, device=xT.device)
+    phixx = torch.empty((nx, nx, B), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        launch(symbol, xT, phix, phixx, B, dyn_p, term_p)
+    TERMINAL_STATS.launches += 1
+    return phix, phixx
 
 
 def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,

@@ -40,12 +40,11 @@ import itertools
 from typing import List
 
 import torch
-from torch.func import jvp
 
 from ..types import Tensor
 from ._build import (KernelStats, check_tensor, launch, problem_symbol, stage_major,
                      step_constants)
-from .linearize import _basis, stage_derivatives
+from .linearize import stage_derivatives, terminal_derivatives
 
 STATS = KernelStats()            # K1
 CONT_STATS = KernelStats()       # K1 in the continuous Jacobian mode
@@ -220,21 +219,6 @@ def _stage_core(A, Bm, lx, lu, lxx, luu, lux, v_x, v_xx, nx, nu, reg_levels,
     new_vxx = [[q_xx[i][j] + KQ[i][j] + KQ[j][i] + KqK[i][j] for j in range(nx)]
                for i in range(nx)]
     return k_t, K_t, new_vx, new_vxx
-
-
-def terminal_derivatives(terminal_fn, xT: Tensor):
-    """``(phi_x, phi_xx)`` of ``terminal_fn`` at ``xT [B, nx]`` by jvp and
-    jvp over jvp, as lists of ``[B]`` tensors; upper triangle mirrored."""
-    nx = xT.shape[-1]
-    zeros = torch.zeros_like(xT[..., 0])
-    grad_j = lambda a, j: jvp(terminal_fn, (a,), (_basis(nx, j, a),))[1] + zeros
-    vx = [grad_j(xT, j) for j in range(nx)]
-    vxx = [[None] * nx for _ in range(nx)]
-    for i in range(nx):
-        for j in range(i, nx):
-            h = jvp(lambda a: grad_j(a, i), (xT,), (_basis(nx, j, xT),))[1] + zeros
-            vxx[i][j] = vxx[j][i] = h
-    return vx, vxx
 
 
 def _rows(a: Tensor, s: int):

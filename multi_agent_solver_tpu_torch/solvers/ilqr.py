@@ -45,8 +45,10 @@ kept trajectory, the multiplier updates and the penalty schedule
 (``rho * penalty_increase`` while a violation norm exceeds
 ``constraint_tolerance``) follow; a problem converges once its merit stops
 improving and both violation norms are below the tolerance, and is then
-frozen.  An AL problem is never stationary, so K1 does not run.  AL with a
-context is not ported.  State is carried batch-innermost (``[T, dim, B]``,
+frozen.  An AL problem is never stationary, so K1 does not run.  With a
+context too (a constrained agent of a coupled game), K2 runs its AL and
+context modes at once and the objective reads the context.  State is
+carried batch-innermost (``[T, dim, B]``,
 ``[dim, B]``), the counterpart of the TPU lane layout; it is converted
 once on entry and once on exit.
 
@@ -91,8 +93,9 @@ from ..ops import forward_select as _k2
 from ..ops import linearize as _k3
 from ..ops import riccati as _k1
 from ..ops.boxqp import boxqp_gains
+from ..ops.forward_pallas import kernels_take, spec_supports_lane_forward
 from ..ops.small import leading_minors_positive, psd_solve_with_escalation, reg_levels
-from ..types import SolverParams, device_fn_of, get_param, param_flag, resolve_device
+from ..types import SolverParams, get_param, param_flag, resolve_device
 from .base import SolveResult, SolverBase, register_solver
 
 
@@ -302,48 +305,6 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
-def _constraints_batched(specs: OCPSpec) -> bool:
-    """Do the constraint callables give ``[..., m]`` (or a constant ``[m]``)
-    on batched values ``x [2, nx]``, ``u [2, nu]``?  The counterpart of the
-    JAX router's ``_lane_constraints_traceable``."""
-    x = torch.zeros((2, specs.state_dim), dtype=torch.float32,
-                    device=specs.initial_state.device)
-    u = torch.zeros((2, specs.control_dim), dtype=torch.float32, device=x.device)
-    for fn, m in ((specs.equality_constraints, specs.eq_dim),
-                  (specs.inequality_constraints, specs.ineq_dim)):
-        if m == 0:
-            continue
-        try:
-            shape = tuple(fn(x, u).shape)
-        except Exception:
-            return False
-        if shape not in ((2, m), (m,)):
-            return False
-    return True
-
-
-def _kernels_take(specs: OCPSpec, dev: torch.device) -> bool:
-    """Do the select and linearize kernels take the problem's dynamics and
-    costs (the JAX router's ``_lane_cost_traceable`` and lane tracing of
-    ``spec_supports_lane_forward``)?  On the CPU any torch callable (the
-    plain versions run it); on the card callables with a ``DeviceFn`` tag."""
-    if dev.type == "cpu":
-        return True
-    return all(device_fn_of(f) is not None
-               for f in (specs.dynamics, specs.stage_cost, specs.terminal_cost))
-
-
-def _lane_forward_ok(specs: OCPSpec, dev: torch.device) -> bool:
-    """The JAX router's ``spec_supports_lane_forward``: the kernels take the
-    problem, and each constraint has at most 8 rows, gives ``[..., m]`` on
-    batched values and, on the card, carries a tag."""
-    for fn, m in ((specs.equality_constraints, specs.eq_dim),
-                  (specs.inequality_constraints, specs.ineq_dim)):
-        if m > 0 and (m > 8 or (dev.type != "cpu" and device_fn_of(fn) is None)):
-            return False
-    return _constraints_batched(specs) and _kernels_take(specs, dev)
-
-
 @dataclasses.dataclass(frozen=True)
 class Route:
     """The router's decision for one batched solve."""
@@ -359,7 +320,19 @@ def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize:
     """The JAX router of ``solve_ilqr_batched`` (ilqr.py:1351-1510 of the
     JAX package), run before the solve on ``device_type``'s terms: JAX's
     ``interpret`` (the CPU) is the port's CPU.  Raises for the branches that
-    are not ported."""
+    are not ported.
+
+    The lane kernels take a problem where ``ops/forward_pallas.py::
+    spec_supports_lane_forward`` says so -- JAX's check, its bound on a
+    per-stage context (512 floats a stage) included.  Context and AL
+    solves, apart or together, fuse under ``fused="auto"`` on the card
+    only, as JAX fuses them off its interpreter.
+
+    One deliberate divergence: a context solve with ``fused=False`` and
+    ``linearize="pallas"`` runs the vmapped linearizer, since K7 takes no
+    context.  JAX builds K7 without the context there and raises
+    ``TypeError`` (its ``ops/linearize_pallas.py:301``).
+    """
     if config.differentiable:
         raise _not_ported("differentiable=True", "queue 1, iLQR modes")
     if config.ddp:
@@ -382,18 +355,15 @@ def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize:
     if backward not in ("pallas", "scan"):
         raise ValueError(f"backward={backward!r}: 'auto', 'pallas', 'scan' or 'assoc'")
     al = specs.eq_dim > 0 or specs.ineq_dim > 0
-    if al and specs.context is not None:
-        raise _not_ported("AL constraints with a per-stage context",
-                          "queue 1, AL constraints with a context")
     dev = torch.device(device_type)
     interpret = dev.type == "cpu"
     lane_forward = (backward == "pallas" and specs.objective_is_default
-                    and _lane_forward_ok(specs, dev))
+                    and spec_supports_lane_forward(specs, dev))
     if (fused in ("auto", True) and lane_forward
             and (specs.context is None and not al or fused is True or not interpret)):
         return Route(fused=True)
     lane_linearize = (linearize == "pallas" and lane_forward and specs.context is None
-                      and _kernels_take(specs, dev))
+                      and kernels_take(specs, dev))
     return Route(False, backward, lane_forward, lane_linearize)
 
 
@@ -429,13 +399,16 @@ def _lane_constraint_stacks(constraint, xs: torch.Tensor, us: torch.Tensor):
             columns(lambda a: constraint(a, u), x), columns(lambda a: constraint(x, a), u))
 
 
-def _lane_objective(spec: OCPSpec, xs: torch.Tensor, xT: torch.Tensor, us: torch.Tensor):
+def _lane_objective(spec: OCPSpec, xs: torch.Tensor, xT: torch.Tensor, us: torch.Tensor,
+                    ctx: torch.Tensor = None):
     """The true (un-augmented) objective per problem ``[B]``: the stage
-    costs at ``(x_t, u_t, t)`` summed over the horizon, plus the terminal
-    cost at ``x_T``.  ``t`` is the float stage index K3 passes."""
+    costs at ``(x_t, u_t, t)`` -- with ``ctx [T, ..., B]`` at ``(x_t, u_t,
+    t, ctx_t)`` -- summed over the horizon, plus the terminal cost at
+    ``x_T``.  ``t`` is the float stage index K3 passes."""
     x, u = xs.permute(0, 2, 1), us.permute(0, 2, 1)
     t = torch.arange(xs.shape[0], dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
-    stage = torch.broadcast_to(spec.stage_cost(x, u, t), x.shape[:2])
+    args = (x, u, t) + (() if ctx is None else (ctx.movedim(-1, 1),))
+    stage = torch.broadcast_to(spec.stage_cost(*args), x.shape[:2])
     return stage.sum(0) + spec.terminal_cost(xT.T)
 
 
@@ -579,7 +552,7 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: KernelOps 
     eq_fn = specs.equality_constraints if specs.eq_dim > 0 else None
     in_fn = specs.inequality_constraints if specs.ineq_dim > 0 else None
     has_al = eq_fn is not None or in_fn is not None
-    stationary = stationary and not has_al
+    stationary = stationary and not has_al and ctx is None
     fusedlin = stationary and config.stationary_fusedlin
     hess = None
     if stationary:
@@ -633,7 +606,7 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: KernelOps 
             # trajectory; frozen problems keep theirs.
             g = _lane_constraint_vals(eq_fn, xs, us) if eq_fn else None
             h = _lane_constraint_vals(in_fn, xs, us) if in_fn else None
-            new = (_lane_objective(specs, xs, xT, us),
+            new = (_lane_objective(specs, xs, xT, us, ctx),
                    *_lane_dual_update(g, h, eq_mult, ineq_mult, rho, config))
             old = (cost, eq_mult, ineq_mult, rho, eq_viol, ineq_viol)
             cost, eq_mult, ineq_mult, rho, eq_viol, ineq_viol = (

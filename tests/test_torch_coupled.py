@@ -315,13 +315,28 @@ def test_unported_strategy_routes_raise(case):
 
 
 def test_al_constrained_context_solve_still_raises():
+    """AL constraints with a context solve (the plain versions on the CPU),
+    but a constraint without a device-function tag still raises
+    NotImplementedError at the CUDA launch of the select kernel's AL and
+    context mode, before any device work."""
     problem, strategy = entry.coupled_game(3, device="cpu")
     problem.compute_offsets()
     specs = strategy._prepare(problem, stack_agent_specs(problem))
+    untagged = lambda x, u: x[..., :1]
     specs = specs.replace(context=torch.zeros(3, 10, 2, 4), ineq_dim=1,
-                          inequality_constraints=lambda x, u: x[..., :1])
-    with pytest.raises(NotImplementedError, match="AL"):
-        solve_ilqr_batched(specs, strategy._config, device="cpu")
+                          inequality_constraints=untagged,
+                          derivs=specs.derivs.replace(ineq_gx=torch.func.jacfwd(untagged, 0),
+                                                      ineq_gu=torch.func.jacfwd(untagged, 1)))
+    config = dataclasses.replace(strategy._config, max_iterations=2)
+    result = solve_ilqr_batched(specs, config, device="cpu")
+    assert result.cost.shape == (3,) and bool(torch.isfinite(result.cost).all())
+    xs, us, xT = torch.zeros(10, NX, 3), torch.zeros(10, NU, 3), torch.zeros(NX, 3)
+    gains = (torch.zeros(10, NU, 3), torch.zeros(10, NU, NX, 3))
+    with pytest.raises(NotImplementedError, match="device-function tag"):
+        k2.launch_forward_select(specs, xs, us, xT, *gains, torch.zeros(3),
+                                 torch.ones(3, dtype=torch.bool), None, None, (1.0,),
+                                 torch.zeros(10, 2, NX, 3), None, torch.zeros(10, 1, 3),
+                                 torch.ones(3))
 
 
 def test_coupled_device_function_and_context_checks():
