@@ -23,7 +23,9 @@ forward pass) and K10 (the terminal derivatives).
 Phases, each reported on its own lines:
 
 1. card: ``nvidia-smi``'s name and power limit of the GPU;
-2. build: the kernels' build time and ptxas' register / spill report;
+2. build: the kernels' build time and ptxas' register / spill report,
+   with the two lane-group kernels (K6's context select and K3's context
+   mode) named;
 3. per-kernel checks at B = 8192, T = 80, each output's tolerance printed
    beside its max abs error and max error relative to the output's scale;
 4. end to end at B = 4096: kernels against the plain versions on the card
@@ -52,7 +54,9 @@ and, run after phase 5 and before 6 and 7, in this order:
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
    with and without Hessians; K2 at 10 candidates; K1 with boxqp);
 13. K3 and K2 in context mode (K6) against their plain versions at
-   B = 8192, T = 10, with K = 8 and 63 neighbours;
+   B = 8192, T = 10, with K = 8 and 63 neighbours, K3 also at B = 64 and
+   256 (its 32- and 8-lane instantiations), the select at 10 and 3
+   candidates;
 14. the coupled game through ``entry.coupled_game``: a 12-car ring on its
    JAX anchor agent by agent and against the plain versions; 64 cars (all
    pairs) and 256 (8 nearest) on their JAX anchors within the spread of
@@ -60,7 +64,10 @@ and, run after phase 5 and before 6 and 7, in this order:
    over 2 sweeps through the kernels against the plain versions;
 15. agent-solves/s and wall ms of the game at 64, 256 and 1,024 cars
    (median of 5 calls), the kernels' ms per launch and bounds at each
-   row's shapes, and their share of the wall;
+   row's shapes, and their share of the wall; the redesigned kernels' ms
+   a wrapper call (CUDA events around 20 calls, as every kernel's) and a
+   launch on the device (a CUDA graph of 20 launches), each beside the
+   one-thread kernel's time taken the same way, and their bounds;
 16. K2's AL mode (K6) against its plain version at B = 8192, T = 80, with
    3 and 10 candidates, one equality and four inequality rows (and the
    four alone), random multipliers and a spread of rho, with the one-ulp
@@ -116,11 +123,14 @@ and, run after phase 5 and before 6 and 7, in this order:
    the kernels against the plain versions;
 24. agent-solves/s and wall ms of the constrained game at 64, 256 and
    1,024 cars (median of 5 calls) with K6 AL + context's ms per launch at
-   each row's shapes, its plain ms and bound; K8, K9 (A = 3 and 10) and
+   each row's shapes (a wrapper call and on the device, each beside the
+   one-thread kernel's), its plain ms and bound; K8, K9 (A = 3 and 10) and
    K10 per launch at B = 262,144, T = 80, with plain ms and bounds;
 6. one JSON line listing every ported kernel (K1-K10, K6's AL mode and
    its AL and context mode, K4's explicit-terminal mode and the continuous
-   modes of K1 and K3), printed after them;
+   modes of K1 and K3; K6's context rows and K3's context mode marked
+   "redesigned: lane groups"), printed after them; every row's ``ms`` is
+   a wrapper call's, and the redesigned rows add ``device_ms``;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
@@ -210,6 +220,22 @@ KNIFE_EDGE_Z = 3.0
 # phase 9 holds boxqp, and the knife-edge is measured beside.
 SELECT_SHARE = 0.995
 GAME_TIMED = 5
+# The one-thread kernels that the lane-group kernels replaced (K6's context
+# select and AL + context select at 10 candidates, K3's context mode with
+# and without Hessians), timed by context_kernel_times.py on the tree of
+# commit 77c48f4 on ONE_THREAD_CARD, by cars in the game row: (ms a wrapper
+# call, ms a launch on the device), each timed as phases 15 and 24 time the
+# lane-group kernels, the lesser of two runs.
+ONE_THREAD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+ONE_THREAD_MS = {64: {"K6_A10": (0.872024, 0.862766), "K6alctx": (0.880573, 0.869909),
+                      "K3ctx_hess": (0.093712, 0.085686), "K3ctx": (0.107547, 0.041200)},
+                 256: {"K6_A10": (0.390549, 0.382512), "K6alctx": (0.401266, 0.395002),
+                       "K3ctx_hess": (0.087374, 0.015197), "K3ctx": (0.083686, 0.009707)},
+                 1024: {"K6_A10": (0.390069, 0.379416), "K6alctx": (0.401491, 0.389280),
+                        "K3ctx_hess": (0.142470, 0.015331), "K3ctx": (0.105434, 0.010158)}}
+# The lane-group kernels (phase 2 names them in its ptxas report).
+REDESIGNED_KERNELS = ("forward_select_group_kernel", "linearize_group_kernel")
+REDESIGNED = "redesigned: lane groups"
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -361,6 +387,31 @@ def event_ms(fns):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / len(fns)
+
+
+def graph_ms(fns, restore=lambda: None, reps=3):
+    """Device time in ms per call of the callables ``fns`` captured into one
+    CUDA graph: the median over ``reps`` replays, each after ``restore()``
+    (untimed; it resets buffers that the calls update in place).  A replay
+    launches the kernels back to back, so this is the kernels' own time
+    without the host's cost of a wrapper call between them."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    times = []
+    for _ in range(reps):
+        restore()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    return float(np.median(times))
 
 
 def main_path_inputs(spec, B, seed):
@@ -886,7 +937,8 @@ def ring_context(xs_all, K, n):
 
 def check_coupled_kernels(spec):
     """Phase 13: K3 and K2 (K6) in context mode against their plain versions
-    at B = CHECK_BATCH, T = T_SWEEP, K = 8 and 63.  Tolerances: rtol 1e-5
+    at B = CHECK_BATCH, T = T_SWEEP, K = 8 and 63 (K3 also on the first 64
+    and 256 problems).  Tolerances: rtol 1e-5
     with an absolute floor of 1e-5 of each output's scale on K2's rollout
     and K3 (the pair costs are up to 63 float32 exp's summed); K2 select as
     phase 8's circular select (states and controls atol 5e-4, merit rtol
@@ -938,29 +990,42 @@ def check_coupled_kernels(spec):
             record("K3ctx", [scaled(f"K3 ctx K={K} hessians={hess} {n}", a, b)
                              for n, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"),
                                                 lin_k, lin[hess])])
+            # The group kernel's lanes follow the launch's size (one lane a
+            # problem-stage at this B): its first 64 and 256 problems take
+            # the 32- and 8-lane instantiations, as the game rows do.
+            for n in (64, 256):
+                part = [a[..., :n].contiguous() for a in (xs, us, ctx)]
+                lin_n = k3.linearize(spec, *part[:2], hess, part[2])
+                want = k3.linearize_plain(spec, *part[:2], hess, part[2])
+                record("K3ctx", [scaled(f"K3 ctx K={K} B={n} hessians={hess} {m}", a, b)
+                                 for m, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"),
+                                                    lin_n, want)])
         k, K_ = k1.riccati_backward_plain(spec, *lin[True], xT, levels)
         moved = xs.clone()
         moved[0, 1] = torch.nextafter(moved[0, 1], torch.full_like(moved[0, 1], np.inf))
-        outs = {}
-        for name, fn, start in (("kernel", k2.forward_select, xs),
-                                ("plain", k2.forward_select_plain, xs),
-                                ("plain, x0 one ulp up", k2.forward_select_plain, moved)):
-            bufs = [start.clone(), us.clone(), xT.clone()]
-            merit, accept = fn(spec, *bufs, k, K_, cost_p, active, lb, ub, ladder, ctx)
-            outs[name] = bufs + [merit, accept]
-        results = [compare(f"K6 select K={K} {n}", a, b, rtol, atol)
-                   for n, a, b, rtol, atol in zip(("xs", "us", "xT", "merit"), outs["kernel"],
-                                                  outs["plain"], (1e-4,) * 4, (5e-4,) * 3 + (0.0,))]
-        apart = select_apart(outs["kernel"], outs["plain"])
-        apart_ulp = select_apart(outs["plain, x0 one ulp up"], outs["plain"])
-        share = 1.0 - float(apart.float().mean())
-        log(f"  K6 select K={K} A={len(ladder)}: {int(outs['kernel'][4].sum())} of {B} accepted, "
-            f"{int((outs['kernel'][4] != outs['plain'][4]).sum())} accept flags differ; "
-            f"{int(apart.sum())} problems beyond the tolerances (share within {share:.4f}, "
-            f"required {SELECT_SHARE}); knife-edge: x0 one ulp up moves {int(apart_ulp.sum())} "
-            f"plain-version problems beyond them, {int((apart & apart_ulp).sum())} of them "
-            f"the same")
-        record("K6", [(share >= SELECT_SHARE, max_abs, max_rel) for _, max_abs, max_rel in results])
+        # The game's 10 candidates and bench.py's 3: the group kernel's 16-
+        # and 4-lane instantiations.
+        for lad in (ladder, entry.BENCH_CONFIG.alpha_ladder):
+            outs = {}
+            for name, fn, start in (("kernel", k2.forward_select, xs),
+                                    ("plain", k2.forward_select_plain, xs),
+                                    ("plain, x0 one ulp up", k2.forward_select_plain, moved)):
+                bufs = [start.clone(), us.clone(), xT.clone()]
+                merit, accept = fn(spec, *bufs, k, K_, cost_p, active, lb, ub, lad, ctx)
+                outs[name] = bufs + [merit, accept]
+            results = [compare(f"K6 select K={K} A={len(lad)} {n}", a, b, rtol, atol)
+                       for n, a, b, rtol, atol in zip(("xs", "us", "xT", "merit"), outs["kernel"],
+                                                      outs["plain"], (1e-4,) * 4, (5e-4,) * 3 + (0.0,))]
+            apart = select_apart(outs["kernel"], outs["plain"])
+            apart_ulp = select_apart(outs["plain, x0 one ulp up"], outs["plain"])
+            share = 1.0 - float(apart.float().mean())
+            log(f"  K6 select K={K} A={len(lad)}: {int(outs['kernel'][4].sum())} of {B} accepted, "
+                f"{int((outs['kernel'][4] != outs['plain'][4]).sum())} accept flags differ; "
+                f"{int(apart.sum())} problems beyond the tolerances (share within {share:.4f}, "
+                f"required {SELECT_SHARE}); knife-edge: x0 one ulp up moves {int(apart_ulp.sum())} "
+                f"plain-version problems beyond them, {int((apart & apart_ulp).sum())} of them "
+                f"the same")
+            record("K6", [(share >= SELECT_SHARE, max_abs, max_rel) for _, max_abs, max_rel in results])
     torch.cuda.synchronize()
     if not ok:
         fail("a context-mode kernel disagrees with its plain version (phase 13)")
@@ -1448,6 +1513,19 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
         "K6_A10": event_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, cost, active, lb, ub,
                                                           ladder, ctx) for b in sel_bufs]),
     }
+    # The redesigned kernels' device time without the wrapper's host cost
+    # between launches (CUDA graph); the select's buffers reset untimed.
+    def restore():
+        for b in sel_bufs:
+            for buf, src in zip(b, (xs, us, xT)):
+                buf.copy_(src)
+    device = {
+        "K3ctx_hess": graph_ms([lambda: k3.linearize(spec, xs, us, True, ctx)] * reps),
+        "K3ctx": graph_ms([lambda: k3.linearize(spec, xs, us, False, ctx)] * reps),
+        "K6_A10": graph_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, cost, active, lb, ub,
+                                                          ladder, ctx) for b in sel_bufs],
+                           restore),
+    }
     plain = {}
     if with_plain:
         b = fresh()
@@ -1485,7 +1563,21 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
     if plain:
         log(f"  {agents} cars, K={K}: plain ms/call {json.dumps({k_: round(v, 6) for k_, v in plain.items()})}")
     log(f"  {agents} cars, K={K}: bound ms {json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}")
-    return ms, plain, bound
+    log(f"  {agents} cars, K={K}: device ms/launch (CUDA graph) "
+        f"{json.dumps({k_: round(v, 6) for k_, v in device.items()})}")
+    return ms, plain, bound, device
+
+
+def against_one_thread(agents, K, name, ms, device, bound):
+    """Log a lane-group kernel's times beside the one-thread kernel's
+    (ONE_THREAD_MS), wrapper call against wrapper call and device against
+    device, and its bound."""
+    was_ms, was_device = ONE_THREAD_MS[agents][name]
+    log(f"  {agents} cars, K={K}: {name} ({REDESIGNED}) {ms:.6f} ms a wrapper call, the "
+        f"one-thread kernel's {was_ms:.6f} ms ({was_ms / ms:.1f}x); {device:.6f} ms a launch "
+        f"on the device (CUDA graph), the one-thread kernel's {was_device:.6f} ms "
+        f"({was_device / device:.1f}x; one-thread times on {ONE_THREAD_CARD}); bound "
+        f"{bound[0]:.6f} ms ({bound[1]})")
 
 
 def time_games(entry, card):
@@ -1510,19 +1602,30 @@ def time_games(entry, card):
             times.append(time.perf_counter() - t0)
         wall = float(np.median(times))
         rate = agents * entry.MAX_OUTER / wall
-        kms, plain, bound = time_game_kernels(entry, agents, neighbors, with_plain=(agents == 64))
+        kms, plain, bound, device = time_game_kernels(entry, agents, neighbors,
+                                                      with_plain=(agents == 64))
+        for name in device:
+            against_one_thread(agents, neighbors or agents - 1, name, kms[name], device[name],
+                               bound[name])
         # One K6 rollout a sweep, the other K6 launches select.
         in_kernels = (entry.MAX_OUTER * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
                       + launches["K4"] * kms["K4"]
                       + (launches["K6"] - entry.MAX_OUTER) * kms["K6_A10"])
+        # ... with the redesigned kernels' device time in place of a wrapper
+        # call's.
+        on_device = in_kernels + (launches["K3ctx"] * (device["K3ctx_hess"] - kms["K3ctx_hess"])
+                                  + (launches["K6"] - entry.MAX_OUTER)
+                                  * (device["K6_A10"] - kms["K6_A10"]))
         log(f"[15] {agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}: "
             f"wall {[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, "
             f"{rate:.1f} agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call "
             f"{launches}; kernel time per call {in_kernels:.3f} ms (launches x ms per launch), "
-            f"{100 * in_kernels / (wall * 1e3):.1f}% of the wall; card {card}")
+            f"{100 * in_kernels / (wall * 1e3):.1f}% of the wall; with the redesigned kernels' "
+            f"device times {on_device:.3f} ms, {100 * on_device / (wall * 1e3):.1f}%; card {card}")
         rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
                                      "launches": launches, "ms": kms, "plain": plain,
-                                     "bound": bound, "kernel_ms": in_kernels}
+                                     "bound": bound, "kernel_ms": in_kernels,
+                                     "device_ms": device}
     return rows
 
 
@@ -2338,6 +2441,13 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
     bufs = [fresh() for _ in range(reps)]
     ms = event_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, merit, active, lb, ub, ladder, *al)
                    for b in bufs])
+
+    def restore():
+        for b in bufs:
+            for buf, src in zip(b, (xs, us, xT)):
+                buf.copy_(src)
+    device = graph_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, merit, active, lb, ub,
+                                                     ladder, *al) for b in bufs], restore)
     plain = None
     if with_plain:
         b = fresh()
@@ -2349,10 +2459,11 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
     ops = (B * T_ * A * (OPS_CONTROL + OPS_TRACK + OPS_RK4 + K * OPS_PAIR + OPS_AL_INEQ_ROW
                          + OPS_AL_STEP) + n_acc * T_ * (OPS_CONTROL + OPS_RK4))
     bound = bound_of(bytes_, ops)
-    log(f"  {agents} cars, K={K}: K6 AL+ctx (A={A}) {ms:.6f} ms/launch, plain "
-        f"{'-' if plain is None else f'{plain:.6f}'} ms, bound {bound[0]:.6f} ms ({bound[1]}); "
-        f"accepted {n_acc} of {B}")
-    return ms, plain, bound
+    log(f"  {agents} cars, K={K}: K6 AL+ctx (A={A}) {ms:.6f} ms a wrapper call, "
+        f"{device:.6f} ms a launch on the device (CUDA graph); plain "
+        f"{'-' if plain is None else f'{plain:.6f}'} "
+        f"ms, bound {bound[0]:.6f} ms ({bound[1]}); accepted {n_acc} of {B}")
+    return ms, plain, bound, device
 
 
 def time_constrained(entry, ilqr, card):
@@ -2381,16 +2492,19 @@ def time_constrained(entry, ilqr, card):
                 launches = read_counts(stats)
         wall = float(np.median(times))
         rate = agents * entry.MAX_OUTER / wall
-        ms, plain, bound = time_al_context_kernel(entry, ilqr, agents, neighbors, agents == 64)
+        ms, plain, bound, device = time_al_context_kernel(entry, ilqr, agents, neighbors,
+                                                          agents == 64)
+        against_one_thread(agents, neighbors or agents - 1, "K6alctx", ms, device, bound)
         log(f"[24] constrained {agents} cars, "
             f"{'all pairs' if neighbors is None else f'{neighbors} nearest'}: wall "
             f"{[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, {rate:.1f} "
             f"agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call {launches}; "
             f"K6 AL+ctx {launches['K6alctx']} x {ms:.6f} ms = "
-            f"{launches['K6alctx'] * ms:.3f} ms of the wall; card {card}")
+            f"{launches['K6alctx'] * ms:.3f} ms of the wall ({launches['K6alctx']} x {device:.6f} "
+            f"= {launches['K6alctx'] * device:.3f} ms on the device); card {card}")
         rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
                                      "launches": launches, "ms": ms, "plain": plain,
-                                     "bound": bound}
+                                     "bound": bound, "device_ms": device}
     return rows
 
 
@@ -2525,14 +2639,16 @@ def lane_kernel_entries(errs, cgames, crows, lane_timing, by_path):
     k6 = {"name": "K6 forward_select, AL and context modes together", "route": "cuda",
           "source": "multi_agent_solver_tpu_torch/csrc/forward_select_al_ctx.cu",
           "replaces": "multi_agent_solver_tpu/ops/forward_select_pallas.py:167",
-          "launches": cgames[(64, None)]["launches"]["K6alctx"],
+          "launches": cgames[(64, None)]["launches"]["K6alctx"], "status": REDESIGNED,
           "max_abs_err": errs["K6alctx"][0], "max_rel_err": errs["K6alctx"][1],
-          "ms": row["ms"], "plain_ms": row["plain"], "bound_ms": row["bound"][0],
+          "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain"],
+          "bound_ms": row["bound"][0],
           "bound_by": row["bound"][1], "library_ms": None, "batch": 64,
           "launches_by_path": by_path("K6alctx")}
     for (n, k), r in crows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
-        k6.update({f"ms_{tag}": r["ms"], f"bound_ms_{tag}": r["bound"][0]})
+        k6.update({f"ms_{tag}": r["ms"], f"device_ms_{tag}": r["device_ms"],
+                   f"bound_ms_{tag}": r["bound"][0]})
     meta = {
         "K8": ("K8 forward_select, emit mode (select with the linearization)",
                "multi_agent_solver_tpu_torch/csrc/forward_select_emit.cu",
@@ -2765,6 +2881,8 @@ def main() -> None:
         for line in build_log.read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
+            elif "Compiling entry function" in line and any(n in line for n in REDESIGNED_KERNELS):
+                log(f"  {REDESIGNED}: " + line.strip())
 
     spec = entry.single_track_spec(device=DEVICE)
     # K6 and K3ctx: the context-mode launches of K2 and K3 (counted apart).
@@ -2906,13 +3024,15 @@ def main() -> None:
                                f"ms_{tag}_at_524288": nms_big[mode]})
             # The context mode (the coupled game; T = 10): launches counted
             # apart as K3ctx, times at each bench_coupled row's shapes.
-            entry_.update(context_launches_by_path=by_path("K3ctx"),
+            entry_.update(context_launches_by_path=by_path("K3ctx"), context_status=REDESIGNED,
                           context_max_abs_err=errs["K3ctx"][0], context_max_rel_err=errs["K3ctx"][1])
             for (n, k), row in game_rows.items():
                 tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
                 for mode in ("K3ctx_hess", "K3ctx"):
                     m = f"{tag}_context{'_hessians' if mode == 'K3ctx_hess' else ''}"
-                    entry_.update({f"ms_{m}": row["ms"][mode], f"bound_ms_{m}": row["bound"][mode][0],
+                    entry_.update({f"ms_{m}": row["ms"][mode],
+                                   f"device_ms_{m}": row["device_ms"][mode],
+                                   f"bound_ms_{m}": row["bound"][mode][0],
                                    f"bound_by_{m}": row["bound"][mode][1]})
                     if mode in row["plain"]:
                         entry_[f"plain_ms_{m}"] = row["plain"][mode]
@@ -2958,8 +3078,10 @@ def main() -> None:
         "launches": games[(64, None)]["launches"]["K6"],
         "max_abs_err": errs["K6"][0], "max_rel_err": errs["K6"][1],
         # Select at the game's 10 candidates, at the 64-car all-pairs
-        # game's shapes (B = 64, K = 63, T = 10).
-        "ms": main_game["ms"]["K6_A10"], "plain_ms": main_game["plain"]["K6_A10"],
+        # game's shapes (B = 64, K = 63, T = 10): a wrapper call, as every
+        # row's ms, and the lane-group kernel's device time (CUDA graph).
+        "status": REDESIGNED, "ms": main_game["ms"]["K6_A10"],
+        "device_ms": main_game["device_ms"]["K6_A10"], "plain_ms": main_game["plain"]["K6_A10"],
         "bound_ms": main_game["bound"]["K6_A10"][0], "bound_by": main_game["bound"]["K6_A10"][1],
         "library_ms": None, "batch": 64, "launches_by_path": by_path("K6"),
         "ms_rollout_mode": main_game["ms"]["K6_rollout"],
@@ -2968,7 +3090,9 @@ def main() -> None:
     }
     for (n, k), row in game_rows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
-        k6.update({f"ms_{tag}": row["ms"]["K6_A10"], f"bound_ms_{tag}": row["bound"]["K6_A10"][0],
+        k6.update({f"ms_{tag}": row["ms"]["K6_A10"],
+                   f"device_ms_{tag}": row["device_ms"]["K6_A10"],
+                   f"bound_ms_{tag}": row["bound"]["K6_A10"][0],
                    f"bound_by_{tag}": row["bound"]["K6_A10"][1],
                    f"ms_rollout_mode_{tag}": row["ms"]["K6_rollout"]})
     k6al = {

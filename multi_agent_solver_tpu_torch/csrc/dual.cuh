@@ -211,3 +211,19 @@ __device__ __forceinline__ Dual<Dual<float, N>, N> seed2(float v, int k) {
   r.d[k].v = 1.0f;
   return r;
 }
+
+// The xor-shuffle of every component, value and tangents, within segments
+// of `width` lanes of a warp (a sum over the lanes of a group).
+__device__ __forceinline__ float shfl_xor(unsigned mask, float v, int off, int width) {
+  return __shfl_xor_sync(mask, v, off, width);
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> shfl_xor(unsigned mask, const Dual<S, N>& a, int off,
+                                               int width) {
+  Dual<S, N> r;
+  r.v = shfl_xor(mask, a.v, off, width);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = shfl_xor(mask, a.d[k], off, width);
+  return r;
+}

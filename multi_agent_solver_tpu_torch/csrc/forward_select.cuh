@@ -27,13 +27,26 @@
 // accept [B] out.  Rollout mode: x0 [NX, B], us [T, NU, B] in; xs [T, NX, B]
 // (x_1..x_T), cost [B] out.
 //
-// Context mode (a Coupled stage cost, problems.cuh): both modes also read
-// ctx [T, K, C, B], the other agents' states at each stage.  The stage cost
-// then depends on ctx_t, and phase 1 evaluates it for every candidate.
-// The candidates share the context, so phase 1 reads each neighbour's
-// state once per stage and accumulates every candidate's pair cost from it
-// (K loads of Pair::NCTX floats a stage, not A K).  Phase 2 evaluates no
-// cost and reads no context.
+// Context mode (K6; a Coupled stage cost, problems.cuh; the TPU kernel's
+// ctx_l, forward_select_pallas.py:79-81, 132-144): both modes also read
+// ctx [T, K, C, B], the other agents' states at each stage, and the stage
+// cost depends on ctx_t.  The rollout mode runs on the one-thread kernel,
+// which reads each neighbour's state once per stage.  The select mode, with
+// or without AL, runs on forward_select_group_kernel: a group of G = 4 or
+// 16 lanes per problem, one candidate a lane.  Its bound at the coupled
+// game's shapes (B = 64 / 256 / 1,024 cars, K = 63 / 8 / 8 neighbours,
+// T = 10, 10 candidates) is 0.11-0.49 us of bytes; what it takes is the
+// length of one lane's serial chain.  The one-thread mapping, built for the
+// main path's 262,144 problems, put the 64-car game in one block on one SM:
+// each thread walked 10 candidates x 10 stages x 63 neighbours of pair
+// costs (an exp and a division each) and 100 RK4 steps in a row, its
+// 16 candidates' states partly spilled.  The group mapping gives a lane one
+// candidate (10 stages x 63 pairs), its state in registers; the group stages
+// each tile of the context in shared memory with one load a lane, so a
+// pair waits on no load; and 32-thread blocks spread 64 problems over 32
+// SMs.  A lane's
+// arithmetic and order are the one-thread kernel's, so every output is bit
+// for bit the same.  Phase 2 evaluates no cost and reads no context.
 //
 // AL mode (K6's other half; the TPU kernel's eq_mult_l / ineq_mult_l /
 // rho_l, forward_select_pallas.py:106-123, 170-171, 390-398): the select
@@ -73,8 +86,8 @@
 // rollouts per problem (12 sin/cos/tan a step) and the reads of the
 // reference and the gains in both phases (T (NX + 2 NU + NU NX) 4 bytes a
 // phase; the AL mode adds T (M_EQ + M_IN) 4 bytes of multipliers to phase
-// 1 and about 10 operations a row per candidate and stage).  Design: one
-// thread per problem with the A <= 16 candidate states and costs in
+// 1 and about 10 operations a row per candidate and stage).  Design (every
+// mode but the context select, above): one thread per problem with the A <= 16 candidate states and costs in
 // registers (the TPU kernel's VMEM scratch), the t loop inside the thread,
 // coalesced batch-innermost loads; phase 2 runs only where a candidate was
 // accepted.
@@ -108,6 +121,23 @@ __device__ __forceinline__ void feedback_control(
     float ui = (ur[i] + alpha * kt[i]) + s;
     if (lb != nullptr) ui = clamp_nan(ui, lb[i], ub[i]);
     u[i] = ui;
+  }
+}
+
+// Stage t's reference (x_t, u_t), feedforward k_t and gain K_t of problem b.
+template <int NX, int NU>
+__device__ __forceinline__ void load_stage(const float* xs, const float* us, const float* k,
+                                           const float* K, int t, size_t sB, int b, float* xr,
+                                           float* ur, float* kt, float (&Kt)[NU][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
+    kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
   }
 }
 
@@ -371,16 +401,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     for (int i = 0; i < NX; ++i) x[i] = xstart[i];
     for (int t = 0; t < T; ++t) {
       float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
-        kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
-#pragma unroll
-        for (int j = 0; j < NX; ++j)
-          Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
-      }
+      load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
       float u[NU], xn[NX];
       feedback_control<NX, NU>(x, xr, ur, kt, Kt, sel, bounded ? lb : nullptr, ub, u);
       rk4_step(dyn, x, u, h, xn);
@@ -405,6 +426,143 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
       for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
     }
   }
+}
+
+// K6's context select: the select mode of a Coupled stage cost, with or
+// without AL, for a group of G lanes per problem, lane a running candidate
+// a (G = 4 or 16, as the one-thread kernel's MAXA; lanes a >= A run alpha 0
+// and never win).  A lane's arithmetic is that kernel's for one candidate,
+// in its order, so its cost is the same float; the lanes of a group read
+// the same reference, gains and multipliers (broadcast loads), and stage
+// the context in shared memory, up to SELECT_CTX_TILE neighbours at a time,
+// each lane loading a share of them at once.  Selection: the lowest lane
+// whose total beats the merit on a live problem -- the serial loop's
+// largest improving alpha -- from a ballot of the group.  Phase 2: the
+// winning lane re-rolls its candidate and writes the stage layout in place;
+// every lane of the group has read its last reference value before the
+// ballot.
+constexpr int SELECT_GROUP_BLOCK = 32;
+constexpr int SELECT_CTX_TILE = 64;
+
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int G>
+__global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kernel(
+    float* xs, float* us, float* xT, const float* __restrict__ k, const float* __restrict__ K,
+    const float* __restrict__ merit, const bool* __restrict__ active,
+    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+    float* __restrict__ cost_out, bool* __restrict__ accept_out, const float* __restrict__ ctx,
+    const float* __restrict__ eq_mult, const float* __restrict__ ineq_mult,
+    const float* __restrict__ rho, float act_tol, Dyn dyn, Cost cost, Term term, Eq eq, In in,
+    Step h, Alphas alphas, int T, int B, int n_ctx, int c_ctx) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU, NCTX = Cost::PairT::NCTX;
+  constexpr int PER_LANE = SELECT_CTX_TILE * NCTX / G;   // a lane's share of a tile
+  constexpr bool AL = Eq::M + In::M > 0;
+  static_assert(takes_context<Cost>::value, "the group kernel is the context select");
+  static_assert(G <= MAX_ALPHAS && 32 % G == 0, "a group is a power of two within a warp");
+  static_assert(SELECT_CTX_TILE * NCTX % G == 0, "a tile splits evenly over the lanes");
+  __shared__ float tiles[SELECT_GROUP_BLOCK / G][SELECT_CTX_TILE * NCTX];
+  const int b = blockIdx.x * (SELECT_GROUP_BLOCK / G) + threadIdx.x / G;
+  if (b >= B) return;  // the whole group leaves: its lanes share b
+  const int a = threadIdx.x % G;
+  float* tile = tiles[threadIdx.x / G];
+  const unsigned mask = group_mask<G>();
+  const size_t sB = static_cast<size_t>(B);
+  float half_rho = 0.0f;
+  if constexpr (AL) half_rho = 0.5f * rho[b];
+
+  float lb[NU], ub[NU];
+  const bool bounded = lb_in != nullptr;
+  if (bounded) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      lb[i] = lb_in[i * sB + b];
+      ub[i] = ub_in[i * sB + b];
+    }
+  }
+  float xstart[NX], x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xstart[i] = xs[i * sB + b];
+
+  // Phase 1: this lane's candidate.
+  const float alpha = alphas.v[a];
+  float c = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
+    float lam_eq[Eq::M > 0 ? Eq::M : 1], lam_in[In::M > 0 ? In::M : 1];
+#pragma unroll
+    for (int m = 0; m < Eq::M; ++m)
+      lam_eq[m] = eq_mult[(static_cast<size_t>(t) * Eq::M + m) * sB + b];
+#pragma unroll
+    for (int m = 0; m < In::M; ++m)
+      lam_in[m] = ineq_mult[(static_cast<size_t>(t) * In::M + m) * sB + b];
+    float u[NU];
+    feedback_control<NX, NU>(x, xr, ur, kt, Kt, alpha, bounded ? lb : nullptr, ub, u);
+    // The pair costs from neighbour 0 up, then base + pairs (+ the AL
+    // terms), as the one-thread kernel sums them.
+    const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
+    float ps = 0.0f;
+    for (int j0 = 0; j0 < cv.K; j0 += SELECT_CTX_TILE) {
+      const int n = (cv.K - j0 < SELECT_CTX_TILE ? cv.K - j0 : SELECT_CTX_TILE) * NCTX;
+      float v[PER_LANE];
+#pragma unroll
+      for (int r = 0; r < PER_LANE; ++r) {
+        const int e = a + r * G;
+        v[r] = e < n ? cv.at(j0 + e / NCTX, e % NCTX) : 0.0f;
+      }
+      __syncwarp(mask);  // the group is done with the last tile
+#pragma unroll
+      for (int r = 0; r < PER_LANE; ++r)
+        if (a + r * G < n) tile[a + r * G] = v[r];
+      __syncwarp(mask);
+#pragma unroll 4
+      for (int j = 0; j < n / NCTX; ++j) ps = ps + cost.pair(x, tile + j * NCTX);
+    }
+    float step = cost.base(x, u) + ps;
+    if constexpr (AL)
+      step = step + al_terms<NX, NU>(eq, in, x, u, lam_eq, lam_in, half_rho, act_tol);
+    c = c + step;
+    float xn[NX];
+    rk4_step(dyn, x, u, h, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+
+  // Selection by ballot: bit a of `wins` is candidate a's `total < merit`
+  // on a live problem (NaN never wins); the lowest set bit is the largest
+  // improving alpha.
+  const float m = merit[b];
+  const bool mine = a < alphas.n;
+  const float total = c + term(x);
+  const int base = (threadIdx.x & 31) & ~(G - 1);
+  const unsigned wins =
+      (__ballot_sync(mask, mine && active[b] && total < m) >> base) & (mask >> base);
+  const int win = wins != 0u ? __ffs(wins) - 1 : 0;
+  const float best = __shfl_sync(mask, total, win, G);
+  if (a == 0) {
+    cost_out[b] = wins != 0u ? best : m;
+    accept_out[b] = wins != 0u;
+  }
+  if (wins == 0u || a != win) return;
+
+  // Phase 2: the winner re-rolls its candidate, writing the stage layout in
+  // place.
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xstart[i];
+  for (int t = 0; t < T; ++t) {
+    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
+    float u[NU], xn[NX];
+    feedback_control<NX, NU>(x, xr, ur, kt, Kt, alpha, bounded ? lb : nullptr, ub, u);
+    rk4_step(dyn, x, u, h, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
 }
 
 // The pointers and scalars of one launch.
@@ -435,8 +593,21 @@ void launch_one(const Args& a, const Dyn& dyn, const Cost& cost, const Term& ter
                                    al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
 }
 
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int G>
+void launch_group(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term,
+                  const Eq& eq, const In& in, const Step& h, const Alphas& al,
+                  cudaStream_t stream) {
+  constexpr int per_block = SELECT_GROUP_BLOCK / G;
+  const int grid = (a.B + per_block - 1) / per_block;
+  forward_select_group_kernel<Dyn, Cost, Term, Eq, In, G><<<grid, SELECT_GROUP_BLOCK, 0, stream>>>(
+      a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out, a.accept_out, a.ctx,
+      a.eq_mult, a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h, al, a.T, a.B,
+      a.n_ctx, a.c_ctx);
+}
+
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
-// init == 0: select mode, candidate registers sized 4 or 16 by n_alphas.
+// init == 0: select mode, candidate registers (the context select: lanes
+// a group) sized 4 or 16 by n_alphas.
 // ctx [T, n_ctx, c_ctx, B] is read only by a Coupled stage cost; eq_mult
 // [T, m_eq, B], ineq_mult [T, m_in, B] and rho [B] only by an AL
 // instantiation (select mode; m_eq = Eq::M and m_in = In::M).
@@ -464,7 +635,22 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
       !eq.ok(Dyn::NX, Dyn::NU) || !in.ok(Dyn::NX, Dyn::NU))
     return bad;
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = (!init && a < al.n) ? alphas[a] : 0.0f;
-  if constexpr (AL) {
+  if constexpr (takes_context<Cost>::value) {
+    // The context select, with or without AL, runs on the group kernel, the
+    // rollout mode on the one-thread kernel.
+    if (init) {
+      if constexpr (AL)
+        return bad;
+      else
+        launch_one<Dyn, Cost, Term, Eq, In, 1, true>(args, dyn, cost, term, eq, in, h, al,
+                                                     stream);
+    } else if (al.n <= 4) {
+      launch_group<Dyn, Cost, Term, Eq, In, 4>(args, dyn, cost, term, eq, in, h, al, stream);
+    } else {
+      launch_group<Dyn, Cost, Term, Eq, In, MAX_ALPHAS>(args, dyn, cost, term, eq, in, h, al,
+                                                        stream);
+    }
+  } else if constexpr (AL) {
     if (init) return bad;
     if (al.n <= 4)
       launch_one<Dyn, Cost, Term, Eq, In, 4, false>(args, dyn, cost, term, eq, in, h, al, stream);

@@ -171,6 +171,28 @@ struct Coupled {
   }
 };
 
+// Lane groups: G consecutive lanes of a warp (G a power of two up to 32)
+// work on one problem.  The group's lanes in a warp-wide mask (the block
+// size a multiple of 32), for the *_sync intrinsics.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G a power of two up to 32");
+  if constexpr (G == 32)
+    return 0xffffffffu;
+  else
+    return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1));
+}
+
+// s summed over the G lanes of a group by a fixed xor tree (offsets G/2 ...
+// 1); every lane ends with the same value, since a + b and b + a round
+// alike.
+template <int G, typename S>
+__device__ __forceinline__ S group_sum(S s, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) s = s + shfl_xor(mask, s, off, G);
+  return s;
+}
+
 template <typename Cost>
 struct takes_context {
   static constexpr bool value = false;

@@ -22,6 +22,9 @@ Stage costs see the integer stage index, as in the TPU kernel.  Both modes
 take an optional per-stage context ``ctx [T, K, C, B]`` (the context mode
 of the select kernel, K6 in the ROADMAP's numbering): the stage cost is
 then ``stage_cost(x, u, t, ctx_t)``, as with the TPU kernel's ``ctx_l``.
+The select mode with a context (with or without AL) launches a lane-group
+kernel, one candidate a lane (``forward_select_group_kernel``), whose
+results are the one-thread kernel's bit for bit.
 
 The select mode also has an AL mode (K6's other half, the TPU kernel's
 ``eq_mult_l`` / ``ineq_mult_l`` / ``rho_l``): with ``rho [B]`` and the
