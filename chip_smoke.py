@@ -24,16 +24,22 @@ Phases, each reported on its own lines:
 
 1. card: ``nvidia-smi``'s name and power limit of the GPU;
 2. build: the kernels' build time and ptxas' register / spill report,
-   with the two lane-group kernels (K6's context select and K3's context
-   mode) named;
+   with the redesigned kernels named (the lane-group kernels of K6's
+   context select and K3's context mode; K2's lane select and its re-roll;
+   K7);
 3. per-kernel checks at B = 8192, T = 80, each output's tolerance printed
    beside its max abs error and max error relative to the output's scale;
+   K2's select also on merits where every rung wins somewhere
+   (rung_inputs, which fails if a rung wins nowhere);
 4. end to end at B = 4096: kernels against the plain versions on the card
    (cost rtol 1e-5, controls atol 2e-4, as tests/test_fused_loop.py);
 5. the main path at B = 262,144: cost median / p99 / max against the
    anchors of docs/BENCHMARKS.md, launch counts K3 = 1, K2 = 1 + iterations,
    K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
-   kernels' times per launch;
+   kernels' times per launch; the redesigned select at the bench ladder
+   a wrapper call (CUDA events around 20 calls) and a launch on the device
+   (a CUDA graph of 20), beside the parent commit's kernel (PARENT_MS),
+   and its output digests, which must be the parent's (PARENT_DIGEST);
 and, run after phase 5 and before 6 and 7, in this order:
 
 8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
@@ -52,7 +58,9 @@ and, run after phase 5 and before 6 and 7, in this order:
    and the median of 5 warm sweeps each;
 12. the new kernels' times per launch and bounds at 262,144 and 524,288
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
-   with and without Hessians; K2 at 10 candidates; K1 with boxqp);
+   with and without Hessians; K2 at 10 candidates; K1 with boxqp); the
+   redesigned select at 10 candidates on both yardsticks, and its
+   digests, beside the parent's;
 13. K3 and K2 in context mode (K6) against their plain versions at
    B = 8192, T = 10, with K = 8 and 63 neighbours, K3 also at B = 64 and
    256 (its 32- and 8-lane instantiations), the select at 10 and 3
@@ -67,7 +75,8 @@ and, run after phase 5 and before 6 and 7, in this order:
    row's shapes, and their share of the wall; the redesigned kernels' ms
    a wrapper call (CUDA events around 20 calls, as every kernel's) and a
    launch on the device (a CUDA graph of 20 launches), each beside the
-   one-thread kernel's time taken the same way, and their bounds;
+   one-thread kernel's time taken the same way, and their bounds; K4's
+   wrapper-call and device ms;
 16. K2's AL mode (K6) against its plain version at B = 8192, T = 80, with
    3 and 10 candidates, one equality and four inequality rows (and the
    four alone), random multipliers and a spread of rho, with the one-ulp
@@ -87,7 +96,7 @@ and, run after phase 5 and before 6 and 7, in this order:
    boxqp, on seeded random stacks with regularized stages), K7 in both
    Jacobian modes, and K3 (with and without Hessians) and K1 in the
    continuous Jacobian mode, against their plain versions at B = 8192,
-   T = 80;
+   T = 80; K7's outputs against K3's, transposed, bit for bit;
 20. the non-fused routes (``fused=False``, ``entry.NONFUSED_ROUTES``: the
    vmapped torch linearizer or K7, then K4 explicit and K2 select) at
    B = 262,144 on phase 5's anchors, per problem against the fused solve
@@ -104,7 +113,8 @@ and, run after phase 5 and before 6 and 7, in this order:
 21. solves/s of each of those routes (median of 5), K4 explicit, K7, K3
    and K1 continuous per launch with their plain ms and bounds, the
    non-fused glue per iteration by part, and the single solve's wall ms
-   in float32 and float64;
+   in float32 and float64; the redesigned K7 in both modes on both
+   yardsticks, and its digests, beside the parent's;
 22. K6 in AL and context mode at once (the game's inequality row, and a
    row on each side) against its plain version at B = 8192, T = 10,
    K = 8 and 63, 3 and 10 candidates; K8 at B = 8192, T = 80 in both
@@ -124,13 +134,15 @@ and, run after phase 5 and before 6 and 7, in this order:
 24. agent-solves/s and wall ms of the constrained game at 64, 256 and
    1,024 cars (median of 5 calls) with K6 AL + context's ms per launch at
    each row's shapes (a wrapper call and on the device, each beside the
-   one-thread kernel's), its plain ms and bound; K8, K9 (A = 3 and 10) and
+   one-thread kernel's), its plain ms and bound, and K4's wrapper-call and
+   device ms; K8, K9 (A = 3 and 10) and
    K10 per launch at B = 262,144, T = 80, with plain ms and bounds;
 6. one JSON line listing every ported kernel (K1-K10, K6's AL mode and
    its AL and context mode, K4's explicit-terminal mode and the continuous
    modes of K1 and K3; K6's context rows and K3's context mode marked
-   "redesigned: lane groups"), printed after them; every row's ``ms`` is
-   a wrapper call's, and the redesigned rows add ``device_ms``;
+   "redesigned: lane groups", K2's and K7's rows with their own "status"),
+   printed after them; every row's ``ms`` is a wrapper call's, and the
+   redesigned rows add ``device_ms``;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
@@ -222,7 +234,7 @@ SELECT_SHARE = 0.995
 GAME_TIMED = 5
 # The one-thread kernels that the lane-group kernels replaced (K6's context
 # select and AL + context select at 10 candidates, K3's context mode with
-# and without Hessians), timed by context_kernel_times.py on the tree of
+# and without Hessians), timed by kernel_times.py on the tree of
 # commit 77c48f4 on ONE_THREAD_CARD, by cars in the game row: (ms a wrapper
 # call, ms a launch on the device), each timed as phases 15 and 24 time the
 # lane-group kernels, the lesser of two runs.
@@ -234,8 +246,34 @@ ONE_THREAD_MS = {64: {"K6_A10": (0.872024, 0.862766), "K6alctx": (0.880573, 0.86
                  1024: {"K6_A10": (0.390069, 0.379416), "K6alctx": (0.401491, 0.389280),
                         "K3ctx_hess": (0.142470, 0.015331), "K3ctx": (0.105434, 0.010158)}}
 # The lane-group kernels (phase 2 names them in its ptxas report).
-REDESIGNED_KERNELS = ("forward_select_group_kernel", "linearize_group_kernel")
 REDESIGNED = "redesigned: lane groups"
+# The main path's redesigned kernels: K2's select without a context or AL
+# (a lane a candidate, the groups packed, and a re-roll launch) and K7
+# (coalesced spans through shared memory).
+REDESIGNED_K2 = "redesigned: a lane a candidate, packed groups, a re-roll launch"
+REDESIGNED_K7 = "redesigned: coalesced spans through shared memory"
+# Each redesigned kernel's name in the ptxas report of phase 2.
+REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
+                      "linearize_group_kernel": REDESIGNED,
+                      "forward_select_lanes_kernel": REDESIGNED_K2,
+                      "forward_select_reroll_kernel": REDESIGNED_K2,
+                      "linearize_flat_kernel": REDESIGNED_K7}
+# The kernels they replaced -- K2's one-thread select at the bench ladder
+# (phase 5's inputs) and the reference ladder (phase 12's), K7 writing each
+# lane's outputs from its thread (phase 21's inputs, both Jacobian modes) --
+# timed by kernel_times.py on the tree of commit 0fb1bda on PARENT_CARD at
+# MAIN_BATCH problems, T = 80: (ms a wrapper call, ms a launch on the
+# device), as redesigned_rows times the new ones, the lesser of two runs.
+# Phases 5, 12 and 21 log them beside this run's times.
+PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PARENT_MS = {"K2_A3": (1.921546, 1.902546), "K2_A10": (10.822089, 10.806704),
+             "K7": (12.425006, 12.402895), "K7_continuous": (12.716064, 12.693403)}
+# The digests of the same kernels' outputs on redesigned_calls' inputs
+# (K2: the timed inputs, then rung_inputs'), from the same runs: the
+# redesigned kernels must give them bit for bit.
+PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
+                 "K2_A10": ("44e13541c3755be7", "7cf3af587ccf2b51"),
+                 "K7": ("3beca312f2baa603",), "K7_continuous": ("7a8570c6848fa32f",)}
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -414,6 +452,160 @@ def graph_ms(fns, restore=lambda: None, reps=3):
     return float(np.median(times))
 
 
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order (a bit-for-bit fingerprint)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        flat = t.detach().contiguous().view(-1)
+        for i in range(0, flat.numel(), 1 << 26):
+            h.update(flat[i:i + (1 << 26)].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rung_inputs(spec, xs, us, k, K, lb, ub, ladder, seed, poison=False):
+    """Select inputs on which every rung of ``ladder`` wins somewhere, so
+    that a check covers every lane of a packed group.  Problem b draws a
+    rung r_b; its feedforward gains are scaled by 1 / alpha_{r_b}, so that
+    rung r_b takes the gains' own step and the larger alphas overshoot, and
+    its merit is set 0.1% above rung r_b's total (the plain version's).  A
+    tenth of the problems are frozen at random, and so are those with a
+    rung's total within 1e-5 of their merit, where the kernel's and the
+    plain version's last ulps could part.  With ``poison`` five sets of
+    B // 1000 live problems get a NaN x_0 (NaN totals), an x_0 of 1e30
+    (infinite totals), or a merit of +inf, -inf or NaN.  Logs how many
+    problems each rung wins and fails unless every rung wins on some
+    problem.  Returns ``(xs, k, merit, active)``, xs and k new tensors."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    B, A = xs.shape[-1], len(ladder)
+    rng = np.random.RandomState(seed)
+    dev = xs.device
+    rung = rng.randint(0, A, B)
+    alphas = torch.tensor([ladder[r] for r in rung], dtype=torch.float32, device=dev)
+    k = (k / alphas).contiguous()
+    xs = xs.clone()
+    inf = torch.full((B,), float("inf"), device=dev)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    lbT, ubT = lb.T.contiguous(), ub.T.contiguous()
+    totals = torch.stack([k2._score(spec, xs, us, k, K, inf, live, lbT, ubT, (alpha,), None,
+                                    None, None, None, 0.0)[1] for alpha in ladder])
+    merit = totals[torch.as_tensor(rung, device=dev), torch.arange(B, device=dev)] * 1.001
+    edge = ((totals - merit).abs() <= 1e-5 * merit.abs()).any(0)
+    active = torch.as_tensor(rng.uniform(size=B) >= 0.1, device=dev) & ~edge
+    wins = torch.where((totals < merit) & active, 1, 0).cumsum(0) == 1
+    wins &= (totals < merit) & active
+    counts = wins.sum(1).tolist()
+    log(f"  rungs won, alpha {', '.join(f'{a:g}' for a in ladder)}: {counts} of {B} "
+        f"({int((~active).sum())} frozen, {int(edge.sum())} of them within 1e-5 of the merit)")
+    if min(counts) == 0:
+        fail(f"a rung of the {A}-rung ladder wins on no problem: the lanes beyond it go unchecked")
+    if poison:
+        m = max(1, B // 1000)
+        sets = torch.as_tensor(rng.choice(B, 5 * m, replace=False), device=dev).view(5, m)
+        active[sets.view(-1)] = True
+        xs[0, 0, sets[0]] = float("nan")
+        xs[0, 0, sets[1]] = 1e30
+        for i, v in enumerate((float("inf"), float("-inf"), float("nan"))):
+            merit[sets[2 + i]] = v
+    return xs, k, merit, active
+
+
+def time_calls(calls, restore=lambda: None):
+    """``(ms a wrapper call, ms a launch on the device)`` of the callables
+    ``calls``: CUDA events around them back to back (event_ms), and a CUDA
+    graph of them (graph_ms), ``restore()`` run before each."""
+    restore()
+    ms = event_ms(calls)
+    return ms, graph_ms(calls, restore)
+
+
+def redesigned_calls(spec, B, rows, reps=20):
+    """The main path's redesigned kernels at B problems, T = T, as ``(row,
+    calls, restore, digests)`` one row at a time: ``reps`` wrapper calls,
+    the function that resets the buffers they update in place, and the
+    digests of one call's outputs.  Rows: "K2_A3" (the select at the bench
+    ladder on phase 5's inputs: gains from K1), "K2_A10" (the reference's
+    10-rung ladder on phase 12's: gains from K4 on K3's whole-horizon
+    stacks), "K7" and "K7_continuous" (phase 21's: the first rollout,
+    batch-first).  The inputs are iteration-1 inputs of the main path (zero
+    controls); the select works in place, so each call gets its own
+    buffers.  A K2 row has a second digest, of a call on rung_inputs' (every
+    rung wins somewhere; frozen problems; NaN and infinite totals and
+    merits)."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    x0, us0, lb, ub, _ = main_path_inputs(spec, B, seed=2)
+    us0.zero_()                                   # the main path's warm start
+    active = torch.ones(B, dtype=torch.bool, device=x0.device)
+    levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor, BENCH_CONFIG.reg_levels)
+    xs_tail, cost = k2.rollout_cost(spec, x0, us0)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    xT = xs_tail[-1].clone()
+    for row in rows:
+        if row.startswith("K2"):
+            if row == "K2_A3":
+                ladder = BENCH_CONFIG.alpha_ladder
+                hess = [h[0] for h in k3.linearize(spec, x0[None].contiguous(),
+                                                   us0[:1].contiguous(), True)[4:]]
+                k, K = k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels)
+            else:
+                ladder = _alpha_ladder_floats(BENCH_CONFIG.alpha_min)
+                k, K = k1.riccati_backward(spec, *k3.linearize(spec, xs, us0, True), xT, levels)
+            xs_r, k_r, merit_r, active_r = rung_inputs(spec, xs, us0, k, K, lb, ub, ladder,
+                                                       seed=len(ladder), poison=True)
+            bufs = [xs_r, us0.clone(), xT.clone()]
+            out = k2.forward_select(spec, *bufs, k_r, K, merit_r, active_r, lb, ub, ladder)
+            digests = [digest(bufs + list(out))]
+            del xs_r, k_r, bufs, out
+            bufs = [[xs.clone(), us0.clone(), xT.clone()] for _ in range(reps)]
+            calls = [lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, lb, ub, ladder)
+                     for b in bufs]
+
+            def restore():
+                for b in bufs:
+                    for buf, src in zip(b, (xs, us0, xT)):
+                        buf.copy_(src)
+            restore()
+            digests.insert(0, digest(bufs[0] + list(calls[0]())))
+            yield row, calls, restore, tuple(digests)
+            del bufs, calls
+        else:
+            xs_bf = torch.cat([xs, xT[None]], 0).permute(2, 0, 1).contiguous()
+            us_bf = us0.permute(2, 0, 1).contiguous()
+            disc = row == "K7"
+            call = lambda: k3.linearize_pallas(spec, xs_bf, us_bf, disc)
+            yield row, [call] * reps, lambda: None, (digest(call()),)
+            del xs_bf, us_bf
+        torch.cuda.empty_cache()
+
+
+def redesigned_rows(spec, B, rows):
+    """``{row: (ms a wrapper call, ms a launch on the device, digests)}`` of
+    redesigned_calls' rows, each timed by time_calls."""
+    return {row: time_calls(calls, restore) + (digests,)
+            for row, calls, restore, digests in redesigned_calls(spec, B, rows)}
+
+
+def against_parent(rows, phase):
+    """Log each redesigned row beside the parent's (PARENT_MS), wrapper call
+    against wrapper call and device against device, and fail unless its
+    output digests are the parent's (PARENT_DIGEST)."""
+    for row, (ms, device, digests) in rows.items():
+        was = PARENT_MS[row]
+        same = tuple(digests) == PARENT_DIGEST[row]
+        verdict = "the parent's" if same else "NOT the parent's"
+        log(f"  {row}: {ms:.6f} ms a wrapper call, {device:.6f} ms a launch on the device "
+            f"(CUDA graph); the parent's {was[0]:.6f} / {was[1]:.6f} ms ({was[0] / ms:.2f}x / "
+            f"{was[1] / device:.2f}x; on {PARENT_CARD}); output digests {' '.join(digests)}: "
+            f"{verdict}")
+        if not same:
+            fail(f"the redesigned {row} does not give the parent's outputs bit for bit "
+                 f"(phase {phase})")
+
+
 def main_path_inputs(spec, B, seed):
     """Realistic inputs of every kernel at the main path's shapes: the
     bench x0 batch with controls drawn uniformly inside the bounds."""
@@ -467,24 +659,28 @@ def check_kernels(spec):
     record("K1", [compare("K1 k", k_k, k_p, 1e-4, 1e-5),
                   compare("K1 K", K_k, K_p, 1e-4, 1e-5)])
 
-    # The bench ladder (3 candidate registers), and the reference's full
-    # 10-rung ladder (16) that configs without alpha_ladder run.
+    # The bench ladder (3 candidates), and the reference's full 10-rung
+    # ladder that configs without alpha_ladder run; each on the rollout's
+    # merit and on rung_inputs', where every rung wins somewhere.
     for ladder in (BENCH_CONFIG.alpha_ladder, _alpha_ladder_floats(BENCH_CONFIG.alpha_min)):
-        outs = {}
-        for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
-            bufs = [xs.clone(), us.clone(), xT.clone()]
-            merit, accept = fn(spec, *bufs, k_p, K_p, cost_p, active, lb, ub, ladder)
-            outs[name] = bufs + [merit, accept]
-        kx, ku, kT, km, ka = outs["kernel"]
-        px, pu, pT, pm, pa = outs["plain"]
-        n_diff = int((ka != pa).sum())
-        tag = f"K2 select A={len(ladder)}"
-        log(f"  {tag} accept {int(ka.sum())} of {B} accepted, {n_diff} differ")
-        record("K2", [compare(f"{tag} xs", kx, px, 1e-4, 1e-4),
-                      compare(f"{tag} us", ku, pu, 1e-4, 1e-4),
-                      compare(f"{tag} xT", kT, pT, 1e-4, 1e-4),
-                      compare(f"{tag} merit", km, pm, 1e-5, 0.0),
-                      (n_diff == 0, 0.0, 0.0)])
+        cases = (("", xs, k_p, cost_p, active),
+                 (" rungs",) + rung_inputs(spec, xs, us, k_p, K_p, lb, ub, ladder, len(ladder)))
+        for case, xs_c, k_c, merit_c, active_c in cases:
+            outs = {}
+            for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
+                bufs = [xs_c.clone(), us.clone(), xT.clone()]
+                merit, accept = fn(spec, *bufs, k_c, K_p, merit_c, active_c, lb, ub, ladder)
+                outs[name] = bufs + [merit, accept]
+            kx, ku, kT, km, ka = outs["kernel"]
+            px, pu, pT, pm, pa = outs["plain"]
+            n_diff = int((ka != pa).sum())
+            tag = f"K2 select A={len(ladder)}{case}"
+            log(f"  {tag} accept {int(ka.sum())} of {B} accepted, {n_diff} differ")
+            record("K2", [compare(f"{tag} xs", kx, px, 1e-4, 1e-4),
+                          compare(f"{tag} us", ku, pu, 1e-4, 1e-4),
+                          compare(f"{tag} xT", kT, pT, 1e-4, 1e-4),
+                          compare(f"{tag} merit", km, pm, 1e-5, 0.0),
+                          (n_diff == 0, 0.0, 0.0)])
     torch.cuda.synchronize()
     if not ok:
         fail("a kernel disagrees with its plain version (phase 3)")
@@ -1522,6 +1718,7 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
     device = {
         "K3ctx_hess": graph_ms([lambda: k3.linearize(spec, xs, us, True, ctx)] * reps),
         "K3ctx": graph_ms([lambda: k3.linearize(spec, xs, us, False, ctx)] * reps),
+        "K4": graph_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
         "K6_A10": graph_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, cost, active, lb, ub,
                                                           ladder, ctx) for b in sel_bufs],
                            restore),
@@ -1604,9 +1801,12 @@ def time_games(entry, card):
         rate = agents * entry.MAX_OUTER / wall
         kms, plain, bound, device = time_game_kernels(entry, agents, neighbors,
                                                       with_plain=(agents == 64))
-        for name in device:
-            against_one_thread(agents, neighbors or agents - 1, name, kms[name], device[name],
-                               bound[name])
+        for name in ONE_THREAD_MS[agents]:
+            if name in device:
+                against_one_thread(agents, neighbors or agents - 1, name, kms[name], device[name],
+                                   bound[name])
+        log(f"  {agents} cars: K4 {kms['K4']:.6f} ms a wrapper call, {device['K4']:.6f} ms a "
+            f"launch on the device (CUDA graph); bound {bound['K4'][0]:.6f} ms ({bound['K4'][1]})")
         # One K6 rollout a sweep, the other K6 launches select.
         in_kernels = (entry.MAX_OUTER * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
                       + launches["K4"] * kms["K4"]
@@ -1614,14 +1814,15 @@ def time_games(entry, card):
         # ... with the redesigned kernels' device time in place of a wrapper
         # call's.
         on_device = in_kernels + (launches["K3ctx"] * (device["K3ctx_hess"] - kms["K3ctx_hess"])
+                                  + launches["K4"] * (device["K4"] - kms["K4"])
                                   + (launches["K6"] - entry.MAX_OUTER)
                                   * (device["K6_A10"] - kms["K6_A10"]))
         log(f"[15] {agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}: "
             f"wall {[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, "
             f"{rate:.1f} agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call "
             f"{launches}; kernel time per call {in_kernels:.3f} ms (launches x ms per launch), "
-            f"{100 * in_kernels / (wall * 1e3):.1f}% of the wall; with the redesigned kernels' "
-            f"device times {on_device:.3f} ms, {100 * on_device / (wall * 1e3):.1f}%; card {card}")
+            f"{100 * in_kernels / (wall * 1e3):.1f}% of the wall; with the redesigned kernels' and "
+            f"K4's device times {on_device:.3f} ms, {100 * on_device / (wall * 1e3):.1f}%; card {card}")
         rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
                                      "launches": launches, "ms": kms, "plain": plain,
                                      "bound": bound, "kernel_ms": in_kernels,
@@ -1714,6 +1915,13 @@ def check_nonfused_kernels(spec):
         outs_p = k3.linearize_pallas_plain(spec, xs_bf, us_bf, disc)
         record("K7", [compare(f"K7 {mode} {n}", a, b, 1e-5, 1e-5)
                       for n, a, b in zip(names, outs_k, outs_p)])
+        # K7 runs K3's device functions on the same floats: its outputs are
+        # K3's, transposed to batch-first, bit for bit.
+        lin3 = k3.linearize(spec, xs, us, True, None, disc)
+        same = all(torch.equal(a.view(torch.int32), b.movedim(-1, 0).contiguous().view(torch.int32))
+                   for a, b in zip(outs_k, lin3))
+        log(f"  K7 {mode} against K3 transposed: {'bit for bit' if same else 'DIFFERENT'}")
+        record("K7", [(same, 0.0, 0.0)])
     torch.cuda.synchronize()
     if not ok:
         fail("a kernel disagrees with its plain version (phase 19)")
@@ -2427,7 +2635,8 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
     xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
     xT = xs_tail[-1].clone()
     lin = k3.linearize(spec, xs, us, True, ctx)
-    k, K_ = k1.riccati_backward(spec, *lin, xT, k1.reg_ladder(1e-6, 10.0, 16))
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    k, K_ = k1.riccati_backward(spec, *lin, xT, levels)
     ineq_mult = torch.zeros((T_SWEEP, 1, B), device=DEVICE)
     rho = torch.full((B,), config.penalty, device=DEVICE)
     act_tol = config.inequality_activation_tolerance
@@ -2448,6 +2657,8 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
                 buf.copy_(src)
     device = graph_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, merit, active, lb, ub,
                                                      ladder, *al) for b in bufs], restore)
+    k4 = (event_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
+          graph_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps))
     plain = None
     if with_plain:
         b = fresh()
@@ -2462,8 +2673,9 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
     log(f"  {agents} cars, K={K}: K6 AL+ctx (A={A}) {ms:.6f} ms a wrapper call, "
         f"{device:.6f} ms a launch on the device (CUDA graph); plain "
         f"{'-' if plain is None else f'{plain:.6f}'} "
-        f"ms, bound {bound[0]:.6f} ms ({bound[1]}); accepted {n_acc} of {B}")
-    return ms, plain, bound, device
+        f"ms, bound {bound[0]:.6f} ms ({bound[1]}); accepted {n_acc} of {B}; K4 {k4[0]:.6f} ms "
+        f"a wrapper call, {k4[1]:.6f} ms a launch on the device (CUDA graph)")
+    return ms, plain, bound, device, k4
 
 
 def time_constrained(entry, ilqr, card):
@@ -2492,8 +2704,8 @@ def time_constrained(entry, ilqr, card):
                 launches = read_counts(stats)
         wall = float(np.median(times))
         rate = agents * entry.MAX_OUTER / wall
-        ms, plain, bound, device = time_al_context_kernel(entry, ilqr, agents, neighbors,
-                                                          agents == 64)
+        ms, plain, bound, device, k4 = time_al_context_kernel(entry, ilqr, agents, neighbors,
+                                                              agents == 64)
         against_one_thread(agents, neighbors or agents - 1, "K6alctx", ms, device, bound)
         log(f"[24] constrained {agents} cars, "
             f"{'all pairs' if neighbors is None else f'{neighbors} nearest'}: wall "
@@ -2504,7 +2716,7 @@ def time_constrained(entry, ilqr, card):
             f"= {launches['K6alctx'] * device:.3f} ms on the device); card {card}")
         rows[(agents, neighbors)] = {"wall_ms": wall * 1e3, "agent_solves_per_s": rate,
                                      "launches": launches, "ms": ms, "plain": plain,
-                                     "bound": bound, "device_ms": device}
+                                     "bound": bound, "device_ms": device, "K4": k4}
     return rows
 
 
@@ -2672,6 +2884,18 @@ def lane_kernel_entries(errs, cgames, crows, lane_timing, by_path):
                      bound_ms_A10=bound["K9_A10"][0])
         out.append(e)
     return out
+
+
+def redesigned_entry(rows, row, second, status):
+    """The JSON line's keys of a redesigned main-path kernel: its status,
+    and its wrapper-call and device ms and output digests (redesigned_rows)
+    for ``row`` and ``second``."""
+    e = {"status": status}
+    for r, tag in ((row, ""), (second, "_" + second.split("_", 1)[1])):
+        ms, device, digests = rows[r]
+        e.update({f"ms_20_calls{tag}": ms, f"device_ms{tag}": device,
+                  f"digests{tag}": list(digests)})
+    return e
 
 
 def reset_counts(stats):
@@ -2881,8 +3105,10 @@ def main() -> None:
         for line in build_log.read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
-            elif "Compiling entry function" in line and any(n in line for n in REDESIGNED_KERNELS):
-                log(f"  {REDESIGNED}: " + line.strip())
+            elif "Compiling entry function" in line:
+                for name, label in REDESIGNED_KERNELS.items():
+                    if name in line:
+                        log(f"  {label}: " + line.strip())
 
     spec = entry.single_track_spec(device=DEVICE)
     # K6 and K3ctx: the context-mode launches of K2 and K3 (counted apart).
@@ -2899,6 +3125,9 @@ def main() -> None:
     timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
     log(f"  card {card}: {rates[MAIN_BATCH]:.1f} solves/s at {MAIN_BATCH}, "
         f"{rates[BENCH_BATCH]:.1f} solves/s at {BENCH_BATCH}")
+    log(f"[5] the redesigned select at A = 3 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3",))
+    against_parent(redesigned, 5)
     for B in (MAIN_BATCH, BENCH_BATCH):
         kms = timing[B][0]
         in_kernels = (launches["K1"] * kms["K1"] + (launches["K2"] - 1) * kms["K2"]
@@ -2918,6 +3147,10 @@ def main() -> None:
     log(f"[12] new kernel modes per launch, T={T}")
     new_timing = {B: time_new_kernels(spec, B, with_plain=(B == MAIN_BATCH))
                   for B in (MAIN_BATCH, BENCH_BATCH)}
+    log(f"[12] the redesigned select at A = 10 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10",))
+    against_parent(rows, 12)
+    redesigned.update(rows)
     # Kernel time per solve of each branch at MAIN_BATCH from the per-launch
     # times of phases 5c and 12: the rollout, the Hessian hoist, and per
     # iteration the branch's kernels and K2 select.
@@ -2964,6 +3197,10 @@ def main() -> None:
     nf_paths = nonfused_routes(ilqr, entry, stats)
     t21 = time.perf_counter()
     nf_timing = time_nonfused(ilqr, entry, card)
+    log(f"[21] the redesigned K7 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    rows = redesigned_rows(spec, MAIN_BATCH, ("K7", "K7_continuous"))
+    against_parent(rows, 21)
+    redesigned.update(rows)
     log(f"  phases 19 / 20 / 21: {t20 - t19:.1f} / {t21 - t20:.1f} / "
         f"{time.perf_counter() - t21:.1f} s")
     log(f"  card {card}: " + "; ".join(f"{n} {v['solves_per_s']:.1f} solves/s at {v['batch']}"
@@ -3011,6 +3248,9 @@ def main() -> None:
                           bound_ms_boxqp=nbound["K1_boxqp"][0],
                           ms_boxqp_at_524288=nms_big["K1_boxqp"])
         if key == "K2":
+            # The select without a context, redesigned: both yardsticks and
+            # the output digests at the bench ladder and the reference one.
+            entry_.update(redesigned_entry(redesigned, "K2_A3", "K2_A10", REDESIGNED_K2))
             entry_["ms_rollout_mode"] = ms["K2_rollout"]
             entry_["ms_rollout_mode_at_524288"] = ms_big["K2_rollout"]
             entry_.update(ms_select_A10=nms["K2_A10"], plain_ms_select_A10=nplain["K2_A10"],
@@ -3069,7 +3309,8 @@ def main() -> None:
     }
     for (n, k), row in game_rows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
-        k4.update({f"ms_{tag}": row["ms"]["K4"], f"bound_ms_{tag}": row["bound"]["K4"][0]})
+        k4.update({f"ms_{tag}": row["ms"]["K4"], f"device_ms_{tag}": row["device_ms"]["K4"],
+                   f"bound_ms_{tag}": row["bound"]["K4"][0]})
     main_game = game_rows[(64, None)]
     k6 = {
         "name": "K6 forward_select, context mode", "route": "cuda",
@@ -3110,7 +3351,13 @@ def main() -> None:
         "al_glue_ms_per_iteration": al_time["glue_ms"], "al_glue_ms_by_part": al_time["glue_parts"],
     }
     kernels += [k4, k5, k6, k6al]
+    for (n, kk), row in crows.items():
+        tag = f"{n}_cars_{'all_pairs' if kk is None else f'{kk}nn'}"
+        k4.update({f"ms_constrained_{tag}": row["K4"][0],
+                   f"device_ms_constrained_{tag}": row["K4"][1]})
     kernels += nonfused_kernel_entries(errs, nf_paths, nf_timing, by_path)
+    next(e for e in kernels if e["name"].startswith("K7")).update(
+        redesigned_entry(redesigned, "K7", "K7_continuous", REDESIGNED_K7))
     kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

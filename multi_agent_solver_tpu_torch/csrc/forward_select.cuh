@@ -86,11 +86,26 @@
 // rollouts per problem (12 sin/cos/tan a step) and the reads of the
 // reference and the gains in both phases (T (NX + 2 NU + NU NX) 4 bytes a
 // phase; the AL mode adds T (M_EQ + M_IN) 4 bytes of multipliers to phase
-// 1 and about 10 operations a row per candidate and stage).  Design (every
-// mode but the context select, above): one thread per problem with the A <= 16 candidate states and costs in
-// registers (the TPU kernel's VMEM scratch), the t loop inside the thread,
-// coalesced batch-innermost loads; phase 2 runs only where a candidate was
-// accepted.
+// 1 and about 10 operations a row per candidate and stage).  Designs:
+// * the select without a context or AL (the main path's, the sweep's, the
+//   non-fused path's), forward_select_lanes_kernel: a lane a candidate, the
+//   A lanes of a problem packed side by side in a warp, selection by a
+//   ballot, and phase 2 in a second launch, forward_select_reroll_kernel, a
+//   thread an accepted problem.  At 262,144 problems and T = 80 phase 1 is
+//   bound by its issue slots (the candidates' arithmetic on 30 of 32 lanes
+//   at A = 10) and phase 2 by its bytes: it reads the reference and the
+//   gains again and writes the trajectory.  The one-thread kernel it
+//   replaced kept A <= 16 candidates in registers and spilled at A > 4;
+// * the context select (above): forward_select_group_kernel;
+// * the rollout, the AL select and the emit mode: one thread per problem
+//   with the A <= 16 candidate states and costs in registers (the TPU
+//   kernel's VMEM scratch), the t loop inside the thread, coalesced
+//   batch-innermost loads; phase 2 runs only where a candidate was
+//   accepted.
+// Every kernel runs a candidate's stage through one device function,
+// candidate_step, and the in-place re-roll through reroll_in_place, so a
+// candidate's arithmetic and its order are the same in all of them and the
+// outputs the same floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,20 +139,29 @@ __device__ __forceinline__ void feedback_control(
   }
 }
 
-// Stage t's reference (x_t, u_t), feedforward k_t and gain K_t of problem b.
+// Stage t's reference (x_t, u_t), feedforward k_t and gain K_t of a problem.
 template <int NX, int NU>
+struct StageRef {
+  float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
+};
+
+// Stage t's StageRef of problem b; the rollout mode reads u_t alone.
+template <int NX, int NU, bool INIT = false>
 __device__ __forceinline__ void load_stage(const float* xs, const float* us, const float* k,
-                                           const float* K, int t, size_t sB, int b, float* xr,
-                                           float* ur, float* kt, float (&Kt)[NU][NX]) {
+                                           const float* K, int t, size_t sB, int b,
+                                           StageRef<NX, NU>& s) {
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
+  for (int i = 0; i < NU; ++i) s.ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
+  if constexpr (!INIT) {
 #pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
-    kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
+    for (int i = 0; i < NX; ++i) s.xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
 #pragma unroll
-    for (int j = 0; j < NX; ++j)
-      Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
+    for (int i = 0; i < NU; ++i) {
+      s.kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+        s.Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
+    }
   }
 }
 
@@ -154,22 +178,6 @@ __device__ __forceinline__ void init_control(const float* x, const float* x0, co
   for (int j = 1; j < NX; ++j) s = s + 0.0f * (x[j] - x0[j]);
 #pragma unroll
   for (int i = 0; i < NU; ++i) u[i] = ur[i] + s;
-}
-
-// One candidate's RK4 step from xa; in rollout mode the new state is also
-// stage t's output.
-template <typename Dyn, bool INIT>
-__device__ __forceinline__ void advance(const Dyn& dyn, float* xa, const float* u, const Step& h,
-                                        float* xs, int t, size_t sB, int b) {
-  constexpr int NX = Dyn::NX;
-  float xn[NX];
-  rk4_step(dyn, xa, u, h, xn);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xa[i] = xn[i];
-  if constexpr (INIT) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
-  }
 }
 
 // The AL merit terms of one candidate at (x, u), given the stage's
@@ -196,6 +204,87 @@ __device__ __forceinline__ float al_terms(const Eq& eq, const In& in, const floa
     }
   }
   return total;
+}
+
+// The AL inputs of one stage of a problem: the stage's multipliers (shared
+// by the candidates), 0.5 rho and the activation tolerance.  Unread without
+// constraint rows.
+template <int MEQ, int MIN>
+struct AlStage {
+  float lam_eq[MEQ > 0 ? MEQ : 1], lam_in[MIN > 0 ? MIN : 1];
+  float half_rho = 0.0f, act_tol = 0.0f;
+};
+
+template <int MEQ, int MIN>
+__device__ __forceinline__ void load_multipliers(const float* eq_mult, const float* ineq_mult,
+                                                 int t, size_t sB, int b, AlStage<MEQ, MIN>& al) {
+#pragma unroll
+  for (int m = 0; m < MEQ; ++m) al.lam_eq[m] = eq_mult[(static_cast<size_t>(t) * MEQ + m) * sB + b];
+#pragma unroll
+  for (int m = 0; m < MIN; ++m)
+    al.lam_in[m] = ineq_mult[(static_cast<size_t>(t) * MIN + m) * sB + b];
+}
+
+// One candidate's stage step, the arithmetic every select kernel runs for a
+// candidate: its control at x (the rollout mode: init_control from x_0;
+// otherwise the feedback control at alpha), its step cost at (x, u) -- the
+// stage cost (a context cost: base + ps, the pair costs that the caller
+// sums over the neighbours in its own layout) plus, in the AL mode, the AL
+// terms, stage first -- and x advanced in place by one RK4 step.  Returns
+// the step cost.
+template <bool INIT, typename Dyn, typename Cost, typename Eq, typename In>
+__device__ __forceinline__ float candidate_step(
+    const Dyn& dyn, const Cost& cost, const Eq& eq, const In& in, const Step& h,
+    const StageRef<Dyn::NX, Dyn::NU>& s, const AlStage<Eq::M, In::M>& al, const float* x0,
+    float alpha, const float* lb, const float* ub, float ps, float* x) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  float u[NU];
+  if constexpr (INIT)
+    init_control<NX, NU>(x, x0, s.ur, u);
+  else
+    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, alpha, lb, ub, u);
+  float step;
+  if constexpr (takes_context<Cost>::value)
+    step = cost.base(x, u) + ps;
+  else
+    step = cost(x, u);
+  if constexpr (Eq::M + In::M > 0)
+    step = step + al_terms<NX, NU>(eq, in, x, u, al.lam_eq, al.lam_in, al.half_rho, al.act_tol);
+  float xn[NX];
+  rk4_step(dyn, x, u, h, xn);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  return step;
+}
+
+// Phase 2 of the select mode for problem b: the feedback rollout at the
+// selected alpha from its x_0, writing x_0..x_{T-1}, u and x_T in place
+// over the reference.  Each stage is read before it is overwritten, and
+// only this thread touches problem b's column.
+template <typename Dyn>
+__device__ __forceinline__ void reroll_in_place(const Dyn& dyn, const Step& h, float* xs,
+                                                float* us, float* xT, const float* k,
+                                                const float* K, const float* lb, const float* ub,
+                                                float sel, int T, size_t sB, int b) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  float x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
+  for (int t = 0; t < T; ++t) {
+    StageRef<NX, NU> s;
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    float u[NU], xn[NX];
+    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, lb, ub, u);
+    rk4_step(dyn, x, u, h, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
 }
 
 // The emit mode's outputs: the new trajectory x_1..x_T [T, NX, B], the
@@ -262,8 +351,11 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
   const int A = INIT ? 1 : alphas.n;
-  float half_rho = 0.0f;
-  if constexpr (AL) half_rho = 0.5f * rho[b];
+  AlStage<Eq::M, In::M> al;
+  if constexpr (AL) {
+    al.half_rho = 0.5f * rho[b];
+    al.act_tol = act_tol;
+  }
 
   float lb[NU], ub[NU];
   const bool bounded = !INIT && lb_in != nullptr;
@@ -288,45 +380,16 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     for (int i = 0; i < NX; ++i) xa[a][i] = xstart[i];
   }
   for (int t = 0; t < T; ++t) {
-    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
+    StageRef<NX, NU> s;
+    load_stage<NX, NU, INIT>(xs, us, k, K, t, sB, b, s);
+    load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
+    // A context cost's pair sums, neighbour by neighbour (one read of each
+    // for all the candidates).
+    float ps[MAXA];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
-    if constexpr (!INIT) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
-#pragma unroll
-        for (int j = 0; j < NX; ++j)
-          Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
-      }
-    }
-    // The stage's multipliers, shared by the candidates.
-    float lam_eq[Eq::M > 0 ? Eq::M : 1], lam_in[In::M > 0 ? In::M : 1];
-#pragma unroll
-    for (int m = 0; m < Eq::M; ++m)
-      lam_eq[m] = eq_mult[(static_cast<size_t>(t) * Eq::M + m) * sB + b];
-#pragma unroll
-    for (int m = 0; m < In::M; ++m)
-      lam_in[m] = ineq_mult[(static_cast<size_t>(t) * In::M + m) * sB + b];
+    for (int a = 0; a < MAXA; ++a) ps[a] = 0.0f;
     if constexpr (takes_context<Cost>::value) {
-      // Every candidate's control, then the pair costs neighbour by
-      // neighbour (one read of each), then base + pairs (+ the AL terms)
-      // and the step.
       const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
-      float ua[MAXA][NU], ps[MAXA];
-#pragma unroll
-      for (int a = 0; a < MAXA; ++a) {
-        if (a >= A) break;
-        if constexpr (INIT) {
-          init_control<NX, NU>(xa[a], xstart, ur, ua[a]);
-        } else {
-          feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
-                                   bounded ? lb : nullptr, ub, ua[a]);
-        }
-        ps[a] = 0.0f;
-      }
 #pragma unroll 1
       for (int j = 0; j < cv.K; ++j) {
         float xj[Cost::PairT::NCTX];
@@ -337,34 +400,15 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
           ps[a] = ps[a] + cost.pair(xa[a], xj);
         }
       }
+    }
 #pragma unroll
-      for (int a = 0; a < MAXA; ++a) {
-        if (a >= A) break;
-        float step = cost.base(xa[a], ua[a]) + ps[a];
-        if constexpr (AL)
-          step = step + al_terms<NX, NU>(eq, in, xa[a], ua[a], lam_eq, lam_in, half_rho, act_tol);
-        ca[a] = ca[a] + step;
-        advance<Dyn, INIT>(dyn, xa[a], ua[a], h, xs, t, sB, b);
-      }
-    } else {
+    for (int a = 0; a < MAXA; ++a) {
+      if (a >= A) break;
+      ca[a] = ca[a] + candidate_step<INIT>(dyn, cost, eq, in, h, s, al, xstart, alphas.v[a],
+                                           bounded ? lb : nullptr, ub, ps[a], xa[a]);
+      if constexpr (INIT) {
 #pragma unroll
-      for (int a = 0; a < MAXA; ++a) {
-        if (a >= A) break;
-        float u[NU];
-        if constexpr (INIT) {
-          init_control<NX, NU>(xa[a], xstart, ur, u);
-        } else {
-          feedback_control<NX, NU>(xa[a], xr, ur, kt, Kt, alphas.v[a],
-                                   bounded ? lb : nullptr, ub, u);
-        }
-        if constexpr (AL) {
-          const float step = cost(xa[a], u) + al_terms<NX, NU>(eq, in, xa[a], u, lam_eq, lam_in,
-                                                               half_rho, act_tol);
-          ca[a] = ca[a] + step;
-        } else {
-          ca[a] = ca[a] + cost(xa[a], u);
-        }
-        advance<Dyn, INIT>(dyn, xa[a], u, h, xs, t, sB, b);
+        for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xa[a][i];
       }
     }
   }
@@ -391,39 +435,31 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
     }
     cost_out[b] = best;
     accept_out[b] = found;
-    if (!EMIT && !found) return;
+    if constexpr (!EMIT) {
+      if (found)
+        reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, sel, T, sB, b);
+      return;
+    }
 
-    // Phase 2: re-roll the winner, writing the stage layout in place (emit
-    // mode: x_1..x_T, the controls and the linearization into fresh
-    // buffers, for every problem).
+    // The emit mode's phase 2: re-roll every problem, writing x_1..x_T,
+    // the controls and the linearization into fresh buffers.
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xstart[i];
     for (int t = 0; t < T; ++t) {
-      float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
-      load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
+      StageRef<NX, NU> s;
+      load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
       float u[NU], xn[NX];
-      feedback_control<NX, NU>(x, xr, ur, kt, Kt, sel, bounded ? lb : nullptr, ub, u);
+      feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, bounded ? lb : nullptr, ub, u);
       rk4_step(dyn, x, u, h, xn);
-      if constexpr (EMIT) {
 #pragma unroll
-        for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
+      for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
 #pragma unroll
-        for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
-        emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
-                                         ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
-      } else {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
-      }
+      for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+      emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
+                                       ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
-    }
-    if constexpr (!EMIT) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
     }
   }
 }
@@ -431,8 +467,8 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 // K6's context select: the select mode of a Coupled stage cost, with or
 // without AL, for a group of G lanes per problem, lane a running candidate
 // a (G = 4 or 16, as the one-thread kernel's MAXA; lanes a >= A run alpha 0
-// and never win).  A lane's arithmetic is that kernel's for one candidate,
-// in its order, so its cost is the same float; the lanes of a group read
+// and never win).  A lane runs candidate_step, as the one-thread kernel
+// does, so its cost is the same float; the lanes of a group read
 // the same reference, gains and multipliers (broadcast loads), and stage
 // the context in shared memory, up to SELECT_CTX_TILE neighbours at a time,
 // each lane loading a share of them at once.  Selection: the lowest lane
@@ -466,8 +502,11 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
   float* tile = tiles[threadIdx.x / G];
   const unsigned mask = group_mask<G>();
   const size_t sB = static_cast<size_t>(B);
-  float half_rho = 0.0f;
-  if constexpr (AL) half_rho = 0.5f * rho[b];
+  AlStage<Eq::M, In::M> al;
+  if constexpr (AL) {
+    al.half_rho = 0.5f * rho[b];
+    al.act_tol = act_tol;
+  }
 
   float lb[NU], ub[NU];
   const bool bounded = lb_in != nullptr;
@@ -478,27 +517,17 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
       ub[i] = ub_in[i * sB + b];
     }
   }
-  float xstart[NX], x[NX];
+  float x[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xstart[i] = xs[i * sB + b];
+  for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
 
   // Phase 1: this lane's candidate.
   const float alpha = alphas.v[a];
   float c = 0.0f;
   for (int t = 0; t < T; ++t) {
-    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
-    load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
-    float lam_eq[Eq::M > 0 ? Eq::M : 1], lam_in[In::M > 0 ? In::M : 1];
-#pragma unroll
-    for (int m = 0; m < Eq::M; ++m)
-      lam_eq[m] = eq_mult[(static_cast<size_t>(t) * Eq::M + m) * sB + b];
-#pragma unroll
-    for (int m = 0; m < In::M; ++m)
-      lam_in[m] = ineq_mult[(static_cast<size_t>(t) * In::M + m) * sB + b];
-    float u[NU];
-    feedback_control<NX, NU>(x, xr, ur, kt, Kt, alpha, bounded ? lb : nullptr, ub, u);
-    // The pair costs from neighbour 0 up, then base + pairs (+ the AL
-    // terms), as the one-thread kernel sums them.
+    // The pair costs from neighbour 0 up, as the one-thread kernel sums
+    // them; the stage's reference is loaded after them, so that it is not
+    // live across the pair loop.
     const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
     float ps = 0.0f;
     for (int j0 = 0; j0 < cv.K; j0 += SELECT_CTX_TILE) {
@@ -517,14 +546,11 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
 #pragma unroll 4
       for (int j = 0; j < n / NCTX; ++j) ps = ps + cost.pair(x, tile + j * NCTX);
     }
-    float step = cost.base(x, u) + ps;
-    if constexpr (AL)
-      step = step + al_terms<NX, NU>(eq, in, x, u, lam_eq, lam_in, half_rho, act_tol);
-    c = c + step;
-    float xn[NX];
-    rk4_step(dyn, x, u, h, xn);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    StageRef<NX, NU> s;
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
+    c = c + candidate_step<false>(dyn, cost, eq, in, h, s, al, nullptr, alpha,
+                                  bounded ? lb : nullptr, ub, ps, x);
   }
 
   // Selection by ballot: bit a of `wins` is candidate a's `total < merit`
@@ -546,23 +572,105 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
 
   // Phase 2: the winner re-rolls its candidate, writing the stage layout in
   // place.
+  reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, alpha, T, sB, b);
+}
+
+// K2's select without a context or AL (the lane-follow and circular-track
+// instantiations, with or without bounds), built for the main path's
+// batches, where a launch is throughput-bound.  One lane a candidate, the A
+// lanes of a problem packed side by side: 32 / A problems a warp (A = 10:
+// three, lanes 30-31 idle; A = 3: ten), lane g A + a running candidate a of
+// the warp's problem g.  A lane keeps one candidate's state and cost in
+// registers and runs candidate_step for it, so its total is the one-thread
+// kernel's float; the lanes of a problem load its reference, gains and
+// bounds together (one address a group).  Selection: bit g A + a of a warp
+// ballot is candidate a's `total < merit` on a live problem; the lowest of
+// problem g's A bits wins, the serial loop's largest improving alpha.  The
+// group's first lane writes the merit, the accept flag and the kept alpha
+// (alpha_out [B]); forward_select_reroll_kernel, launched next, re-rolls
+// the accepted problems one thread each, where one lane of a group would
+// leave the other A - 1 idle for a whole rollout.
+constexpr int SELECT_LANES_BLOCK = 128;
+
+template <typename Dyn, typename Cost, typename Term>
+__global__ void __launch_bounds__(SELECT_LANES_BLOCK) forward_select_lanes_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
+    const float* __restrict__ K, const float* __restrict__ merit,
+    const bool* __restrict__ active, const float* __restrict__ lb_in,
+    const float* __restrict__ ub_in, float* __restrict__ cost_out,
+    bool* __restrict__ accept_out, float* __restrict__ alpha_out, Dyn dyn, Cost cost, Term term,
+    Step h, Alphas alphas, int T, int B) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  static_assert(!takes_context<Cost>::value, "the context select is forward_select_group_kernel");
+  const int A = alphas.n;
+  const int per_warp = 32 / A;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / A, a = lane - g * A;
+  const int b = ((blockIdx.x * SELECT_LANES_BLOCK + threadIdx.x) >> 5) * per_warp + g;
+  // Idle lanes and the tail's lanes take part in the ballot only.
+  const bool mine = g < per_warp && b < B;
+  const size_t sB = static_cast<size_t>(B);
+
+  // Phase 1: this lane's candidate.
+  float x[NX], c = 0.0f;
+  if (mine) {
+    float lb[NU], ub[NU];
+    const bool bounded = lb_in != nullptr;
+    if (bounded) {
 #pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xstart[i];
-  for (int t = 0; t < T; ++t) {
-    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
-    load_stage<NX, NU>(xs, us, k, K, t, sB, b, xr, ur, kt, Kt);
-    float u[NU], xn[NX];
-    feedback_control<NX, NU>(x, xr, ur, kt, Kt, alpha, bounded ? lb : nullptr, ub, u);
-    rk4_step(dyn, x, u, h, xn);
+      for (int i = 0; i < NU; ++i) {
+        lb[i] = lb_in[i * sB + b];
+        ub[i] = ub_in[i * sB + b];
+      }
+    }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
+    const float alpha = alphas.v[a];
+    const NoConstraint nc{};
+    const AlStage<0, 0> al{};
+    for (int t = 0; t < T; ++t) {
+      StageRef<NX, NU> s;
+      load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+      c = c + candidate_step<false>(dyn, cost, nc, nc, h, s, al, nullptr, alpha,
+                                    bounded ? lb : nullptr, ub, 0.0f, x);
+    }
   }
+
+  const float total = mine ? c + term(x) : 0.0f;
+  const float m = mine ? merit[b] : 0.0f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, mine && active[b] && total < m);
+  const unsigned wins = mine ? (ballot >> (g * A)) & ((1u << A) - 1u) : 0u;
+  const int win = wins != 0u ? __ffs(wins) - 1 : 0;
+  const float best = __shfl_sync(0xffffffffu, total, mine ? g * A + win : lane);
+  if (mine && a == 0) {
+    cost_out[b] = wins != 0u ? best : m;
+    accept_out[b] = wins != 0u;
+    alpha_out[b] = alphas.v[win];
+  }
+}
+
+// Phase 2 of forward_select_lanes_kernel's select, one thread a problem:
+// an accepted problem re-rolls at its kept alpha, in place.
+template <typename Dyn>
+__global__ void __launch_bounds__(128) forward_select_reroll_kernel(
+    float* xs, float* us, float* xT, const float* __restrict__ k, const float* __restrict__ K,
+    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+    const bool* __restrict__ accept, const float* __restrict__ alpha_sel, Dyn dyn, Step h,
+    int T, int B) {
+  constexpr int NU = Dyn::NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B || !accept[b]) return;
+  const size_t sB = static_cast<size_t>(B);
+  float lb[NU], ub[NU];
+  const bool bounded = lb_in != nullptr;
+  if (bounded) {
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
+    for (int i = 0; i < NU; ++i) {
+      lb[i] = lb_in[i * sB + b];
+      ub[i] = ub_in[i * sB + b];
+    }
+  }
+  reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, alpha_sel[b], T, sB, b);
 }
 
 // The pointers and scalars of one launch.
@@ -574,6 +682,7 @@ struct Args {
   const float *lb, *ub;
   float* cost_out;
   bool* accept_out;
+  float* alpha_out;   // the lane select's kept alphas [B] (scratch)
   const float *ctx, *eq_mult, *ineq_mult, *rho;
   float act_tol;
   int T, B, n_ctx, c_ctx;
@@ -605,9 +714,26 @@ void launch_group(const Args& a, const Dyn& dyn, const Cost& cost, const Term& t
       a.n_ctx, a.c_ctx);
 }
 
+// The lane select, then the re-roll of its accepted problems.
+template <typename Dyn, typename Cost, typename Term>
+void launch_lanes(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term,
+                  const Step& h, const Alphas& al, cudaStream_t stream) {
+  const int per_warp = 32 / al.n;
+  const long long lanes = (static_cast<long long>(a.B) + per_warp - 1) / per_warp * 32;
+  const int grid = static_cast<int>((lanes + SELECT_LANES_BLOCK - 1) / SELECT_LANES_BLOCK);
+  forward_select_lanes_kernel<Dyn, Cost, Term><<<grid, SELECT_LANES_BLOCK, 0, stream>>>(
+      a.xs, a.us, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out, a.accept_out, a.alpha_out,
+      dyn, cost, term, h, al, a.T, a.B);
+  const int block = 128;
+  forward_select_reroll_kernel<Dyn><<<(a.B + block - 1) / block, block, 0, stream>>>(
+      a.xs, a.us, a.xT, a.k, a.K, a.lb, a.ub, a.accept_out, a.alpha_out, dyn, h, a.T, a.B);
+}
+
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
-// init == 0: select mode, candidate registers (the context select: lanes
-// a group) sized 4 or 16 by n_alphas.
+// init == 0: select mode: without a context or AL on the lane kernel (a
+// lane a candidate; alpha_out [B] its scratch), with a context on the group
+// kernel (lanes a group) and in the AL mode on the one-thread kernel, both
+// sized 4 or 16 by n_alphas.
 // ctx [T, n_ctx, c_ctx, B] is read only by a Coupled stage cost; eq_mult
 // [T, m_eq, B], ineq_mult [T, m_in, B] and rho [B] only by an AL
 // instantiation (select mode; m_eq = Eq::M and m_in = In::M).
@@ -658,13 +784,14 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
       launch_one<Dyn, Cost, Term, Eq, In, MAX_ALPHAS, false>(args, dyn, cost, term, eq, in, h,
                                                              al, stream);
   } else {
-    if (init)
+    // The select runs on the lane kernel and its re-roll (alpha_out: the
+    // caller's [B] scratch), the rollout mode on the one-thread kernel.
+    if (init) {
       launch_one<Dyn, Cost, Term, Eq, In, 1, true>(args, dyn, cost, term, eq, in, h, al, stream);
-    else if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, Eq, In, 4, false>(args, dyn, cost, term, eq, in, h, al, stream);
-    else
-      launch_one<Dyn, Cost, Term, Eq, In, MAX_ALPHAS, false>(args, dyn, cost, term, eq, in, h,
-                                                             al, stream);
+    } else {
+      if (args.alpha_out == nullptr) return bad;
+      launch_lanes<Dyn, Cost, Term>(args, dyn, cost, term, h, al, stream);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -724,14 +851,16 @@ int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discre
   extern "C" int mas_forward_select__##NAME(                                                \
       int init, const float* x0, float* xs, float* us, float* xT, const float* k,           \
       const float* K, const float* merit, const bool* active, const float* lb,              \
-      const float* ub, float* cost_out, bool* accept_out, const float* ctx,                 \
-      const float* eq_mult, const float* ineq_mult, const float* rho, float act_tol, int T, \
-      int B, int n_ctx, int c_ctx, int m_eq, int m_in, const float* dyn_p,                  \
-      const float* cost_p, const float* term_p, const float* eq_p, const float* in_p,       \
-      const float* step_p, const float* alphas, int n_alphas, void* stream) {               \
-    const mas::Args args{x0,  xs,  us,       xT,         k,   K,       merit,     active,    \
-                         lb,  ub,  cost_out, accept_out, ctx, eq_mult, ineq_mult, rho,       \
-                         act_tol, T, B, n_ctx, c_ctx};                                       \
+      const float* ub, float* cost_out, bool* accept_out, float* alpha_out,                 \
+      const float* ctx, const float* eq_mult, const float* ineq_mult, const float* rho,     \
+      float act_tol, int T, int B, int n_ctx, int c_ctx, int m_eq, int m_in,                \
+      const float* dyn_p, const float* cost_p, const float* term_p, const float* eq_p,      \
+      const float* in_p, const float* step_p, const float* alphas, int n_alphas,            \
+      void* stream) {                                                                       \
+    const mas::Args args{x0,      xs,        us,  xT,      k,          K,         merit,  \
+                         active,  lb,        ub,  cost_out, accept_out, alpha_out, ctx,    \
+                         eq_mult, ineq_mult, rho, act_tol, T,          B,         n_ctx,  \
+                         c_ctx};                                                          \
     return mas::launch_forward_select<DYN, COST, TERM, EQ, IN>(                             \
         init, args, m_eq, m_in, dyn_p, cost_p, term_p, eq_p, in_p, step_p, alphas,          \
         n_alphas, static_cast<cudaStream_t>(stream));                                       \
@@ -753,8 +882,8 @@ using mas::NoConstraint;
       int n_alphas, float* xs_new, float* us_new, float* A, float* Bm, float* lx,           \
       float* lu, float* lxx, float* luu, float* lux, void* stream) {                        \
     const mas::Args args{nullptr, const_cast<float*>(xs), const_cast<float*>(us), nullptr,  \
-                         k, K, merit, nullptr, lb, ub, cost_out, accept_out, ctx, nullptr,  \
-                         nullptr, nullptr, 0.0f, T, B, n_ctx, c_ctx};                        \
+                         k, K, merit, nullptr, lb, ub, cost_out, accept_out, nullptr, ctx,  \
+                         nullptr, nullptr, nullptr, 0.0f, T, B, n_ctx, c_ctx};               \
     mas::EmitOut emit;                                                                       \
     emit.xs = xs_new;                                                                        \
     emit.us = us_new;                                                                        \

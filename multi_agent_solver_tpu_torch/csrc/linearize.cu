@@ -52,8 +52,9 @@
 // torch glue around it).  Bound, as K3's: the output bytes.  Design: one
 // thread per lane of the flat B T grid and K3's device code
 // (stage_derivatives, stage_hessians); a thread's 58 output floats (at
-// NX = 4, NU = 2) are contiguous, so a warp's stores stride by that record
-// and coalesce only in part -- the price of the batch-first layout.
+// NX = 4, NU = 2) are contiguous, so a warp staging its 32 lanes' outputs
+// in shared memory writes each array as one contiguous span, coalesced as
+// K3's batch-innermost stores (linearize_flat_kernel).
 #include <cuda_runtime.h>
 
 #include "problems.cuh"
@@ -208,61 +209,109 @@ __global__ void __launch_bounds__(LIN_GROUP_BLOCK) linearize_group_kernel(
   }
 }
 
+constexpr int LIN_BLOCK = 128;
+constexpr int LIN_WARPS = LIN_BLOCK / 32;
+
+// K7's staging: a warp's lanes' values of one output array, N floats a
+// lane, in shared memory at a lane stride of N | 1 floats (odd: the warp's
+// 32 stores of one entry fall in 32 banks).  span_out writes the warp's
+// lanes l0 .. l0 + lanes - 1 of the array, the contiguous span
+// [l0 N, (l0 + lanes) N) of out, consecutive lanes on consecutive floats.
+template <int N>
+__device__ __forceinline__ void stage_in(float* staged, int lane, const float* v) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) staged[lane * (N | 1) + k] = v[k];
+}
+
+template <int N>
+__device__ __forceinline__ void span_out(float* __restrict__ out, const float* staged, size_t l0,
+                                         int lanes, int lane) {
+  for (int i = lane; i < lanes * N; i += 32) out[l0 * N + i] = staged[(i / N) * (N | 1) + i % N];
+}
+
 // K7: lane l = b T + t of the flat grid is one problem-stage.  Batch-first
-// I/O: xs [B, T + 1, NX] (stage t of problem b at (b (T + 1) + t) NX),
-// us [B, T, NU]; A [B T, NX, NX], B [B T, NX, NU], lx [B T, NX], lu [B T, NU],
-// lxx [B T, NX, NX], luu [B T, NU, NU], lux [B T, NU, NX].  Hessians
-// always.  The TPU kernel hands each lane its stage index as a float; the
-// device cost functions of problems.cuh take none, so nothing reads it.
+// I/O: xs [B, T + 1, NX] (stage t of problem b at row b (T + 1) + t = l +
+// l / T), us [B, T, NU]; A [B T, NX, NX], B [B T, NX, NU], lx [B T, NX],
+// lu [B T, NU], lxx [B T, NX, NX], luu [B T, NU, NU], lux [B T, NU, NX].
+// Hessians always.  The TPU kernel hands each lane its stage index as a
+// float; the device cost functions of problems.cuh take none, so nothing
+// reads it.  A warp is 32 consecutive lanes, so its share of every array is
+// one contiguous span: the warp reads its rows of xs (a jump of one row at
+// each problem boundary) and its us into shared memory, a thread evaluates
+// its lane with K3's device functions in K3's order (the outputs are K3's
+// floats, transposed), and the warp stages A, B, lx and lu in shared memory
+// and writes each array's span, coalesced, then does the same with lxx,
+// luu and lux.  A thread writing its lane's 58 outputs (NX = 4, NU = 2)
+// straight to device memory touched 32 sectors a warp store where these
+// take 4.  The warps of a block share nothing and meet at no barrier.
 template <typename Dyn, typename Cost, bool DISCRETE>
-__global__ void __launch_bounds__(128) linearize_flat_kernel(
+__global__ void __launch_bounds__(LIN_BLOCK) linearize_flat_kernel(
     const float* __restrict__ xs, const float* __restrict__ us,
     float* __restrict__ A_out, float* __restrict__ B_out, float* __restrict__ lx_out,
     float* __restrict__ lu_out, float* __restrict__ lxx_out, float* __restrict__ luu_out,
     float* __restrict__ lux_out, Dyn dyn, Cost cost, Step h, int T, int B) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  const size_t l = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // The staged arrays' offsets: A, B, lx and lu, then lxx, luu and lux in
+  // the same space.
+  constexpr int O_B = 32 * ((NX * NX) | 1), O_LX = O_B + 32 * ((NX * NU) | 1),
+                O_LU = O_LX + 32 * (NX | 1), O_LUU = 32 * ((NX * NX) | 1),
+                O_LUX = O_LUU + 32 * ((NU * NU) | 1),
+                ROUND1 = O_LU + 32 * (NU | 1), ROUND2 = O_LUX + 32 * ((NU * NX) | 1),
+                STAGED = ROUND1 > ROUND2 ? ROUND1 : ROUND2;
+  __shared__ float staged_all[LIN_WARPS][STAGED];
+  __shared__ float x_all[LIN_WARPS][2 * 32 * NX], u_all[LIN_WARPS][32 * NU];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* staged = staged_all[warp];
+  float* x_in = x_all[warp];
+  float* u_in = u_all[warp];
   const size_t sT = static_cast<size_t>(T);
-  if (l >= sT * static_cast<size_t>(B)) return;
-  const size_t b = l / sT, t = l % sT;
+  const size_t n = sT * static_cast<size_t>(B);
+  const size_t l0 = (static_cast<size_t>(blockIdx.x) * LIN_BLOCK) + warp * 32;
+  if (l0 >= n) return;   // the whole warp leaves
+  const int lanes = n - l0 < 32 ? static_cast<int>(n - l0) : 32;
+  const size_t last = l0 + lanes - 1;
+  const size_t r0 = l0 + l0 / sT;                                  // the warp's first row
+  const int rows = static_cast<int>(last + last / sT - r0) + 1;    // <= 2 lanes
+  for (int i = lane; i < rows * NX; i += 32) x_in[i] = xs[r0 * NX + i];
+  for (int i = lane; i < lanes * NU; i += 32) u_in[i] = us[l0 * NU + i];
+  __syncwarp();
 
+  // The tail warp's other lanes only help with the spans.
+  const bool mine = lane < lanes;
   float x[NX], u[NU];
-  const float* xl = xs + (b * (sT + 1) + t) * NX;
+  if (mine) {
+    const size_t l = l0 + lane;
+    const int row = static_cast<int>(l + l / sT - r0);
 #pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xl[i];
+    for (int i = 0; i < NX; ++i) x[i] = x_in[row * NX + i];
 #pragma unroll
-  for (int i = 0; i < NU; ++i) u[i] = us[l * NU + i];
-
-  float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) A_out[(l * NX + i) * NX + j] = A[i][j];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) B_out[(l * NX + i) * NU + j] = Bm[i][j];
-    lx_out[l * NX + i] = lx[i];
+    for (int i = 0; i < NU; ++i) u[i] = u_in[lane * NU + i];
+    float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
+    stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
+    stage_in<NX * NX>(staged, lane, &A[0][0]);
+    stage_in<NX * NU>(staged + O_B, lane, &Bm[0][0]);
+    stage_in<NX>(staged + O_LX, lane, lx);
+    stage_in<NU>(staged + O_LU, lane, lu);
   }
-#pragma unroll
-  for (int i = 0; i < NU; ++i) lu_out[l * NU + i] = lu[i];
+  __syncwarp();
+  span_out<NX * NX>(A_out, staged, l0, lanes, lane);
+  span_out<NX * NU>(B_out, staged + O_B, l0, lanes, lane);
+  span_out<NX>(lx_out, staged + O_LX, l0, lanes, lane);
+  span_out<NU>(lu_out, staged + O_LU, l0, lanes, lane);
+  __syncwarp();   // the warp has read round 1 before round 2 overwrites it
 
-  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-  stage_hessians<NX, NU>(cost, x, u, CtxView(), lxx, luu, lux);
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) lxx_out[(l * NX + i) * NX + j] = lxx[i][j];
-#pragma unroll
-  for (int i = 0; i < NU; ++i)
-#pragma unroll
-    for (int j = 0; j < NU; ++j) luu_out[(l * NU + i) * NU + j] = luu[i][j];
-#pragma unroll
-  for (int i = 0; i < NU; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) lux_out[(l * NU + i) * NX + j] = lux[i][j];
+  if (mine) {
+    float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+    stage_hessians<NX, NU>(cost, x, u, CtxView(), lxx, luu, lux);
+    stage_in<NX * NX>(staged, lane, &lxx[0][0]);
+    stage_in<NU * NU>(staged + O_LUU, lane, &luu[0][0]);
+    stage_in<NU * NX>(staged + O_LUX, lane, &lux[0][0]);
+  }
+  __syncwarp();
+  span_out<NX * NX>(lxx_out, staged, l0, lanes, lane);
+  span_out<NU * NU>(luu_out, staged + O_LUU, l0, lanes, lane);
+  span_out<NU * NX>(lux_out, staged + O_LUX, l0, lanes, lane);
 }
-
-constexpr int LIN_BLOCK = 128;
 
 // Lanes per problem-stage of the context mode.  Every lane of a group
 // repeats the base cost and the dynamics, and only the neighbour sum is

@@ -23,7 +23,10 @@ take an optional per-stage context ``ctx [T, K, C, B]`` (the context mode
 of the select kernel, K6 in the ROADMAP's numbering): the stage cost is
 then ``stage_cost(x, u, t, ctx_t)``, as with the TPU kernel's ``ctx_l``.
 The select mode with a context (with or without AL) launches a lane-group
-kernel, one candidate a lane (``forward_select_group_kernel``), whose
+kernel, one candidate a lane (``forward_select_group_kernel``); without a
+context or AL a lane kernel (``forward_select_lanes_kernel``, the A lanes
+of a problem packed in a warp) and its re-roll launch, which reads the kept
+alphas from a ``[B]`` scratch tensor that the wrapper allocates.  Their
 results are the one-thread kernel's bit for bit.
 
 The select mode also has an AL mode (K6's other half, the TPU kernel's
@@ -78,7 +81,7 @@ CTX_STATS = KernelStats()     # ... and with one (the context mode, K6)
 AL_STATS = KernelStats()      # ... in the AL mode (K6)
 AL_CTX_STATS = KernelStats()  # ... in the AL mode with a context (K6)
 EMIT_STATS = KernelStats()    # the emit mode (K8)
-MAX_ALPHAS = 16   # candidate registers of the CUDA kernel
+MAX_ALPHAS = 16   # candidates the CUDA kernels take
 
 
 def _stats(ctx, al=False) -> KernelStats:
@@ -268,7 +271,7 @@ def launch_rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     cost = torch.empty(B, dtype=torch.float32, device=x0.device)
     with torch.cuda.device(x0.device):
         launch(symbol, 1, x0, xs, us, None, None, None, None, None, None, None,
-               cost, None, ctx, None, None, None, 0.0, T, B, n_ctx, nx, 0, 0, *params,
+               cost, None, None, ctx, None, None, None, 0.0, T, B, n_ctx, nx, 0, 0, *params,
                step_constants(spec.dt), (0.0,), 1)
     _stats(ctx).launches += 1
     return xs, cost
@@ -333,9 +336,11 @@ def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas,
     n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
     merit_new = torch.empty(B, dtype=torch.float32, device=dev)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
+    # The lane select's kept alphas, read by its re-roll launch.
+    kept = torch.empty(B, dtype=torch.float32, device=dev) if ctx is None and not has_al else None
     with torch.cuda.device(dev):
         launch(symbol, 0, None, xs, us, xT, k, K, merit, active, lb, ub, merit_new,
-               accept, ctx, eq_mult, ineq_mult, rho, act_tol, T, B, n_ctx, nx, m_eq, m_in,
+               accept, kept, ctx, eq_mult, ineq_mult, rho, act_tol, T, B, n_ctx, nx, m_eq, m_in,
                *params, step_constants(spec.dt), alphas, len(alphas))
     _stats(ctx, has_al).launches += 1
     return merit_new, accept
