@@ -25,8 +25,8 @@ Phases, each reported on its own lines:
 1. card: ``nvidia-smi``'s name and power limit of the GPU;
 2. build: the kernels' build time and ptxas' register / spill report,
    with the redesigned kernels named (the lane-group kernels of K6's
-   context select and K3's context mode; K2's lane select and its re-roll;
-   K7);
+   context select and K3's context mode; K2's lane select, which K6's AL
+   select shares, and its re-roll; K7; K4's group kernel);
 3. per-kernel checks at B = 8192, T = 80, each output's tolerance printed
    beside its max abs error and max error relative to the output's scale;
    K2's select also on merits where every rung wins somewhere
@@ -38,14 +38,17 @@ Phases, each reported on its own lines:
    K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
    kernels' times per launch; the redesigned select at the bench ladder
    a wrapper call (CUDA events around 20 calls) and a launch on the device
-   (a CUDA graph of 20), beside the parent commit's kernel (PARENT_MS),
-   and its output digests, which must be the parent's (PARENT_DIGEST);
+   (a CUDA graph of 20), and its output digests, which must be the parent
+   commit's (PARENT_DIGEST);
 and, run after phase 5 and before 6 and 7, in this order:
 
 8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
    boxqp and the circular-track instantiations of K2 / K3 / K4 against
    their plain versions at B = 8192 (T = 80, and T = 10 on the track),
    with the number of stage solves whose box-QP (K5) active set differs;
+   K4 (on its group kernel below the crossover) also on the first
+   GROUP_CHECK_B problems alone and on the batch tiled to
+   ONE_THREAD_CHECK_B problems (its one-thread kernel);
 9. boxqp end to end at B = 4096, kernels against plain versions;
 10. the three K4 branches of the main path at B = 262,144
    (stationary_fusedlin=False; quadratic_cost with stationary_cost=False;
@@ -60,7 +63,7 @@ and, run after phase 5 and before 6 and 7, in this order:
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
    with and without Hessians; K2 at 10 candidates; K1 with boxqp); the
    redesigned select at 10 candidates on both yardsticks, and its
-   digests, beside the parent's;
+   digests, which must be the parent's;
 13. K3 and K2 in context mode (K6) against their plain versions at
    B = 8192, T = 10, with K = 8 and 63 neighbours, K3 also at B = 64 and
    256 (its 32- and 8-lane instantiations), the select at 10 and 3
@@ -74,13 +77,14 @@ and, run after phase 5 and before 6 and 7, in this order:
    (median of 5 calls), the kernels' ms per launch and bounds at each
    row's shapes, and their share of the wall; the redesigned kernels' ms
    a wrapper call (CUDA events around 20 calls, as every kernel's) and a
-   launch on the device (a CUDA graph of 20 launches), each beside the
-   one-thread kernel's time taken the same way, and their bounds; K4's
-   wrapper-call and device ms;
+   launch on the device (a CUDA graph of 20 launches), and their bounds;
+   K4's wrapper-call and device ms, and the digest of its gains, which
+   must be the parent commit's (PARENT_DIGEST);
 16. K2's AL mode (K6) against its plain version at B = 8192, T = 80, with
    3 and 10 candidates, one equality and four inequality rows (and the
    four alone), random multipliers and a spread of rho, with the one-ulp
-   knife-edge of the plain version measured beside it;
+   knife-edge of the plain version measured beside it, and on rung_inputs'
+   merits (every rung wins somewhere);
 17. the AL solves: the state-bound configuration (``entry.state_bound_specs``)
    at B = 262,144 over 8 iterations, its first 1,024 problems on the JAX
    anchors of ``al_anchors.py``; over 40 iterations, held to feasibility
@@ -90,10 +94,13 @@ and, run after phase 5 and before 6 and 7, in this order:
    launch counts per solve;
 18. solves/s of the state-bound configuration at 262,144 (median of 5),
    K6-AL's ms per launch at 3 and 10 candidates with its plain ms and
-   bound, and the per-iteration time of the AL torch glue beside the
+   bound, the redesigned K6-AL on both yardsticks, and its digests (both side sets, al_inputs' and rung_inputs'), which must be
+   the parent's; the per-iteration time of the AL torch glue beside the
    kernels' share;
 19. K4's explicit-terminal mode (each instantiated (nx, nu), clamp and
-   boxqp, on seeded random stacks with regularized stages), K7 in both
+   boxqp, on seeded random stacks with regularized stages; also on the
+   first GROUP_CHECK_B problems and tiled to ONE_THREAD_CHECK_B, both of
+   its kernels), K7 in both
    Jacobian modes, and K3 (with and without Hessians) and K1 in the
    continuous Jacobian mode, against their plain versions at B = 8192,
    T = 80; K7's outputs against K3's, transposed, bit for bit;
@@ -114,7 +121,7 @@ and, run after phase 5 and before 6 and 7, in this order:
    and K1 continuous per launch with their plain ms and bounds, the
    non-fused glue per iteration by part, and the single solve's wall ms
    in float32 and float64; the redesigned K7 in both modes on both
-   yardsticks, and its digests, beside the parent's;
+   yardsticks, and its digests, which must be the parent's;
 22. K6 in AL and context mode at once (the game's inequality row, and a
    row on each side) against its plain version at B = 8192, T = 10,
    K = 8 and 63, 3 and 10 candidates; K8 at B = 8192, T = 80 in both
@@ -133,16 +140,20 @@ and, run after phase 5 and before 6 and 7, in this order:
    the kernels against the plain versions;
 24. agent-solves/s and wall ms of the constrained game at 64, 256 and
    1,024 cars (median of 5 calls) with K6 AL + context's ms per launch at
-   each row's shapes (a wrapper call and on the device, each beside the
-   one-thread kernel's), its plain ms and bound, and K4's wrapper-call and
-   device ms; K8, K9 (A = 3 and 10) and
+   each row's shapes (a wrapper call and on the device), its plain ms and
+   bound, and K4's wrapper-call and device ms, with its digest held to the
+   parent's;
+   K8, K9 (A = 3 and 10) and
    K10 per launch at B = 262,144, T = 80, with plain ms and bounds;
 6. one JSON line listing every ported kernel (K1-K10, K6's AL mode and
    its AL and context mode, K4's explicit-terminal mode and the continuous
    modes of K1 and K3; K6's context rows and K3's context mode marked
-   "redesigned: lane groups", K2's and K7's rows with their own "status"),
-   printed after them; every row's ``ms`` is a wrapper call's, and the
-   redesigned rows add ``device_ms``;
+   "redesigned: lane groups", K2's, K7's, K6-AL's and K4's rows with their
+   own "status"), printed after them; every row's ``ms`` is a wrapper
+   call's, and the redesigned rows add ``device_ms``; every row's
+   ``bound_ms`` takes the card's float32 peak (PEAK_F32), and its
+   ``issue_floor_ms`` the issue rate that ``-fmad=false`` leaves
+   (PEAK_ISSUE);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA it
@@ -184,9 +195,16 @@ SWEEP_ANCHOR, SWEEP_RTOL, SWEEP_ITERATIONS = 1.87613844871521, 1e-5, 6
 # of problems whose kernel solve moves by more than 1e-4 when x0 moves by
 # one ulp.
 BOXQP_COST_RTOL, BOXQP_CTRL_ATOL, BOXQP_SHARE, BOXQP_COST_RTOL_ALL = 1e-5, 1e-4, 0.995, 1e-3
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 ops/s
-# outside the tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 ops/s outside
+# the tensor cores, which bound every kernel (bound_ms).  The 67e12 counts a
+# fused multiply-add as two operations.  The kernels are built with
+# -fmad=false (ops/_build.py), a choice of this implementation, not a limit
+# of the functions: there every counted operation takes an issue slot of
+# its own, 128 a clock an SM, 132 SMs at the 1.98 GHz boost clock, 33.5e12
+# a second.  That rate gives a second, labelled number, issue_floor_ms: the
+# floor of these builds, not of the card.  (ncu, which could count the
+# executed instructions, does not run on the card's machine.)
+PEAK_BYTES, PEAK_F32, PEAK_ISSUE = 3.35e12, 67e12, 33.5e12
 # Float32 operations per unit of work, counted from the csrc arithmetic at
 # nx = 4, nu = 2 (a transcendental counts as one operation, so these are a
 # floor): a float RK4 step of the single-track model, a 6-tangent dual RK4
@@ -232,19 +250,6 @@ KNIFE_EDGE_Z = 3.0
 # phase 9 holds boxqp, and the knife-edge is measured beside.
 SELECT_SHARE = 0.995
 GAME_TIMED = 5
-# The one-thread kernels that the lane-group kernels replaced (K6's context
-# select and AL + context select at 10 candidates, K3's context mode with
-# and without Hessians), timed by kernel_times.py on the tree of
-# commit 77c48f4 on ONE_THREAD_CARD, by cars in the game row: (ms a wrapper
-# call, ms a launch on the device), each timed as phases 15 and 24 time the
-# lane-group kernels, the lesser of two runs.
-ONE_THREAD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-ONE_THREAD_MS = {64: {"K6_A10": (0.872024, 0.862766), "K6alctx": (0.880573, 0.869909),
-                      "K3ctx_hess": (0.093712, 0.085686), "K3ctx": (0.107547, 0.041200)},
-                 256: {"K6_A10": (0.390549, 0.382512), "K6alctx": (0.401266, 0.395002),
-                       "K3ctx_hess": (0.087374, 0.015197), "K3ctx": (0.083686, 0.009707)},
-                 1024: {"K6_A10": (0.390069, 0.379416), "K6alctx": (0.401491, 0.389280),
-                        "K3ctx_hess": (0.142470, 0.015331), "K3ctx": (0.105434, 0.010158)}}
 # The lane-group kernels (phase 2 names them in its ptxas report).
 REDESIGNED = "redesigned: lane groups"
 # The main path's redesigned kernels: K2's select without a context or AL
@@ -252,28 +257,43 @@ REDESIGNED = "redesigned: lane groups"
 # (coalesced spans through shared memory).
 REDESIGNED_K2 = "redesigned: a lane a candidate, packed groups, a re-roll launch"
 REDESIGNED_K7 = "redesigned: coalesced spans through shared memory"
-# Each redesigned kernel's name in the ptxas report of phase 2.
+# K6's AL select without a context on K2's lane kernel, and K4 at the
+# games' batch sizes on a group of lanes a problem.
+REDESIGNED_K6AL = "redesigned: on K2's lane kernel (a lane a candidate), a re-roll launch"
+REDESIGNED_K4 = ("redesigned: a group of lanes a problem, inputs prefetched, up to "
+                 "backward_group_max_b problems")
+# Each redesigned kernel's name in the ptxas report of phase 2 (the lane
+# select's instantiations with constraint rows are K6-AL's).
 REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
                       "linearize_group_kernel": REDESIGNED,
-                      "forward_select_lanes_kernel": REDESIGNED_K2,
+                      "forward_select_lanes_kernel": f"{REDESIGNED_K2}; with rows, K6-AL",
                       "forward_select_reroll_kernel": REDESIGNED_K2,
-                      "linearize_flat_kernel": REDESIGNED_K7}
-# The kernels they replaced -- K2's one-thread select at the bench ladder
-# (phase 5's inputs) and the reference ladder (phase 12's), K7 writing each
-# lane's outputs from its thread (phase 21's inputs, both Jacobian modes) --
-# timed by kernel_times.py on the tree of commit 0fb1bda on PARENT_CARD at
-# MAIN_BATCH problems, T = 80: (ms a wrapper call, ms a launch on the
-# device), as redesigned_rows times the new ones, the lesser of two runs.
-# Phases 5, 12 and 21 log them beside this run's times.
-PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-PARENT_MS = {"K2_A3": (1.921546, 1.902546), "K2_A10": (10.822089, 10.806704),
-             "K7": (12.425006, 12.402895), "K7_continuous": (12.716064, 12.693403)}
-# The digests of the same kernels' outputs on redesigned_calls' inputs
-# (K2: the timed inputs, then rung_inputs'), from the same runs: the
-# redesigned kernels must give them bit for bit.
+                      "linearize_flat_kernel": REDESIGNED_K7,
+                      "riccati_backward_group_kernel": REDESIGNED_K4}
+# K4 launches up to its crossover (csrc/riccati.cuh: backward_group_max_b,
+# 64 to 16,384 problems by (nx, nu) and mode) run on the group kernel, so
+# phases 8 and 19 check K4 at CHECK_BATCH and on the first GROUP_CHECK_B
+# problems (each a tail group; 61 is below every crossover), and the
+# one-thread kernel on the batch tiled to ONE_THREAD_CHECK_B problems
+# (the plain versions solve problem by problem, so tiled gains are theirs).
+GROUP_CHECK_B, ONE_THREAD_CHECK_B = (61, 1001), 5 * CHECK_BATCH
+# The digests of the outputs of the kernels that the redesigned ones
+# replaced, on redesigned_calls' inputs (K2: the timed inputs, then
+# rung_inputs'; K6-AL: al_inputs' and rung_inputs', each with the
+# inequality rows alone and with the equality row) and of K4's gains on
+# the games' first-iteration stacks (64, 256 and 1,024 cars, T = 10), from
+# kernel_times.py's runs of the trees of commit 0fb1bda (K2, K7) and
+# d50f335 (K6-AL, K4): the redesigned kernels must give them bit for bit.
+# (Those runs' times are in PERF.md.)
 PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
                  "K2_A10": ("44e13541c3755be7", "7cf3af587ccf2b51"),
-                 "K7": ("3beca312f2baa603",), "K7_continuous": ("7a8570c6848fa32f",)}
+                 "K7": ("3beca312f2baa603",), "K7_continuous": ("7a8570c6848fa32f",),
+                 "K6AL_A3": ("b82f575f2985d34d", "951a4b7a75cc5bc3", "6e9d20b3dc5119aa",
+                             "a2723a10942cbe9c"),
+                 "K6AL_A10": ("fb1292a03fbfe412", "21d4bda75f71e804", "42b2da8539c3181b",
+                              "f9bbb6d51a381b72"),
+                 "K4_64": ("a1026d2026998b10",), "K4_256": ("2a56e84fbbb65615",),
+                 "K4_1024": ("46b562a66d7fc77b",)}
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -463,9 +483,11 @@ def digest(tensors):
     return h.hexdigest()[:16]
 
 
-def rung_inputs(spec, xs, us, k, K, lb, ub, ladder, seed, poison=False):
+def rung_inputs(spec, xs, us, k, K, lb, ub, ladder, seed, poison=False,
+                al=(None, None, None, 0.0)):
     """Select inputs on which every rung of ``ladder`` wins somewhere, so
-    that a check covers every lane of a packed group.  Problem b draws a
+    that a check covers every lane of a packed group; the totals are the AL
+    mode's with ``al = (eq_mult, ineq_mult, rho, act_tol)``.  Problem b draws a
     rung r_b; its feedforward gains are scaled by 1 / alpha_{r_b}, so that
     rung r_b takes the gains' own step and the larger alphas overshoot, and
     its merit is set 0.1% above rung r_b's total (the plain version's).  A
@@ -489,7 +511,7 @@ def rung_inputs(spec, xs, us, k, K, lb, ub, ladder, seed, poison=False):
     live = torch.ones(B, dtype=torch.bool, device=dev)
     lbT, ubT = lb.T.contiguous(), ub.T.contiguous()
     totals = torch.stack([k2._score(spec, xs, us, k, K, inf, live, lbT, ubT, (alpha,), None,
-                                    None, None, None, 0.0)[1] for alpha in ladder])
+                                    *al)[1] for alpha in ladder])
     merit = totals[torch.as_tensor(rung, device=dev), torch.arange(B, device=dev)] * 1.001
     edge = ((totals - merit).abs() <= 1e-5 * merit.abs()).any(0)
     active = torch.as_tensor(rng.uniform(size=B) >= 0.1, device=dev) & ~edge
@@ -528,11 +550,17 @@ def redesigned_calls(spec, B, rows, reps=20):
     ladder on phase 5's inputs: gains from K1), "K2_A10" (the reference's
     10-rung ladder on phase 12's: gains from K4 on K3's whole-horizon
     stacks), "K7" and "K7_continuous" (phase 21's: the first rollout,
-    batch-first).  The inputs are iteration-1 inputs of the main path (zero
-    controls); the select works in place, so each call gets its own
-    buffers.  A K2 row has a second digest, of a call on rung_inputs' (every
-    rung wins somewhere; frozen problems; NaN and infinite totals and
-    merits)."""
+    batch-first), "K6AL_A3" and "K6AL_A10" (phase 18's: K6's AL select at
+    both ladders on al_inputs, timed with the four inequality rows of the
+    state-bound configuration), and "K4_per_stage" / "K4_explicit" (K4 on
+    K3's whole-horizon stacks, in-kernel terminal and explicit-terminal
+    mode) and "K1" (phase 5's inputs).  The inputs are iteration-1 inputs of the main path (zero
+    controls; al_inputs' draw for K6-AL); the select works in place, so each
+    call gets its own buffers.  A K2 row has a second digest, of a call on
+    rung_inputs' (every rung wins somewhere; frozen problems; NaN and
+    infinite totals and merits); a K6-AL row has four: al_inputs' and
+    rung_inputs', each with the inequality rows alone and with the equality
+    row too."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
@@ -545,7 +573,24 @@ def redesigned_calls(spec, B, rows, reps=20):
     xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
     xT = xs_tail[-1].clone()
     for row in rows:
-        if row.startswith("K2"):
+        if row.startswith("K6AL"):
+            yield (row,) + al_select_calls(B, int(row.split("_A")[1]), reps)
+        elif row == "K1":
+            hess = [h[0] for h in k3.linearize(spec, x0[None].contiguous(),
+                                               us0[:1].contiguous(), True)[4:]]
+            call = lambda: k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels)
+            yield row, [call] * reps, lambda: None, (digest(call()),)
+        elif row.startswith("K4"):
+            lin = k3.linearize(spec, xs, us0, True)
+            if row == "K4_per_stage":
+                call = lambda: k1.riccati_backward(spec, *lin, xT, levels)
+            else:
+                vx0 = torch.zeros_like(xT)
+                vxx0 = torch.zeros((xT.shape[0],) + tuple(xT.shape), device=xT.device)
+                call = lambda: k1.riccati_backward_explicit(*lin, vx0, vxx0, levels)
+            yield row, [call] * reps, lambda: None, (digest(call()),)
+            del lin
+        elif row.startswith("K2"):
             if row == "K2_A3":
                 ladder = BENCH_CONFIG.alpha_ladder
                 hess = [h[0] for h in k3.linearize(spec, x0[None].contiguous(),
@@ -582,6 +627,52 @@ def redesigned_calls(spec, B, rows, reps=20):
         torch.cuda.empty_cache()
 
 
+def al_select_calls(B, A, reps):
+    """K6-AL's select at A candidates on al_inputs at B problems (the
+    state-bound configuration's four inequality rows, and the equality row
+    with them), as redesigned_calls' ``(calls, restore, digests)``: the
+    calls on the inequality rows alone; the digests of a call on each side
+    set, then of a call on each side set's rung_inputs."""
+    from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    ladder = (BENCH_CONFIG.alpha_ladder if A == 3
+              else _alpha_ladder_floats(BENCH_CONFIG.alpha_min))
+    assert len(ladder) == A
+    both = al_check_spec()
+    sides = {"ineq": both.replace(equality_constraints=None, eq_dim=0), "eq+ineq": both}
+    inp = al_inputs(both, B, seed=8)
+    xs, us, xT = inp["xs"], inp["us"], inp["xT"]
+
+    def call(side, bufs, k=inp["k"], merit=None, active=inp["active"]):
+        eq_mult = inp["eq_mult"] if side == "eq+ineq" else None
+        merit = inp["merit"][side] if merit is None else merit
+        return k2.forward_select(sides[side], *bufs, k, inp["K"], merit, active, inp["lb"],
+                                 inp["ub"], ladder, None, eq_mult, inp["ineq_mult"], inp["rho"],
+                                 inp["act_tol"])
+
+    digests = []
+    for side in sides:
+        bufs = [xs.clone(), us.clone(), xT.clone()]
+        digests.append(digest(bufs + list(call(side, bufs))))
+    for side in sides:
+        al = (inp["eq_mult"] if side == "eq+ineq" else None, inp["ineq_mult"], inp["rho"],
+              inp["act_tol"])
+        xs_r, k_r, merit_r, active_r = rung_inputs(sides[side], xs, us, inp["k"], inp["K"],
+                                                   inp["lb"], inp["ub"], ladder, seed=A,
+                                                   poison=True, al=al)
+        bufs = [xs_r, us.clone(), xT.clone()]
+        digests.append(digest(bufs + list(call(side, bufs, k_r, merit_r, active_r))))
+        del xs_r, k_r, bufs
+    bufs = [[xs.clone(), us.clone(), xT.clone()] for _ in range(reps)]
+
+    def restore():
+        for b in bufs:
+            for buf, src in zip(b, (xs, us, xT)):
+                buf.copy_(src)
+    return [lambda b=b: call("ineq", b) for b in bufs], restore, tuple(digests)
+
+
 def redesigned_rows(spec, B, rows):
     """``{row: (ms a wrapper call, ms a launch on the device, digests)}`` of
     redesigned_calls' rows, each timed by time_calls."""
@@ -590,17 +681,14 @@ def redesigned_rows(spec, B, rows):
 
 
 def against_parent(rows, phase):
-    """Log each redesigned row beside the parent's (PARENT_MS), wrapper call
-    against wrapper call and device against device, and fail unless its
-    output digests are the parent's (PARENT_DIGEST)."""
+    """Log each redesigned row's times, a wrapper call and a launch on the
+    device, and fail unless its output digests are the parent's
+    (PARENT_DIGEST)."""
     for row, (ms, device, digests) in rows.items():
-        was = PARENT_MS[row]
         same = tuple(digests) == PARENT_DIGEST[row]
         verdict = "the parent's" if same else "NOT the parent's"
         log(f"  {row}: {ms:.6f} ms a wrapper call, {device:.6f} ms a launch on the device "
-            f"(CUDA graph); the parent's {was[0]:.6f} / {was[1]:.6f} ms ({was[0] / ms:.2f}x / "
-            f"{was[1] / device:.2f}x; on {PARENT_CARD}); output digests {' '.join(digests)}: "
-            f"{verdict}")
+            f"(CUDA graph); output digests {' '.join(digests)}: {verdict}")
         if not same:
             fail(f"the redesigned {row} does not give the parent's outputs bit for bit "
                  f"(phase {phase})")
@@ -739,6 +827,20 @@ def circular_inputs(spec, B, seed, horizon):
     return x0, us
 
 
+def first(tensors, n, dim=-1):
+    """The first ``n`` problems of each tensor (None kept), contiguous."""
+    return tuple(None if t is None else t.narrow(dim, 0, n).contiguous() for t in tensors)
+
+
+def tiled(tensors, n, dim=-1):
+    """Each tensor's problems repeated to ``n`` (None kept), contiguous."""
+    def tile(t):
+        reps = [1] * t.dim()
+        reps[dim] = -(-n // t.shape[dim])
+        return t.repeat(*reps).narrow(dim, 0, n).contiguous()
+    return tuple(None if t is None else tile(t) for t in tensors)
+
+
 def check_backward_kernels(spec, circ_spec):
     """Phase 8: K4, K5 (inside K1 and K4) and the circular-track
     instantiations against their plain versions at B = CHECK_BATCH."""
@@ -761,6 +863,12 @@ def check_backward_kernels(spec, circ_spec):
         k_k, K_k = k1.riccati_backward(sp, *lin, xT, levels, *bounds)
         k_p, K_p = k1.riccati_backward_plain(sp, *lin, xT, levels, *bounds)
         gain_pair(tag, k_k, K_k, k_p, K_p, bounds, kernel)
+        # The first GROUP_CHECK_B problems alone (a tail group), and the
+        # batch tiled above the crossover (the one-thread kernel).
+        for n, cut in [(n, first) for n in GROUP_CHECK_B] + [(ONE_THREAD_CHECK_B, tiled)]:
+            k_g, K_g = k1.riccati_backward(sp, *cut(lin, n), *cut((xT,), n), levels,
+                                           *cut(bounds, n))
+            gain_pair(f"{tag} B={n}", k_g, K_g, *cut((k_p, K_p), n), cut(bounds, n), kernel)
 
     def gain_pair(tag, k_k, K_k, k_p, K_p, bounds, kernel, atol=1e-5):
         results = [compare(f"{tag} k", k_k, k_p, 1e-4, atol), compare(f"{tag} K", K_k, K_p, 1e-4, atol)]
@@ -1008,8 +1116,19 @@ def time_sweep_kernels(specs):
 
 
 def bound_of(bytes_, ops):
+    """``(bound ms, "bytes" or "operations", issue floor ms)``: the least
+    time of ``bytes_`` moved and ``ops`` float32 operations at the card's
+    peaks, and at the issue rate of the -fmad=false builds."""
     t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, ops / PEAK_ISSUE * 1e3))
+
+
+def bound_keys(bound, tag=""):
+    """A JSON row's bound_ms, bound_by and issue_floor_ms (``_tag``
+    appended) from bound_of's triple."""
+    return {f"bound_ms{tag}": bound[0], f"bound_by{tag}": bound[1],
+            f"issue_floor_ms{tag}": bound[2]}
 
 
 def time_new_kernels(spec, B, with_plain):
@@ -1324,6 +1443,28 @@ def check_al_kernels():
             for _, max_abs, max_rel in results:
                 a, r = errs.get("K6al", (0.0, 0.0))
                 errs["K6al"] = (max(a, max_abs), max(r, max_rel))
+            # Every lane offset of a packed group: rung_inputs' merits,
+            # where every rung wins somewhere (frozen problems, NaN and
+            # infinite totals and merits), held to the same tolerances on
+            # AL_SHARE of the problems.
+            al = (eq_mult, inp["ineq_mult"], inp["rho"], inp["act_tol"])
+            xs_r, k_r, merit_r, active_r = rung_inputs(spec, xs, us, inp["k"], inp["K"], inp["lb"],
+                                                       inp["ub"], ladder, len(ladder), True, al)
+            for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
+                bufs = [xs_r.clone(), us.clone(), xT.clone()]
+                merit, accept = fn(spec, *bufs, k_r, inp["K"], merit_r, active_r, inp["lb"],
+                                   inp["ub"], ladder, None, eq_mult, inp["ineq_mult"], inp["rho"],
+                                   inp["act_tol"])
+                outs[name] = bufs + [merit, accept]
+            apart = select_apart(outs["kernel"], outs["plain"], atol=1e-4, merit_rtol=1e-5)
+            share = 1.0 - float(apart.float().mean())
+            good = share >= AL_SHARE
+            log(f"  {tag} rungs: {int(outs['kernel'][4].sum())} of {B} accepted, "
+                f"{int((outs['kernel'][4] != outs['plain'][4]).sum())} accept flags differ; "
+                f"{int(apart.sum())} problems beyond the tolerances (share within {share:.4f}, "
+                f"required {AL_SHARE}) {'OK' if good else 'MISMATCH'}")
+            ok = ok and good
+            del xs_r, k_r
     torch.cuda.synchronize()
     if not ok:
         fail("K6's AL mode disagrees with its plain version (phase 16)")
@@ -1496,6 +1637,12 @@ def time_al(ilqr, entry, card, kms, nkms):
         bound[A] = bound_of(bytes_, ops)
         log(f"  K6-AL A={A}: {ms[A]:.6f} ms/launch, plain {plain[A]:.6f} ms, bound {bound[A][0]:.6f} ms "
             f"({bound[A][1]}); accepted {n_acc} of {B}")
+    del inp
+    log(f"[18] K6-AL ({REDESIGNED_K6AL}) at A = 3 and 10 (B={B}), its digests against the parent's, card {card}")
+    redesigned = redesigned_rows(spec, B, ("K6AL_A3", "K6AL_A10"))
+    against_parent(redesigned, 18)
+    inp = al_inputs(spec, B, seed=8)
+    xs, us, xT = inp["xs"], inp["us"], inp["xT"]
 
     # One iteration's AL glue at these inputs, as the fused loop runs it,
     # in whole and part by part.
@@ -1533,7 +1680,8 @@ def time_al(ilqr, entry, card, kms, nkms):
         f"({100 * it * glue_ms / solve_ms:.1f}%); the rest {solve_ms - kernels - it * glue_ms:.3f} ms; "
         f"card {card}")
     return {"solves_per_s": rate, "iterations": it, "ms": ms, "plain": plain, "bound": bound,
-            "glue_ms": glue_ms, "glue_parts": glue_parts, "kernel_ms": kernels, "solve_ms": solve_ms}
+            "glue_ms": glue_ms, "glue_parts": glue_parts, "kernel_ms": kernels,
+            "solve_ms": solve_ms, "redesigned": redesigned}
 
 
 def perturbed(problem, coord, direction):
@@ -1678,8 +1826,8 @@ def game_inputs(entry, agents, neighbors, game=None):
 
 def time_game_kernels(entry, agents, neighbors, with_plain):
     """Per-launch device time of the game's kernels at one row's shapes
-    (first-iteration inputs), their bounds, and optionally the plain
-    versions' times."""
+    (first-iteration inputs), their bounds, optionally the plain versions'
+    times, and the digest of K4's gains."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import SWEEP_CONFIG
@@ -1696,6 +1844,7 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
     xT = xs_tail[-1].clone()
     lin = k3.linearize(spec, xs, us, True, ctx)
     k, K_ = k1.riccati_backward(spec, *lin, xT, levels)
+    k4_digest = digest((k, K_))
     fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
     _, accept = k2.forward_select(spec, *fresh(), k, K_, cost, active, lb, ub, ladder, ctx)
     n_acc = int(accept.sum())
@@ -1762,19 +1911,15 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
     log(f"  {agents} cars, K={K}: bound ms {json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}")
     log(f"  {agents} cars, K={K}: device ms/launch (CUDA graph) "
         f"{json.dumps({k_: round(v, 6) for k_, v in device.items()})}")
-    return ms, plain, bound, device
+    return ms, plain, bound, device, k4_digest
 
 
-def against_one_thread(agents, K, name, ms, device, bound):
-    """Log a lane-group kernel's times beside the one-thread kernel's
-    (ONE_THREAD_MS), wrapper call against wrapper call and device against
+def lane_group_times(agents, K, name, ms, device, bound):
+    """Log a lane-group kernel's times, a wrapper call and a launch on the
     device, and its bound."""
-    was_ms, was_device = ONE_THREAD_MS[agents][name]
-    log(f"  {agents} cars, K={K}: {name} ({REDESIGNED}) {ms:.6f} ms a wrapper call, the "
-        f"one-thread kernel's {was_ms:.6f} ms ({was_ms / ms:.1f}x); {device:.6f} ms a launch "
-        f"on the device (CUDA graph), the one-thread kernel's {was_device:.6f} ms "
-        f"({was_device / device:.1f}x; one-thread times on {ONE_THREAD_CARD}); bound "
-        f"{bound[0]:.6f} ms ({bound[1]})")
+    log(f"  {agents} cars, K={K}: {name} ({REDESIGNED}) {ms:.6f} ms a wrapper call, "
+        f"{device:.6f} ms a launch on the device (CUDA graph); bound {bound[0]:.6f} ms "
+        f"({bound[1]})")
 
 
 def time_games(entry, card):
@@ -1799,14 +1944,14 @@ def time_games(entry, card):
             times.append(time.perf_counter() - t0)
         wall = float(np.median(times))
         rate = agents * entry.MAX_OUTER / wall
-        kms, plain, bound, device = time_game_kernels(entry, agents, neighbors,
-                                                      with_plain=(agents == 64))
-        for name in ONE_THREAD_MS[agents]:
-            if name in device:
-                against_one_thread(agents, neighbors or agents - 1, name, kms[name], device[name],
-                                   bound[name])
-        log(f"  {agents} cars: K4 {kms['K4']:.6f} ms a wrapper call, {device['K4']:.6f} ms a "
-            f"launch on the device (CUDA graph); bound {bound['K4'][0]:.6f} ms ({bound['K4'][1]})")
+        kms, plain, bound, device, k4_digest = time_game_kernels(entry, agents, neighbors,
+                                                                 with_plain=(agents == 64))
+        for name in ("K6_A10", "K3ctx_hess", "K3ctx"):
+            lane_group_times(agents, neighbors or agents - 1, name, kms[name], device[name],
+                             bound[name])
+        log(f"  {agents} cars: K4 ({REDESIGNED_K4}) bound {bound['K4'][0]:.6f} ms "
+            f"({bound['K4'][1]})")
+        against_parent({f"K4_{agents}": (kms["K4"], device["K4"], (k4_digest,))}, 15)
         # One K6 rollout a sweep, the other K6 launches select.
         in_kernels = (entry.MAX_OUTER * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
                       + launches["K4"] * kms["K4"]
@@ -1836,15 +1981,16 @@ def time_games(entry, card):
 # ---------------------------------------------------------------------------
 
 
-def random_riccati_stacks(nx, nu, B, seed):
+def random_riccati_stacks(nx, nu, B, seed, horizon=T):
     """Batch-first inputs of K4's explicit mode from a seed: A = 0.9 I +
     0.05 N, B = 0.05 N, PSD lxx, luu = R diag(lam) R^T with one eigenvalue
     in [-0.8, -0.3] at half of the stages (the ladder regularizes them to
     the level 1.111, away from a level boundary, so the gain solves stay
     well conditioned), lux = 0.1 N, a PSD terminal Hessian, and delta
-    bounds around 0.  Returns the stacks, the bounds and the share of
-    stages whose luu is indefinite."""
+    bounds around 0, over ``horizon`` stages.  Returns the stacks, the
+    bounds and the share of stages whose luu is indefinite."""
     import torch
+    T = horizon
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     n = lambda *s: torch.randn(s, generator=g, device=DEVICE)
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=g, device=DEVICE)
@@ -1887,8 +2033,17 @@ def check_nonfused_kernels(spec):
             k_k, K_k = k1.riccati_backward_pallas(*stacks, *reg, *bounds)
             k_p, K_p = k1.riccati_backward_pallas(*stacks, *reg, *bounds,
                                                   explicit=k1.riccati_backward_explicit_plain)
-            record("K4x", [compare(f"{tag} k", k_k, k_p, 1e-4, 1e-5),
-                           compare(f"{tag} K", K_k, K_p, 1e-4, 1e-5)])
+            results = [compare(f"{tag} k", k_k, k_p, 1e-4, 1e-5),
+                       compare(f"{tag} K", K_k, K_p, 1e-4, 1e-5)]
+            # ... the first GROUP_CHECK_B problems alone (a tail group), and
+            # the batch tiled above the crossover (the one-thread kernel).
+            for n, cut in [(n, first) for n in GROUP_CHECK_B] + [(ONE_THREAD_CHECK_B, tiled)]:
+                k_g, K_g = k1.riccati_backward_pallas(*cut(stacks, n, 0), *reg,
+                                                      *cut(bounds, n, 0))
+                k_w, K_w = cut((k_p, K_p), n, 0)
+                results += [compare(f"{tag} B={n} k", k_g, k_w, 1e-4, 1e-5),
+                            compare(f"{tag} B={n} K", K_g, K_w, 1e-4, 1e-5)]
+            record("K4x", results)
         del stacks, box
     x0, us, _, _, _ = main_path_inputs(spec, B, seed=20)
     xs_tail, _ = k2.rollout_cost_plain(spec, x0, us)
@@ -2658,7 +2813,8 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
     device = graph_ms([lambda b=b: k2.forward_select(spec, *b, k, K_, merit, active, lb, ub,
                                                      ladder, *al) for b in bufs], restore)
     k4 = (event_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
-          graph_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps))
+          graph_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
+          (digest(k1.riccati_backward(spec, *lin, xT, levels)),))
     plain = None
     if with_plain:
         b = fresh()
@@ -2706,7 +2862,10 @@ def time_constrained(entry, ilqr, card):
         rate = agents * entry.MAX_OUTER / wall
         ms, plain, bound, device, k4 = time_al_context_kernel(entry, ilqr, agents, neighbors,
                                                               agents == 64)
-        against_one_thread(agents, neighbors or agents - 1, "K6alctx", ms, device, bound)
+        lane_group_times(agents, neighbors or agents - 1, "K6alctx", ms, device, bound)
+        # The constrained game's first-iteration stacks are the game's
+        # (K4 reads no AL term), so K4 is held to phase 15's parent row.
+        against_parent({f"K4_{agents}": k4}, 24)
         log(f"[24] constrained {agents} cars, "
             f"{'all pairs' if neighbors is None else f'{neighbors} nearest'}: wall "
             f"{[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, {rate:.1f} "
@@ -2804,7 +2963,7 @@ def nonfused_kernel_entries(errs, paths, timing, by_path):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": paths[path]["launches"][key], "max_abs_err": errs[key][0],
              "max_rel_err": errs[key][1], "ms": ms[t], "plain_ms": plain[t],
-             "bound_ms": bound[t][0], "bound_by": bound[t][1], "library_ms": None,
+             **bound_keys(bound[t]), "library_ms": None,
              "batch": MAIN_BATCH, "launches_by_path": by_path(key)}
         if key == "K4x":
             e.update(ms_boxqp=ms["K4x_boxqp"], bound_ms_boxqp=bound["K4x_boxqp"][0])
@@ -2854,8 +3013,7 @@ def lane_kernel_entries(errs, cgames, crows, lane_timing, by_path):
           "launches": cgames[(64, None)]["launches"]["K6alctx"], "status": REDESIGNED,
           "max_abs_err": errs["K6alctx"][0], "max_rel_err": errs["K6alctx"][1],
           "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain"],
-          "bound_ms": row["bound"][0],
-          "bound_by": row["bound"][1], "library_ms": None, "batch": 64,
+          **bound_keys(row["bound"]), "library_ms": None, "batch": 64,
           "launches_by_path": by_path("K6alctx")}
     for (n, k), r in crows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
@@ -2874,7 +3032,7 @@ def lane_kernel_entries(errs, cgames, crows, lane_timing, by_path):
     for key, (name, source, replaces, t) in meta.items():
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": 0, "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
-             "ms": ms[t], "plain_ms": plain[t], "bound_ms": bound[t][0], "bound_by": bound[t][1],
+             "ms": ms[t], "plain_ms": plain[t], **bound_keys(bound[t]),
              "library_ms": None, "batch": MAIN_BATCH, "launches_by_path": by_path(key)}
         if key == "K8":
             e.update(ms_continuous=ms["K8_continuous"],
@@ -3057,10 +3215,7 @@ def time_kernels(spec, B, with_plain):
         "K1": B * T * (OPS_DUAL_STAGE + OPS_STAGE_CORE),
         "K2": B * T * A * (OPS_CONTROL + OPS_COST + OPS_RK4) + n_acc * T * (OPS_CONTROL + OPS_RK4),
     }
-    bound = {}
-    for name in ("K1", "K2", "K3"):
-        t_bytes, t_ops = bytes_[name] / PEAK_BYTES * 1e3, ops[name] / PEAK_F32 * 1e3
-        bound[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ("K1", "K2", "K3")}
     log(f"  B={B}: kernel ms/launch {json.dumps({k: round(v, 6) for k, v in ms.items()})}; "
         f"K2 accepted {n_acc} of {B}")
     if plain:
@@ -3125,7 +3280,7 @@ def main() -> None:
     timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
     log(f"  card {card}: {rates[MAIN_BATCH]:.1f} solves/s at {MAIN_BATCH}, "
         f"{rates[BENCH_BATCH]:.1f} solves/s at {BENCH_BATCH}")
-    log(f"[5] the redesigned select at A = 3 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    log(f"[5] the redesigned select at A = 3 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
     redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3",))
     against_parent(redesigned, 5)
     for B in (MAIN_BATCH, BENCH_BATCH):
@@ -3147,7 +3302,7 @@ def main() -> None:
     log(f"[12] new kernel modes per launch, T={T}")
     new_timing = {B: time_new_kernels(spec, B, with_plain=(B == MAIN_BATCH))
                   for B in (MAIN_BATCH, BENCH_BATCH)}
-    log(f"[12] the redesigned select at A = 10 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    log(f"[12] the redesigned select at A = 10 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
     rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10",))
     against_parent(rows, 12)
     redesigned.update(rows)
@@ -3197,7 +3352,7 @@ def main() -> None:
     nf_paths = nonfused_routes(ilqr, entry, stats)
     t21 = time.perf_counter()
     nf_timing = time_nonfused(ilqr, entry, card)
-    log(f"[21] the redesigned K7 (B={MAIN_BATCH}) beside the parent's, card {card}")
+    log(f"[21] the redesigned K7 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
     rows = redesigned_rows(spec, MAIN_BATCH, ("K7", "K7_continuous"))
     against_parent(rows, 21)
     redesigned.update(rows)
@@ -3239,13 +3394,12 @@ def main() -> None:
         entry_ = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
-            "ms": ms[key], "plain_ms": plain[key], "bound_ms": bound[key][0],
-            "bound_by": bound[key][1], "library_ms": None,
+            "ms": ms[key], "plain_ms": plain[key], **bound_keys(bound[key]), "library_ms": None,
             "batch": MAIN_BATCH, "ms_at_524288": ms_big[key], "launches_by_path": by_path(key),
         }
         if key == "K1":
             entry_.update(ms_boxqp=nms["K1_boxqp"], plain_ms_boxqp=nplain["K1_boxqp"],
-                          bound_ms_boxqp=nbound["K1_boxqp"][0],
+                          **bound_keys(nbound["K1_boxqp"], "_boxqp"),
                           ms_boxqp_at_524288=nms_big["K1_boxqp"])
         if key == "K2":
             # The select without a context, redesigned: both yardsticks and
@@ -3283,7 +3437,7 @@ def main() -> None:
         "replaces": "multi_agent_solver_tpu/ops/riccati_pallas.py:302",
         "launches": general["K4"], "max_abs_err": errs["K4"][0], "max_rel_err": errs["K4"][1],
         "ms": nms["K4_per_stage"], "plain_ms": nplain["K4_per_stage"],
-        "bound_ms": nbound["K4_per_stage"][0], "bound_by": nbound["K4_per_stage"][1],
+        **bound_keys(nbound["K4_per_stage"]),
         "library_ms": None, "batch": MAIN_BATCH, "ms_at_524288": nms_big["K4_per_stage"],
         "launches_by_path": by_path("K4"),
     }
@@ -3301,12 +3455,16 @@ def main() -> None:
         # K5 has no launch of its own: its times are those of the K1 launch
         # that runs it on the boxqp path.
         "ms": nms["K1_boxqp"], "plain_ms": nplain["K1_boxqp"],
-        "bound_ms": nbound["K1_boxqp"][0], "bound_by": nbound["K1_boxqp"][1],
+        **bound_keys(nbound["K1_boxqp"]),
         "library_ms": None, "batch": MAIN_BATCH, "ms_of": "K1 with boxqp",
         "ms_over_K1_clamp": nms["K1_boxqp"] - ms["K1"],
         "ms_at_524288": nms_big["K1_boxqp"], "ms_in_K4_per_stage": nms["K4_per_stage_boxqp"],
         "launches_by_path": by_path("K5"),
     }
+    # Below the crossover K4 runs on the group kernel: its device time at
+    # the 64-car game's shapes (B = 64, T = 10), and at each game row's.
+    k4.update(status=REDESIGNED_K4, device_ms=game_rows[(64, None)]["device_ms"]["K4"],
+              device_ms_batch=64)
     for (n, k), row in game_rows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
         k4.update({f"ms_{tag}": row["ms"]["K4"], f"device_ms_{tag}": row["device_ms"]["K4"],
@@ -3323,7 +3481,7 @@ def main() -> None:
         # row's ms, and the lane-group kernel's device time (CUDA graph).
         "status": REDESIGNED, "ms": main_game["ms"]["K6_A10"],
         "device_ms": main_game["device_ms"]["K6_A10"], "plain_ms": main_game["plain"]["K6_A10"],
-        "bound_ms": main_game["bound"]["K6_A10"][0], "bound_by": main_game["bound"]["K6_A10"][1],
+        **bound_keys(main_game["bound"]["K6_A10"]),
         "library_ms": None, "batch": 64, "launches_by_path": by_path("K6"),
         "ms_rollout_mode": main_game["ms"]["K6_rollout"],
         "plain_ms_rollout_mode": main_game["plain"]["K6_rollout"],
@@ -3344,12 +3502,13 @@ def main() -> None:
         "max_abs_err": errs["K6al"][0], "max_rel_err": errs["K6al"][1],
         # Select at the state-bound configuration's 3 candidates and four
         # inequality rows (B = 262,144, T = 80).
-        "ms": al_time["ms"][3], "plain_ms": al_time["plain"][3], "bound_ms": al_time["bound"][3][0],
-        "bound_by": al_time["bound"][3][1], "library_ms": None, "batch": MAIN_BATCH,
+        "ms": al_time["ms"][3], "plain_ms": al_time["plain"][3], **bound_keys(al_time["bound"][3]),
+        "library_ms": None, "batch": MAIN_BATCH,
         "launches_by_path": by_path("K6al"), "ms_A10": al_time["ms"][10],
-        "plain_ms_A10": al_time["plain"][10], "bound_ms_A10": al_time["bound"][10][0],
+        "plain_ms_A10": al_time["plain"][10], **bound_keys(al_time["bound"][10], "_A10"),
         "al_glue_ms_per_iteration": al_time["glue_ms"], "al_glue_ms_by_part": al_time["glue_parts"],
     }
+    k6al.update(redesigned_entry(al_time["redesigned"], "K6AL_A3", "K6AL_A10", REDESIGNED_K6AL))
     kernels += [k4, k5, k6, k6al]
     for (n, kk), row in crows.items():
         tag = f"{n}_cars_{'all_pairs' if kk is None else f'{kk}nn'}"

@@ -1,20 +1,27 @@
 """Per-launch times of the port's redesigned kernels, so that two trees of
 the port can be compared on one card.
 
-Two groups of rows:
+Three groups of rows:
 
 * the coupled game's context kernels at each row of the game
   (``entry.COUPLED_ROWS``: 64, 256 and 1,024 cars) on first-iteration
   inputs: K6's context select and AL + context select (the game's 10
-  candidates), K3's context mode with and without Hessians, and K4
-  (``chip_smoke.py``'s ``time_game_kernels``, ``time_al_context_kernel``);
+  candidates), K3's context mode with and without Hessians, and K4 with
+  the digest of its gains (``chip_smoke.py``'s ``time_game_kernels``,
+  ``time_al_context_kernel``);
 * the main path's at 262,144 problems and T = 80 (``redesigned_calls``):
   K2's select without a context at the bench ladder (A = 3, phase 5's
   inputs) and the reference ladder (A = 10, phase 12's), K7 in both
-  Jacobian modes (phase 21's), each with the digests of its outputs (K2's
-  also on ``rung_inputs``', where every rung wins somewhere), so that two
-  trees' outputs are compared bit for bit, and the device ms of each
-  kernel that a call launches (a torch.profiler trace, ``kernel_split``).
+  Jacobian modes (phase 21's), K6's AL select at both ladders (phase 18's
+  inputs), K4 with per-stage Hessians in both terminal modes and K1, each
+  with the digests of its outputs (K2's and K6-AL's also on ``rung_inputs``', where
+  every rung wins somewhere), so that two trees' outputs are compared bit
+  for bit, and the device ms of each kernel that a call launches (a
+  torch.profiler trace, ``kernel_split``);
+* K4 at T = 10 on 64 to 65,536 problems (``K4_SWEEP``), on the 1,024-car
+  game's stacks, tiled, and in the explicit-terminal mode at each
+  instantiated (nx, nu), clamp and boxqp, on seeded random stacks: where
+  the group kernel and the one-thread kernel cross.
 
 Each row is timed two ways: CUDA events around 20 back-to-back wrapper
 calls (the host's cost of each call included), and a CUDA graph of 20
@@ -23,11 +30,12 @@ checkout's ``chip_smoke.py``; ``--tree DIR`` takes the package from another
 checkout instead (an earlier commit unpacked with ``git archive``), which
 builds its kernels into its own ``DIR/build/``.  Prints the card's name and
 power limit, then one JSON line ``{"tree": ..., "card": ..., "ms": {cars:
-{kernel: [wrapper-call ms, device ms]}}, "main": {row: [wrapper-call ms,
-device ms, digests, {kernel: device ms}]}}``; the log goes to
-``build/kernel_times.log``.
+{kernel: [wrapper-call ms, device ms(, digest)]}}, "main": {row: [wrapper-call
+ms, device ms, digests, {kernel: device ms}]}, "k4_sweep": {instantiation:
+{problems: [wrapper-call ms, device ms, digest]}}}``; the log goes to
+``build/kernel_times.log``.  ``--parts`` and ``--rows`` time a subset.
 
-    python3 kernel_times.py [--tree DIR]
+    python3 kernel_times.py [--tree DIR] [--parts games main sweep] [--rows K1 ...]
 
 Run two trees alternately on one machine (a, b, b, a) to compare them: the
 host's share of a wrapper call varies from machine to machine.
@@ -43,7 +51,55 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-MAIN_ROWS = ("K2_A3", "K2_A10", "K7", "K7_continuous")
+MAIN_ROWS = ("K2_A3", "K2_A10", "K7", "K7_continuous", "K6AL_A3", "K6AL_A10", "K4_per_stage",
+             "K4_explicit", "K1")
+K4_SWEEP = (64, 256, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+PARTS = ("games", "main", "sweep")
+
+
+def k4_sweep(cs, entry):
+    """``{instantiation: {B: [ms a wrapper call, ms a launch on the device,
+    digest]}}`` of K4 at each K4_SWEEP batch, T = 10: "game" on the 1,024-car
+    game's first-iteration stacks (K3's context mode; (4, 2), clamp,
+    per-stage Hessians, the terminal cost's value), tiled along the batch;
+    "explicit NXxNU clamp" / "... boxqp" in the explicit-terminal mode on
+    ``chip_smoke.random_riccati_stacks``' seeded stacks, each instantiated
+    (nx, nu), the first B problems."""
+    import torch
+    from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG, SWEEP_CONFIG
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    spec, x0, us, ctx = cs.game_inputs(entry, *entry.COUPLED_ROWS[-1])
+    levels = k1.reg_ladder(SWEEP_CONFIG.reg_init, SWEEP_CONFIG.reg_factor, SWEEP_CONFIG.reg_levels)
+    xs_tail, _ = k2.rollout_cost(spec, x0, us, ctx)
+    xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
+    lin = k3.linearize(spec, xs, us, True, ctx) + (xs_tail[-1],)
+    runs = {"game": lambda B: [a.repeat(*([1] * (a.dim() - 1)), -(-B // x0.shape[1]))[..., :B]
+                               for a in lin]}
+    for nx, nu in k1.EXPLICIT_DIMS:
+        stacks, box, _ = cs.random_riccati_stacks(nx, nu, K4_SWEEP[-1], seed=19 * nx + nu,
+                                                  horizon=xs.shape[0])
+        stacks = [k1.stage_major(a) for a in stacks]
+        box = [k1.stage_major(a) for a in box]
+        runs[f"explicit {nx}x{nu} clamp"] = lambda B, s=stacks: [a[..., :B] for a in s]
+        runs[f"explicit {nx}x{nu} boxqp"] = lambda B, s=stacks + box: [a[..., :B] for a in s]
+    explicit_levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor,
+                                    BENCH_CONFIG.reg_levels)
+    out = {}
+    for name, cut in runs.items():
+        out[name] = {}
+        for B in K4_SWEEP:
+            a = [t.contiguous() for t in cut(B)]
+            if name == "game":
+                call = lambda: k1.riccati_backward(spec, *a, levels)
+            else:
+                call = lambda: k1.riccati_backward_explicit(*a[:9], explicit_levels, *a[9:])
+            ms, device = cs.time_calls([call] * 20)
+            out[name][B] = [ms, device, cs.digest(call())]
+            cs.log(f"  K4 {name} at B={B}, T={xs.shape[0]}: {ms:.6f} ms a wrapper call, "
+                   f"{device:.6f} ms a launch on the device (CUDA graph); gains digest "
+                   f"{out[name][B][2]}")
+            del a
+    return out
 
 
 def kernel_split(fns):
@@ -71,7 +127,12 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=str(HERE),
                         help="root of the checkout whose package is timed (default: this one)")
-    tree = Path(parser.parse_args().tree).resolve()
+    parser.add_argument("--parts", nargs="+", choices=PARTS, default=PARTS,
+                        help="which groups of rows to time (default: all)")
+    parser.add_argument("--rows", nargs="+", choices=MAIN_ROWS, default=MAIN_ROWS,
+                        help="which of the main path's rows to time (default: all)")
+    args = parser.parse_args()
+    tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     # chip_smoke.py of this checkout, whatever the tree timed.
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -95,25 +156,30 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
     _build.library()
     cs.log(f"tree {tree}, package {pkg.__file__}, card {card}")
-    rows = {}
-    for agents, neighbors in entry.COUPLED_ROWS:
-        ms, _, _, device = cs.time_game_kernels(entry, agents, neighbors, with_plain=False)
-        al_ms, _, _, al_device, _ = cs.time_al_context_kernel(entry, ilqr, agents, neighbors, False)
-        row = {name: [ms[name], device[name]] for name in ("K6_A10", "K3ctx_hess", "K3ctx", "K4")}
+    rows, main_rows, sweep = {}, {}, {}
+    for agents, neighbors in entry.COUPLED_ROWS if "games" in args.parts else ():
+        ms, _, _, device, k4_digest = cs.time_game_kernels(entry, agents, neighbors,
+                                                           with_plain=False)
+        al_ms, _, _, al_device, _ = cs.time_al_context_kernel(entry, ilqr, agents, neighbors,
+                                                              False)
+        row = {name: [ms[name], device[name]] for name in ("K6_A10", "K3ctx_hess", "K3ctx")}
+        row["K4"] = [ms["K4"], device["K4"], k4_digest]
         row["K6alctx"] = [al_ms, al_device]
         rows[agents] = row
-    main_rows = {}
     for row, calls, restore, digests in cs.redesigned_calls(
-            entry.single_track_spec(device=cs.DEVICE), cs.MAIN_BATCH, MAIN_ROWS):
+            entry.single_track_spec(device=cs.DEVICE), cs.MAIN_BATCH,
+            args.rows if "main" in args.parts else ()):
         ms, device = cs.time_calls(calls, restore)
         restore()
         main_rows[row] = [ms, device, digests, kernel_split(calls)]
         cs.log(f"  {row}: {ms:.6f} ms a wrapper call, {device:.6f} ms a launch on the device "
                f"(CUDA graph); by kernel {main_rows[row][3]}; output digests {' '.join(digests)}")
+    if "sweep" in args.parts:
+        sweep = k4_sweep(cs, entry)
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"tree": str(tree), "card": card, "ms": rows,
-                      "main": main_rows}))
+                      "main": main_rows, "k4_sweep": sweep}))
 
 
 if __name__ == "__main__":

@@ -57,9 +57,10 @@
 // (0.5 rho g) g per equality row, then (mu a) s + (0.5 rho s) s per
 // inequality row with the activation a = [h > -act_tol] and s = max(h, 0) a
 // (NaN kept), in the TPU kernel's order.  The multipliers do not depend on
-// alpha: each stage's are read once and shared by the candidates.  Phase 2
-// and the rollout mode take no AL.  The AL mode combines with the context
-// mode (a constrained agent of a coupled game; its instantiations are in
+// alpha: each stage's are read once a problem (its lanes together) and
+// shared by the candidates.  Phase 2 and the rollout mode take no AL.  The
+// AL mode combines with the context mode (a constrained agent of a coupled
+// game; its instantiations are in
 // forward_select_al_ctx.cu): a candidate's step is then the context stage
 // cost, base plus pair costs, plus the AL terms -- stage first, as the TPU
 // kernel sums step_cost = stage(x, u, t) + al_terms(x, u) (:167-171).
@@ -87,21 +88,21 @@
 // reference and the gains in both phases (T (NX + 2 NU + NU NX) 4 bytes a
 // phase; the AL mode adds T (M_EQ + M_IN) 4 bytes of multipliers to phase
 // 1 and about 10 operations a row per candidate and stage).  Designs:
-// * the select without a context or AL (the main path's, the sweep's, the
-//   non-fused path's), forward_select_lanes_kernel: a lane a candidate, the
-//   A lanes of a problem packed side by side in a warp, selection by a
-//   ballot, and phase 2 in a second launch, forward_select_reroll_kernel, a
-//   thread an accepted problem.  At 262,144 problems and T = 80 phase 1 is
-//   bound by its issue slots (the candidates' arithmetic on 30 of 32 lanes
-//   at A = 10) and phase 2 by its bytes: it reads the reference and the
-//   gains again and writes the trajectory.  The one-thread kernel it
-//   replaced kept A <= 16 candidates in registers and spilled at A > 4;
+// * the select without a context, with or without AL (the main path's, the
+//   sweep's, the non-fused path's, the AL solves'),
+//   forward_select_lanes_kernel: a lane a candidate, the A lanes of a
+//   problem packed side by side in a warp, selection by a ballot, and phase
+//   2 in a second launch, forward_select_reroll_kernel, a thread an
+//   accepted problem.  At 262,144 problems and T = 80 phase 1 is bound by
+//   its issue slots (the candidates' arithmetic on 30 of 32 lanes at A =
+//   10) and phase 2 by its bytes: it reads the reference and the gains
+//   again and writes the trajectory.  The one-thread kernel it replaced
+//   kept A <= 16 candidates in registers and spilled at A > 4;
 // * the context select (above): forward_select_group_kernel;
-// * the rollout, the AL select and the emit mode: one thread per problem
-//   with the A <= 16 candidate states and costs in registers (the TPU
-//   kernel's VMEM scratch), the t loop inside the thread, coalesced
-//   batch-innermost loads; phase 2 runs only where a candidate was
-//   accepted.
+// * the rollout and the emit mode: one thread per problem with the A <= 16
+//   candidate states and costs in registers (the TPU kernel's VMEM
+//   scratch), the t loop inside the thread, coalesced batch-innermost
+//   loads; the emit mode's phase 2 re-rolls every problem.
 // Every kernel runs a candidate's stage through one device function,
 // candidate_step, and the in-place re-roll through reroll_in_place, so a
 // candidate's arithmetic and its order are the same in all of them and the
@@ -331,31 +332,24 @@ __device__ __forceinline__ void emit_linearization(const EmitOut& e, const Dyn& 
     for (int j = 0; j < NX; ++j) e.lux[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
 }
 
-template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA,
-          bool INIT, bool EMIT = false, bool LIN_DISCRETE = true>
+template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT, bool EMIT = false,
+          bool LIN_DISCRETE = true>
 __global__ void __launch_bounds__(128) forward_select_kernel(
     const float* __restrict__ x0, float* xs, float* us, float* xT,
     const float* __restrict__ k, const float* __restrict__ K,
     const float* __restrict__ merit, const bool* __restrict__ active,
     const float* __restrict__ lb_in, const float* __restrict__ ub_in,
     float* __restrict__ cost_out, bool* __restrict__ accept_out,
-    const float* __restrict__ ctx, const float* __restrict__ eq_mult,
-    const float* __restrict__ ineq_mult, const float* __restrict__ rho, float act_tol,
-    Dyn dyn, Cost cost, Term term, Eq eq, In in, Step h, Alphas alphas, int T, int B,
-    int n_ctx, int c_ctx, EmitOut emit) {
+    const float* __restrict__ ctx, Dyn dyn, Cost cost, Term term, Step h, Alphas alphas, int T,
+    int B, int n_ctx, int c_ctx, EmitOut emit) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  constexpr bool AL = Eq::M + In::M > 0;
-  static_assert(!(AL && INIT), "the AL mode is a select mode");
-  static_assert(!(EMIT && (AL || INIT)), "the emit mode is a select mode without AL");
+  static_assert(!(EMIT && INIT), "the emit mode is a select mode");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
   const int A = INIT ? 1 : alphas.n;
-  AlStage<Eq::M, In::M> al;
-  if constexpr (AL) {
-    al.half_rho = 0.5f * rho[b];
-    al.act_tol = act_tol;
-  }
+  const NoConstraint nc{};
+  const AlStage<0, 0> al{};
 
   float lb[NU], ub[NU];
   const bool bounded = !INIT && lb_in != nullptr;
@@ -382,7 +376,6 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
   for (int t = 0; t < T; ++t) {
     StageRef<NX, NU> s;
     load_stage<NX, NU, INIT>(xs, us, k, K, t, sB, b, s);
-    load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
     // A context cost's pair sums, neighbour by neighbour (one read of each
     // for all the candidates).
     float ps[MAXA];
@@ -404,7 +397,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 #pragma unroll
     for (int a = 0; a < MAXA; ++a) {
       if (a >= A) break;
-      ca[a] = ca[a] + candidate_step<INIT>(dyn, cost, eq, in, h, s, al, xstart, alphas.v[a],
+      ca[a] = ca[a] + candidate_step<INIT>(dyn, cost, nc, nc, h, s, al, xstart, alphas.v[a],
                                            bounded ? lb : nullptr, ub, ps[a], xa[a]);
       if constexpr (INIT) {
 #pragma unroll
@@ -575,15 +568,18 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
   reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, alpha, T, sB, b);
 }
 
-// K2's select without a context or AL (the lane-follow and circular-track
-// instantiations, with or without bounds), built for the main path's
-// batches, where a launch is throughput-bound.  One lane a candidate, the A
-// lanes of a problem packed side by side: 32 / A problems a warp (A = 10:
-// three, lanes 30-31 idle; A = 3: ten), lane g A + a running candidate a of
-// the warp's problem g.  A lane keeps one candidate's state and cost in
-// registers and runs candidate_step for it, so its total is the one-thread
-// kernel's float; the lanes of a problem load its reference, gains and
-// bounds together (one address a group).  Selection: bit g A + a of a warp
+// The select without a context, K2's and (Eq / In with rows) K6's AL mode
+// (the lane-follow and circular-track instantiations, with or without
+// bounds, and the lane-follow cost's constraint rows), built for the main
+// path's batches, where a launch is throughput-bound.  One lane a
+// candidate, the A lanes of a problem packed side by side: 32 / A problems
+// a warp (A = 10: three, lanes 30-31 idle; A = 3: ten), lane g A + a running
+// candidate a of the warp's problem g.  A lane keeps one candidate's state
+// and cost in registers and runs candidate_step for it, with the AL terms
+// in the AL mode, so its total is the one-thread kernel's float; the lanes
+// of a problem load its reference, gains, bounds and multipliers together
+// (one address a group; the multipliers do not depend on alpha), and each
+// sets 0.5 rho from its problem's rho.  Selection: bit g A + a of a warp
 // ballot is candidate a's `total < merit` on a live problem; the lowest of
 // problem g's A bits wins, the serial loop's largest improving alpha.  The
 // group's first lane writes the merit, the accept flag and the kept alpha
@@ -592,13 +588,15 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
 // leave the other A - 1 idle for a whole rollout.
 constexpr int SELECT_LANES_BLOCK = 128;
 
-template <typename Dyn, typename Cost, typename Term>
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In>
 __global__ void __launch_bounds__(SELECT_LANES_BLOCK) forward_select_lanes_kernel(
     const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
     const float* __restrict__ K, const float* __restrict__ merit,
     const bool* __restrict__ active, const float* __restrict__ lb_in,
     const float* __restrict__ ub_in, float* __restrict__ cost_out,
-    bool* __restrict__ accept_out, float* __restrict__ alpha_out, Dyn dyn, Cost cost, Term term,
+    bool* __restrict__ accept_out, float* __restrict__ alpha_out,
+    const float* __restrict__ eq_mult, const float* __restrict__ ineq_mult,
+    const float* __restrict__ rho, float act_tol, Dyn dyn, Cost cost, Term term, Eq eq, In in,
     Step h, Alphas alphas, int T, int B) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   static_assert(!takes_context<Cost>::value, "the context select is forward_select_group_kernel");
@@ -626,12 +624,16 @@ __global__ void __launch_bounds__(SELECT_LANES_BLOCK) forward_select_lanes_kerne
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
     const float alpha = alphas.v[a];
-    const NoConstraint nc{};
-    const AlStage<0, 0> al{};
+    AlStage<Eq::M, In::M> al;
+    if constexpr (Eq::M + In::M > 0) {
+      al.half_rho = 0.5f * rho[b];
+      al.act_tol = act_tol;
+    }
     for (int t = 0; t < T; ++t) {
       StageRef<NX, NU> s;
       load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
-      c = c + candidate_step<false>(dyn, cost, nc, nc, h, s, al, nullptr, alpha,
+      load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
+      c = c + candidate_step<false>(dyn, cost, eq, in, h, s, al, nullptr, alpha,
                                     bounded ? lb : nullptr, ub, 0.0f, x);
     }
   }
@@ -688,17 +690,15 @@ struct Args {
   int T, B, n_ctx, c_ctx;
 };
 
-template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA,
-          bool INIT, bool EMIT = false, bool LIN_DISCRETE = true>
-void launch_one(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Eq& eq,
-                const In& in, const Step& h, const Alphas& al, cudaStream_t stream,
-                const EmitOut& emit = EmitOut()) {
+template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT, bool EMIT = false,
+          bool LIN_DISCRETE = true>
+void launch_one(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Step& h,
+                const Alphas& al, cudaStream_t stream, const EmitOut& emit = EmitOut()) {
   const int block = 128;
   const int grid = (a.B + block - 1) / block;
-  forward_select_kernel<Dyn, Cost, Term, Eq, In, MAXA, INIT, EMIT, LIN_DISCRETE>
+  forward_select_kernel<Dyn, Cost, Term, MAXA, INIT, EMIT, LIN_DISCRETE>
       <<<grid, block, 0, stream>>>(a.x0, a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb,
-                                   a.ub, a.cost_out, a.accept_out, a.ctx, a.eq_mult,
-                                   a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h,
+                                   a.ub, a.cost_out, a.accept_out, a.ctx, dyn, cost, term, h,
                                    al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
 }
 
@@ -715,25 +715,25 @@ void launch_group(const Args& a, const Dyn& dyn, const Cost& cost, const Term& t
 }
 
 // The lane select, then the re-roll of its accepted problems.
-template <typename Dyn, typename Cost, typename Term>
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In>
 void launch_lanes(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term,
-                  const Step& h, const Alphas& al, cudaStream_t stream) {
+                  const Eq& eq, const In& in, const Step& h, const Alphas& al,
+                  cudaStream_t stream) {
   const int per_warp = 32 / al.n;
   const long long lanes = (static_cast<long long>(a.B) + per_warp - 1) / per_warp * 32;
   const int grid = static_cast<int>((lanes + SELECT_LANES_BLOCK - 1) / SELECT_LANES_BLOCK);
-  forward_select_lanes_kernel<Dyn, Cost, Term><<<grid, SELECT_LANES_BLOCK, 0, stream>>>(
+  forward_select_lanes_kernel<Dyn, Cost, Term, Eq, In><<<grid, SELECT_LANES_BLOCK, 0, stream>>>(
       a.xs, a.us, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out, a.accept_out, a.alpha_out,
-      dyn, cost, term, h, al, a.T, a.B);
+      a.eq_mult, a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h, al, a.T, a.B);
   const int block = 128;
   forward_select_reroll_kernel<Dyn><<<(a.B + block - 1) / block, block, 0, stream>>>(
       a.xs, a.us, a.xT, a.k, a.K, a.lb, a.ub, a.accept_out, a.alpha_out, dyn, h, a.T, a.B);
 }
 
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
-// init == 0: select mode: without a context or AL on the lane kernel (a
-// lane a candidate; alpha_out [B] its scratch), with a context on the group
-// kernel (lanes a group) and in the AL mode on the one-thread kernel, both
-// sized 4 or 16 by n_alphas.
+// init == 0: select mode: without a context, with or without AL, on the
+// lane kernel (a lane a candidate; alpha_out [B] its scratch), with a
+// context on the group kernel (lanes a group, sized 4 or 16 by n_alphas).
 // ctx [T, n_ctx, c_ctx, B] is read only by a Coupled stage cost; eq_mult
 // [T, m_eq, B], ineq_mult [T, m_in, B] and rho [B] only by an AL
 // instantiation (select mode; m_eq = Eq::M and m_in = In::M).
@@ -768,29 +768,25 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
       if constexpr (AL)
         return bad;
       else
-        launch_one<Dyn, Cost, Term, Eq, In, 1, true>(args, dyn, cost, term, eq, in, h, al,
-                                                     stream);
+        launch_one<Dyn, Cost, Term, 1, true>(args, dyn, cost, term, h, al, stream);
     } else if (al.n <= 4) {
       launch_group<Dyn, Cost, Term, Eq, In, 4>(args, dyn, cost, term, eq, in, h, al, stream);
     } else {
       launch_group<Dyn, Cost, Term, Eq, In, MAX_ALPHAS>(args, dyn, cost, term, eq, in, h, al,
                                                         stream);
     }
-  } else if constexpr (AL) {
-    if (init) return bad;
-    if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, Eq, In, 4, false>(args, dyn, cost, term, eq, in, h, al, stream);
-    else
-      launch_one<Dyn, Cost, Term, Eq, In, MAX_ALPHAS, false>(args, dyn, cost, term, eq, in, h,
-                                                             al, stream);
   } else {
-    // The select runs on the lane kernel and its re-roll (alpha_out: the
-    // caller's [B] scratch), the rollout mode on the one-thread kernel.
+    // The select, with or without AL, runs on the lane kernel and its
+    // re-roll (alpha_out: the caller's [B] scratch), the rollout mode on the
+    // one-thread kernel.
     if (init) {
-      launch_one<Dyn, Cost, Term, Eq, In, 1, true>(args, dyn, cost, term, eq, in, h, al, stream);
+      if constexpr (AL)
+        return bad;
+      else
+        launch_one<Dyn, Cost, Term, 1, true>(args, dyn, cost, term, h, al, stream);
     } else {
       if (args.alpha_out == nullptr) return bad;
-      launch_lanes<Dyn, Cost, Term>(args, dyn, cost, term, h, al, stream);
+      launch_lanes<Dyn, Cost, Term, Eq, In>(args, dyn, cost, term, eq, in, h, al, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -804,7 +800,6 @@ int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discre
                                const float* dyn_p, const float* cost_p, const float* term_p,
                                const float* step_p, const float* alphas, int n_alphas,
                                cudaStream_t stream) {
-  using NC = NoConstraint;
   const Dyn dyn = Dyn::from(dyn_p);
   const Cost cost = Cost::from(cost_p);
   const Term term = Term::from(term_p);
@@ -822,23 +817,19 @@ int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discre
   Alphas al;
   al.n = n_alphas;
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = a < al.n ? alphas[a] : 0.0f;
-  const NC nc{};
   if (discrete) {
     if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, NC, NC, 4, false, true, true>(args, dyn, cost, term, nc, nc, h,
-                                                               al, stream, emit);
+      launch_one<Dyn, Cost, Term, 4, false, true, true>(args, dyn, cost, term, h, al, stream, emit);
     else
-      launch_one<Dyn, Cost, Term, NC, NC, MAX_ALPHAS, false, true, true>(args, dyn, cost, term,
-                                                                        nc, nc, h, al, stream,
-                                                                        emit);
+      launch_one<Dyn, Cost, Term, MAX_ALPHAS, false, true, true>(args, dyn, cost, term, h, al,
+                                                                stream, emit);
   } else {
     if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, NC, NC, 4, false, true, false>(args, dyn, cost, term, nc, nc,
-                                                                h, al, stream, emit);
+      launch_one<Dyn, Cost, Term, 4, false, true, false>(args, dyn, cost, term, h, al, stream,
+                                                        emit);
     else
-      launch_one<Dyn, Cost, Term, NC, NC, MAX_ALPHAS, false, true, false>(args, dyn, cost, term,
-                                                                         nc, nc, h, al, stream,
-                                                                         emit);
+      launch_one<Dyn, Cost, Term, MAX_ALPHAS, false, true, false>(args, dyn, cost, term, h, al,
+                                                                 stream, emit);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,13 @@
 // whose box QP enumerates 81 configurations and takes most of the build --
 // in clamp and boxqp (K5) mode.  The mode evaluates no user function, so
 // one entry point serves every problem of those dimensions; a pair without
-// one raises in ops/riccati.py.
+// one raises in ops/riccati.py.  The group kernel's (8, 4) launches are
+// instantiated in riccati_explicit_wide_group.cu.
 // Compiled beside riccati.cu so the build stays parallel.
 #include "riccati.cuh"
+
+MAS_BACKWARD_GROUP(extern template, mas::GivenValue, 8, 4, true, false);
+MAS_BACKWARD_GROUP(extern template, mas::GivenValue, 8, 4, false, false);
 
 #define MAS_RICCATI_EXPLICIT(NX, NU)                                                        \
   extern "C" int mas_riccati_explicit__##NX##x##NU(                                         \

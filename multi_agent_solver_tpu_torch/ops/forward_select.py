@@ -24,10 +24,10 @@ of the select kernel, K6 in the ROADMAP's numbering): the stage cost is
 then ``stage_cost(x, u, t, ctx_t)``, as with the TPU kernel's ``ctx_l``.
 The select mode with a context (with or without AL) launches a lane-group
 kernel, one candidate a lane (``forward_select_group_kernel``); without a
-context or AL a lane kernel (``forward_select_lanes_kernel``, the A lanes
-of a problem packed in a warp) and its re-roll launch, which reads the kept
-alphas from a ``[B]`` scratch tensor that the wrapper allocates.  Their
-results are the one-thread kernel's bit for bit.
+context (with or without AL) a lane kernel (``forward_select_lanes_kernel``,
+the A lanes of a problem packed in a warp) and its re-roll launch, which
+reads the kept alphas from a ``[B]`` scratch tensor that the wrapper
+allocates.  Their results are the one-thread kernel's bit for bit.
 
 The select mode also has an AL mode (K6's other half, the TPU kernel's
 ``eq_mult_l`` / ``ineq_mult_l`` / ``rho_l``): with ``rho [B]`` and the
@@ -337,7 +337,7 @@ def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas,
     merit_new = torch.empty(B, dtype=torch.float32, device=dev)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
     # The lane select's kept alphas, read by its re-roll launch.
-    kept = torch.empty(B, dtype=torch.float32, device=dev) if ctx is None and not has_al else None
+    kept = torch.empty(B, dtype=torch.float32, device=dev) if ctx is None else None
     with torch.cuda.device(dev):
         launch(symbol, 0, None, xs, us, xT, k, K, merit, active, lb, ub, merit_new,
                accept, kept, ctx, eq_mult, ineq_mult, rho, act_tol, T, B, n_ctx, nx, m_eq, m_in,

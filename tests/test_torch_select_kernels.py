@@ -14,7 +14,9 @@ the references:
   shifted by the group's offset.  The transcription must cover every
   (problem, candidate) once and give ``ops/forward_select.py::_score``'s
   serial winner, merit and alpha at A = 1, 3, 10 and 16 on totals with
-  NaNs, infinities, ties and frozen problems.
+  NaNs, infinities, ties and frozen problems, and -- K6's AL select runs on
+  the same kernel -- at A = 3 and 10 on AL totals (the state-bound rows and
+  an equality row, random multipliers), against the AL ``_score`` itself.
 * The plain select at the reference's 10-rung ladder (the ladder of the
   non-fused routes and the circular sweep, which the lane kernel runs
   there) meets the JAX package's ``forward_select_pallas_tiled`` in
@@ -85,18 +87,64 @@ def lane_select(totals, merit, live, alphas):
     return best, sel, found, runs
 
 
-@pytest.mark.parametrize("A", [1, 3, 10, 16])
-def test_lane_select_matches_serial_winner(A):
+def _al_case(A, nb):
+    """AL select inputs at T = 3 (lane-follow problems, the state-bound
+    configuration's four inequality rows and an equality row, multipliers
+    U(-2, 2) / U(0, 3) and rho 10^U(0, 3)): each candidate's total ``[A,
+    nb]`` (``_score`` at that alpha alone, merit +inf), merits 0.1% above a
+    random rung's total (three of them +inf, -inf and NaN; two problems with
+    a NaN x_0), the live mask, the ladder, and the AL ``_score``'s own
+    ``(best, sel, found)`` over the whole ladder."""
+    from multi_agent_solver_tpu_torch.ocp import bound_rows
+    Tl = 3
+    rng = np.random.RandomState(900 + A)
+    spec = entry.state_bound_specs(1, device="cpu", horizon=Tl)
+    spec = spec.replace(equality_constraints=bound_rows(("u", 0, 0.1, "lower")), eq_dim=1)
+    alphas = (entry.BENCH_CONFIG.alpha_ladder if A == 3
+              else _alpha_ladder_floats(entry.BENCH_CONFIG.alpha_min))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    xs = t(np.repeat(entry.bench_x0(nb).T[None], Tl, 0))
+    xs[0, 0, :2] = float("nan")
+    us = t(np.stack([rng.uniform(-0.7, 0.7, (Tl, nb)), rng.uniform(-1, 1, (Tl, nb))], 1))
+    k = t(rng.uniform(-1.5, 1.5, (Tl, NU, nb)))
+    K = t(rng.uniform(-0.5, 0.5, (Tl, NU, NX, nb)))
+    lbT = t(np.broadcast_to([-0.7, -1.0], (nb, NU)))
+    al = (t(rng.uniform(-2, 2, (Tl, 1, nb))), t(rng.uniform(0, 3, (Tl, spec.ineq_dim, nb))),
+          t(10.0 ** rng.uniform(0, 3, nb)), 1e-6)
+    score = lambda merit, live, ladder: k2._score(spec, xs, us, k, K, merit, live, lbT, -lbT,
+                                                  ladder, None, *al)
+    inf, everyone = torch.full((nb,), float("inf")), torch.ones(nb, dtype=torch.bool)
+    totals = np.stack([score(inf, everyone, (a,))[1].numpy() for a in alphas])
+    merit = (totals[rng.randint(0, A, nb), np.arange(nb)] * 1.001).astype(np.float32)
+    merit[2:5] = (np.inf, -np.inf, np.nan)
+    live = rng.uniform(size=nb) < 0.9
+    _, best, sel, found = score(t(merit), torch.as_tensor(live), alphas)
+    return totals, merit, live, alphas, (best.numpy(), sel.numpy(), found.numpy())
+
+
+@pytest.mark.parametrize("A, al", [pytest.param(A, False, id=str(A)) for A in (1, 3, 10, 16)]
+                         + [pytest.param(A, True, id=f"{A}-al") for A in (3, 10)])
+def test_lane_select_matches_serial_winner(A, al):
     rng = np.random.RandomState(800 + A)
     nb = 700                      # not a multiple of any warp's problem count
-    values = np.array([1.0, 2.0, 2.5, 3.0, np.nan, np.inf, -np.inf], np.float32)
-    # Few distinct values: ties between candidates and with the merit.
-    totals = rng.choice(values, (A, nb)).astype(np.float32)
-    totals[:, : nb // 4] = rng.uniform(0, 4, (A, nb // 4)).astype(np.float32)
-    merit = rng.choice(values[:5], nb).astype(np.float32)
-    live = rng.uniform(size=nb) < 0.8
-    alphas = tuple(float(a) for a in 0.5 ** np.arange(A))
+    if al:
+        totals, merit, live, alphas, want = _al_case(A, nb)
+        # Every rung wins somewhere.
+        assert (np.argmax(totals < merit, 0)[want[2]] == np.arange(A)[:, None]).any(1).all()
+    else:
+        values = np.array([1.0, 2.0, 2.5, 3.0, np.nan, np.inf, -np.inf], np.float32)
+        # Few distinct values: ties between candidates and with the merit.
+        totals = rng.choice(values, (A, nb)).astype(np.float32)
+        totals[:, : nb // 4] = rng.uniform(0, 4, (A, nb // 4)).astype(np.float32)
+        merit = rng.choice(values[:5], nb).astype(np.float32)
+        live = rng.uniform(size=nb) < 0.8
+        alphas = tuple(float(a) for a in 0.5 ** np.arange(A))
     want_best, want_sel, want_found = _score_of(totals, merit, live, alphas)
+    if al:
+        # The serial winner on the totals is the AL select's own.
+        np.testing.assert_array_equal(want_found, want[2])
+        np.testing.assert_array_equal(want_best, want[0])
+        np.testing.assert_array_equal(want_sel[want_found], want[1][want_found])
     best, sel, found, runs = lane_select(totals, merit, live, alphas)
     assert (runs == 1).all()
     assert 0 < want_found.sum() < nb
