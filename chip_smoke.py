@@ -37,9 +37,9 @@ Phases, each reported on its own lines:
    anchors of docs/BENCHMARKS.md, launch counts K3 = 1, K2 = 1 + iterations,
    K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
    kernels' times per launch; the redesigned select at the bench ladder
-   a wrapper call (CUDA events around 20 calls) and a launch on the device
-   (a CUDA graph of 20), and its output digests, which must be the parent
-   commit's (PARENT_DIGEST);
+   and K1, each a wrapper call (CUDA events around 20 calls) and a launch
+   on the device (a CUDA graph of 20), and their output digests, which
+   must be the parent commit's (PARENT_DIGEST);
 and, run after phase 5 and before 6 and 7, in this order:
 
 8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
@@ -62,8 +62,8 @@ and, run after phase 5 and before 6 and 7, in this order:
 12. the new kernels' times per launch and bounds at 262,144 and 524,288
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
    with and without Hessians; K2 at 10 candidates; K1 with boxqp); the
-   redesigned select at 10 candidates on both yardsticks, and its
-   digests, which must be the parent's;
+   redesigned select at 10 candidates and K1 with boxqp on both
+   yardsticks, and their digests, which must be the parent's;
 13. K3 and K2 in context mode (K6) against their plain versions at
    B = 8192, T = 10, with K = 8 and 63 neighbours, K3 also at B = 64 and
    256 (its 32- and 8-lane instantiations), the select at 10 and 3
@@ -120,8 +120,9 @@ and, run after phase 5 and before 6 and 7, in this order:
 21. solves/s of each of those routes (median of 5), K4 explicit, K7, K3
    and K1 continuous per launch with their plain ms and bounds, the
    non-fused glue per iteration by part, and the single solve's wall ms
-   in float32 and float64; the redesigned K7 in both modes on both
-   yardsticks, and its digests, which must be the parent's;
+   in float32 and float64; the redesigned K7 in both modes and K1 in the
+   continuous mode on both yardsticks, and their digests, which must be
+   the parent's;
 22. K6 in AL and context mode at once (the game's inequality row, and a
    row on each side) against its plain version at B = 8192, T = 10,
    K = 8 and 63, 3 and 10 candidates; K8 at B = 8192, T = 80 in both
@@ -212,6 +213,14 @@ PEAK_BYTES, PEAK_F32, PEAK_ISSUE = 3.35e12, 67e12, 33.5e12
 # test), the float lane-follow cost and feedback control, the one-stage
 # K3 work with second-order duals.
 OPS_RK4, OPS_DUAL_STAGE, OPS_STAGE_CORE = 80, 932, 818
+# A stage of K1, whole (linearization, stage core, clamp gain solve), in
+# the discrete and the continuous mode, and the clamp gain solve that K5
+# replaces under boxqp: op_counts.py traces K1's arithmetic and counts only
+# what the function needs (no products by structural zeros or ones, such
+# as the dual seeds, the tangents that stay zero, the columns of A that K1
+# writes as constants and the cost's diagonal Hessians; no value that no
+# output reads; each result once).
+OPS_K1_STAGE, OPS_K1_CONT, OPS_K1_SOLVE = 677, 225, 47
 OPS_COST, OPS_CONTROL, OPS_K3 = 24, 28, 3300
 # The box-QP stage solve (K5) at nu = 2, counted from csrc/riccati.cu:
 # 9 configurations (one 2x2 and four 1x1 Gauss-Jordan solves, gradients,
@@ -262,6 +271,9 @@ REDESIGNED_K7 = "redesigned: coalesced spans through shared memory"
 REDESIGNED_K6AL = "redesigned: on K2's lane kernel (a lane a candidate), a re-roll launch"
 REDESIGNED_K4 = ("redesigned: a group of lanes a problem, inputs prefetched, up to "
                  "backward_group_max_b problems")
+# K1 in its three modes: the linearization in the tangents the dynamics
+# read, each transcendental once.
+REDESIGNED_K1 = "redesigned: live tangents only, each transcendental once"
 # Each redesigned kernel's name in the ptxas report of phase 2 (the lane
 # select's instantiations with constraint rows are K6-AL's).
 REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
@@ -269,7 +281,8 @@ REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
                       "forward_select_lanes_kernel": f"{REDESIGNED_K2}; with rows, K6-AL",
                       "forward_select_reroll_kernel": REDESIGNED_K2,
                       "linearize_flat_kernel": REDESIGNED_K7,
-                      "riccati_backward_group_kernel": REDESIGNED_K4}
+                      "riccati_backward_group_kernel": REDESIGNED_K4,
+                      "riccati_fusedlin_kernel": REDESIGNED_K1}
 # K4 launches up to its crossover (csrc/riccati.cuh: backward_group_max_b,
 # 64 to 16,384 problems by (nx, nu) and mode) run on the group kernel, so
 # phases 8 and 19 check K4 at CHECK_BATCH and on the first GROUP_CHECK_B
@@ -281,9 +294,11 @@ GROUP_CHECK_B, ONE_THREAD_CHECK_B = (61, 1001), 5 * CHECK_BATCH
 # replaced, on redesigned_calls' inputs (K2: the timed inputs, then
 # rung_inputs'; K6-AL: al_inputs' and rung_inputs', each with the
 # inequality rows alone and with the equality row) and of K4's gains on
-# the games' first-iteration stacks (64, 256 and 1,024 cars, T = 10), from
-# kernel_times.py's runs of the trees of commit 0fb1bda (K2, K7) and
-# d50f335 (K6-AL, K4): the redesigned kernels must give them bit for bit.
+# the games' first-iteration stacks (64, 256 and 1,024 cars, T = 10) and
+# of K1's gains in its three modes (redesigned_calls' two inputs, -0
+# folded into +0), from kernel_times.py's runs of the trees of commit
+# 0fb1bda (K2, K7), d50f335 (K6-AL, K4) and d206199 (K1): the redesigned
+# kernels must give them bit for bit.
 # (Those runs' times are in PERF.md.)
 PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
                  "K2_A10": ("44e13541c3755be7", "7cf3af587ccf2b51"),
@@ -293,7 +308,10 @@ PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
                  "K6AL_A10": ("fb1292a03fbfe412", "21d4bda75f71e804", "42b2da8539c3181b",
                               "f9bbb6d51a381b72"),
                  "K4_64": ("a1026d2026998b10",), "K4_256": ("2a56e84fbbb65615",),
-                 "K4_1024": ("46b562a66d7fc77b",)}
+                 "K4_1024": ("46b562a66d7fc77b",),
+                 "K1": ("a26be1e4d7094ac1", "3c17e05a1c93575f"),
+                 "K1_boxqp": ("2a487111de00afd3", "5a4dabaec345ff2a"),
+                 "K1_continuous": ("5e4c6069171b0607", "735dc8948107a58e")}
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -554,18 +572,23 @@ def redesigned_calls(spec, B, rows, reps=20):
     both ladders on al_inputs, timed with the four inequality rows of the
     state-bound configuration), and "K4_per_stage" / "K4_explicit" (K4 on
     K3's whole-horizon stacks, in-kernel terminal and explicit-terminal
-    mode) and "K1" (phase 5's inputs).  The inputs are iteration-1 inputs of the main path (zero
+    mode) and "K1", "K1_boxqp", "K1_continuous" (K1 in its three modes on
+    phase 5's inputs; boxqp with the input bounds as delta bounds).  The
+    inputs are iteration-1 inputs of the main path (zero
     controls; al_inputs' draw for K6-AL); the select works in place, so each
     call gets its own buffers.  A K2 row has a second digest, of a call on
     rung_inputs' (every rung wins somewhere; frozen problems; NaN and
     infinite totals and merits); a K6-AL row has four: al_inputs' and
     rung_inputs', each with the inequality rows alone and with the equality
-    row too."""
+    row too; a K1 row two, with -0 folded into +0: the timed inputs', and
+    those of the rollout under main_path_inputs' drawn controls, where
+    tan(delta) and every tangent of the linearization carry weight."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
     from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
     x0, us0, lb, ub, _ = main_path_inputs(spec, B, seed=2)
+    us_drawn = us0.clone()
     us0.zero_()                                   # the main path's warm start
     active = torch.ones(B, dtype=torch.bool, device=x0.device)
     levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor, BENCH_CONFIG.reg_levels)
@@ -575,11 +598,23 @@ def redesigned_calls(spec, B, rows, reps=20):
     for row in rows:
         if row.startswith("K6AL"):
             yield (row,) + al_select_calls(B, int(row.split("_A")[1]), reps)
-        elif row == "K1":
+        elif row.startswith("K1"):
             hess = [h[0] for h in k3.linearize(spec, x0[None].contiguous(),
                                                us0[:1].contiguous(), True)[4:]]
-            call = lambda: k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels)
-            yield row, [call] * reps, lambda: None, (digest(call()),)
+            disc = row != "K1_continuous"
+
+            def k1_call(xs_, us_, xT_):
+                box = (((lb[None] - us_).contiguous(), (ub[None] - us_).contiguous())
+                       if row == "K1_boxqp" else (None, None))
+                return lambda: k1.riccati_fusedlin(spec, xs_, us_, *hess, xT_, levels, *box,
+                                                   discrete=disc)
+            call = k1_call(xs, us0, xT)
+            tail, _ = k2.rollout_cost(spec, x0, us_drawn)
+            drawn = k1_call(torch.cat([x0[None], tail[:-1]], 0).contiguous(), us_drawn,
+                            tail[-1].clone())
+            digests = tuple(digest([t + 0.0 for t in fn()]) for fn in (call, drawn))
+            del tail, drawn
+            yield row, [call] * reps, lambda: None, digests
         elif row.startswith("K4"):
             lin = k3.linearize(spec, xs, us0, True)
             if row == "K4_per_stage":
@@ -1072,7 +1107,8 @@ def circular_sweep(ilqr, entry, stats):
         out[B] = {"agents": agents, "scenarios": scenarios, "launches": launches,
                   "iterations": it, "agent_solves_per_s": rate, "per_agent_cost": per_agent}
         if (agents, scenarios) == SWEEP_BIG:
-            kms = time_sweep_kernels(specs)
+            kms, select_bound = time_sweep_kernels(specs)
+            out[B].update(kernel_ms=kms, select_bound=select_bound)
             in_kernels = (kms["K2_rollout"] + launches["K3"] * kms["K3_hess"]
                           + launches["K4"] * kms["K4"] + (launches["K2"] - 1) * kms["K2_A10"])
             solve_ms = B / rate * 1e3
@@ -1083,7 +1119,8 @@ def circular_sweep(ilqr, entry, stats):
 
 def time_sweep_kernels(specs):
     """Per-launch device time of the sweep's kernels at its shapes (T = 10,
-    iteration-1 inputs: the agents' x0, zero controls)."""
+    iteration-1 inputs: the agents' x0, zero controls), and the select's
+    bound on these inputs."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import SWEEP_CONFIG
@@ -1101,6 +1138,9 @@ def time_sweep_kernels(specs):
     xT = xs_tail[-1].clone()
     lin = k3.linearize(specs, xs, us, True)
     k, K = k1.riccati_backward(specs, *lin, xT, levels)
+    _, accept = k2.forward_select(specs, xs.clone(), us.clone(), xT.clone(), k, K, cost, active,
+                                  lb, ub, ladder)
+    n_acc = int(accept.sum())
     reps = 5
     sel_bufs = [[xs.clone(), us.clone(), xT.clone()] for _ in range(reps)]
     ms = {
@@ -1110,9 +1150,17 @@ def time_sweep_kernels(specs):
         "K2_A10": event_ms([lambda b=b: k2.forward_select(specs, *b, k, K, cost, active, lb, ub,
                                                           ladder) for b in sel_bufs]),
     }
+    # The select's bound as time_kernels counts K2's, with the circular
+    # track's cost.
+    nx, nu, f, A = 4, 2, 4, len(ladder)
+    bound = bound_of(B * f * (T_SWEEP * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
+                     + n_acc * f * (T_SWEEP * (nx + nu) + nx),
+                     B * T_SWEEP * A * (OPS_CONTROL + OPS_TRACK + OPS_RK4)
+                     + n_acc * T_SWEEP * (OPS_CONTROL + OPS_RK4))
     log(f"  B={B}, T={T_SWEEP}: sweep kernel ms/launch "
-        f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}")
-    return ms
+        f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; K2 (A={A}) accepted {n_acc} "
+        f"of {B}, bound {bound[0]:.6f} ms ({bound[1]})")
+    return ms, bound
 
 
 def bound_of(bytes_, ops):
@@ -1215,7 +1263,7 @@ def time_new_kernels(spec, B, with_plain):
         "K4_hess_tconst": B * T * OPS_STAGE_CORE,
         "K4_per_stage_boxqp": B * T * (OPS_STAGE_CORE + box_ops),
         "K4_hess_tconst_boxqp": B * T * (OPS_STAGE_CORE + box_ops),
-        "K1_boxqp": B * T * (OPS_DUAL_STAGE + OPS_STAGE_CORE + box_ops),
+        "K1_boxqp": B * T * (OPS_K1_STAGE - OPS_K1_SOLVE + OPS_BOXQP),
         "K2_A10": B * T * A10 * (OPS_CONTROL + OPS_COST + OPS_RK4) + n_acc * T * (OPS_CONTROL + OPS_RK4),
     }
     bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
@@ -2321,7 +2369,7 @@ def time_nonfused(ilqr, entry, card):
         "K4x_boxqp": B * T * (OPS_STAGE_CORE + OPS_BOXQP - OPS_CLAMP_SOLVE),
         "K7": B * T * OPS_K3, "K7_continuous": B * T * OPS_K3_CONT,
         "K3cont_hess": B * T * OPS_K3_CONT, "K3cont": B * T * OPS_DUAL_CONT,
-        "K1cont": B * T * (OPS_DUAL_CONT + OPS_STAGE_CORE),
+        "K1cont": B * T * OPS_K1_CONT,
     }
     bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
     log(f"  B={B}: kernel ms/launch {json.dumps({k_: round(v, 6) for k_, v in ms.items()})}")
@@ -3209,13 +3257,16 @@ def time_kernels(spec, B, with_plain):
         # (+ 1 byte accept) and, where accepted, x, u and x_T.
         "K2": B * f * (T * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
               + n_acc * f * (T * (nx + nu) + nx),
+        # the rollout mode reads x0 and u and writes x and the cost
+        "K2_rollout": B * f * (nx + T * nu + T * nx + 1),
     }
     ops = {
         "K3": B * OPS_K3,
-        "K1": B * T * (OPS_DUAL_STAGE + OPS_STAGE_CORE),
+        "K1": B * T * OPS_K1_STAGE,
         "K2": B * T * A * (OPS_CONTROL + OPS_COST + OPS_RK4) + n_acc * T * (OPS_CONTROL + OPS_RK4),
+        "K2_rollout": B * T * (OPS_RK4 + OPS_COST),
     }
-    bound = {name: bound_of(bytes_[name], ops[name]) for name in ("K1", "K2", "K3")}
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
     log(f"  B={B}: kernel ms/launch {json.dumps({k: round(v, 6) for k, v in ms.items()})}; "
         f"K2 accepted {n_acc} of {B}")
     if plain:
@@ -3280,8 +3331,9 @@ def main() -> None:
     timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
     log(f"  card {card}: {rates[MAIN_BATCH]:.1f} solves/s at {MAIN_BATCH}, "
         f"{rates[BENCH_BATCH]:.1f} solves/s at {BENCH_BATCH}")
-    log(f"[5] the redesigned select at A = 3 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
-    redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3",))
+    log(f"[5] the redesigned select at A = 3 and K1 (B={MAIN_BATCH}), their digests against the "
+        f"parent's, card {card}")
+    redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3", "K1"))
     against_parent(redesigned, 5)
     for B in (MAIN_BATCH, BENCH_BATCH):
         kms = timing[B][0]
@@ -3302,8 +3354,9 @@ def main() -> None:
     log(f"[12] new kernel modes per launch, T={T}")
     new_timing = {B: time_new_kernels(spec, B, with_plain=(B == MAIN_BATCH))
                   for B in (MAIN_BATCH, BENCH_BATCH)}
-    log(f"[12] the redesigned select at A = 10 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
-    rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10",))
+    log(f"[12] the redesigned select at A = 10 and K1 with boxqp (B={MAIN_BATCH}), their digests "
+        f"against the parent's, card {card}")
+    rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10", "K1_boxqp"))
     against_parent(rows, 12)
     redesigned.update(rows)
     # Kernel time per solve of each branch at MAIN_BATCH from the per-launch
@@ -3352,8 +3405,9 @@ def main() -> None:
     nf_paths = nonfused_routes(ilqr, entry, stats)
     t21 = time.perf_counter()
     nf_timing = time_nonfused(ilqr, entry, card)
-    log(f"[21] the redesigned K7 (B={MAIN_BATCH}), its digests against the parent's, card {card}")
-    rows = redesigned_rows(spec, MAIN_BATCH, ("K7", "K7_continuous"))
+    log(f"[21] the redesigned K7 and K1 continuous (B={MAIN_BATCH}), their digests against the "
+        f"parent's, card {card}")
+    rows = redesigned_rows(spec, MAIN_BATCH, ("K7", "K7_continuous", "K1_continuous"))
     against_parent(rows, 21)
     redesigned.update(rows)
     log(f"  phases 19 / 20 / 21: {t20 - t19:.1f} / {t21 - t20:.1f} / "
@@ -3401,12 +3455,17 @@ def main() -> None:
             entry_.update(ms_boxqp=nms["K1_boxqp"], plain_ms_boxqp=nplain["K1_boxqp"],
                           **bound_keys(nbound["K1_boxqp"], "_boxqp"),
                           ms_boxqp_at_524288=nms_big["K1_boxqp"])
+            entry_.update(redesigned_entry(redesigned, "K1", "K1_boxqp", REDESIGNED_K1))
         if key == "K2":
             # The select without a context, redesigned: both yardsticks and
             # the output digests at the bench ladder and the reference one.
             entry_.update(redesigned_entry(redesigned, "K2_A3", "K2_A10", REDESIGNED_K2))
             entry_["ms_rollout_mode"] = ms["K2_rollout"]
+            entry_.update(bound_keys(bound["K2_rollout"], "_rollout_mode"))
             entry_["ms_rollout_mode_at_524288"] = ms_big["K2_rollout"]
+            big_sweep = next(v for v in sweep.values() if "kernel_ms" in v)
+            entry_.update(ms_select_sweep_T10=big_sweep["kernel_ms"]["K2_A10"],
+                          **bound_keys(big_sweep["select_bound"], "_select_sweep_T10"))
             entry_.update(ms_select_A10=nms["K2_A10"], plain_ms_select_A10=nplain["K2_A10"],
                           bound_ms_select_A10=nbound["K2_A10"][0],
                           ms_select_A10_at_524288=nms_big["K2_A10"])
@@ -3517,6 +3576,10 @@ def main() -> None:
     kernels += nonfused_kernel_entries(errs, nf_paths, nf_timing, by_path)
     next(e for e in kernels if e["name"].startswith("K7")).update(
         redesigned_entry(redesigned, "K7", "K7_continuous", REDESIGNED_K7))
+    k1c_ms, k1c_device, k1c_digests = redesigned["K1_continuous"]
+    next(e for e in kernels if e["name"].startswith("K1 riccati_fusedlin, continuous")).update(
+        status=REDESIGNED_K1, ms_20_calls=k1c_ms, device_ms=k1c_device,
+        digests=list(k1c_digests))
     kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

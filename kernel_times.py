@@ -13,9 +13,11 @@ Three groups of rows:
   K2's select without a context at the bench ladder (A = 3, phase 5's
   inputs) and the reference ladder (A = 10, phase 12's), K7 in both
   Jacobian modes (phase 21's), K6's AL select at both ladders (phase 18's
-  inputs), K4 with per-stage Hessians in both terminal modes and K1, each
+  inputs), K4 with per-stage Hessians in both terminal modes and K1 in
+  its three modes (clamp, boxqp, continuous), each
   with the digests of its outputs (K2's and K6-AL's also on ``rung_inputs``', where
-  every rung wins somewhere), so that two trees' outputs are compared bit
+  every rung wins somewhere; K1's also on a rollout under drawn controls),
+  so that two trees' outputs are compared bit
   for bit, and the device ms of each kernel that a call launches (a
   torch.profiler trace, ``kernel_split``);
 * K4 at T = 10 on 64 to 65,536 problems (``K4_SWEEP``), on the 1,024-car
@@ -28,14 +30,17 @@ calls (the host's cost of each call included), and a CUDA graph of 20
 launches (the kernels alone).  The inputs and the timing are this
 checkout's ``chip_smoke.py``; ``--tree DIR`` takes the package from another
 checkout instead (an earlier commit unpacked with ``git archive``), which
-builds its kernels into its own ``DIR/build/``.  Prints the card's name and
+builds its kernels into its own ``DIR/build/``.  ``--trial NAME`` times a
+copy of that tree's package under ``build/trial_NAME_TREE/`` whose K1 is
+cut to one of its parts (``TRIALS``).  Prints the card's name and
 power limit, then one JSON line ``{"tree": ..., "card": ..., "ms": {cars:
 {kernel: [wrapper-call ms, device ms(, digest)]}}, "main": {row: [wrapper-call
 ms, device ms, digests, {kernel: device ms}]}, "k4_sweep": {instantiation:
-{problems: [wrapper-call ms, device ms, digest]}}}``; the log goes to
+{problems: [wrapper-call ms, device ms, digest]}}, "ptxas": {K1 instantiation:
+ptxas's lines of its registers, stack frame and spills}}``; the log goes to
 ``build/kernel_times.log``.  ``--parts`` and ``--rows`` time a subset.
 
-    python3 kernel_times.py [--tree DIR] [--parts games main sweep] [--rows K1 ...]
+    python3 kernel_times.py [--tree DIR] [--trial NAME] [--parts games main sweep] [--rows K1 ...]
 
 Run two trees alternately on one machine (a, b, b, a) to compare them: the
 host's share of a wrapper call varies from machine to machine.
@@ -46,15 +51,87 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 MAIN_ROWS = ("K2_A3", "K2_A10", "K7", "K7_continuous", "K6AL_A3", "K6AL_A10", "K4_per_stage",
-             "K4_explicit", "K1")
+             "K4_explicit", "K1", "K1_boxqp", "K1_continuous")
 K4_SWEEP = (64, 256, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 PARTS = ("games", "main", "sweep")
+# Trial copies of a tree's K1 that time its parts apart, as text patches of
+# riccati_fusedlin_kernel in csrc/riccati.cuh ((before, after) pairs, each
+# found there exactly once; the stage loop's lines are matched by regular
+# expressions, so that any tree's K1 takes them): "lin_only" runs the
+# linearization and writes the sum of A, B, lx, lu to k (K = 0) in place of
+# the stage core; "rec_only" runs the stage core on the A, B, lx, lu of
+# stage T-1, computed once before the loop, so that no stage loads x or u.
+K1_CORE = re.compile(r"    stage_core<NX, NU, BOXQP>\(A, Bm, lx, lu, lxx, luu, lux, [^;]*\);\n")
+K1_LIN = re.compile(r"    stage_derivatives\w*<DISCRETE>\(dyn, cost, h, [^;]*\);\n")
+K1_LOOP = "  for (int t = T - 1; t >= 0; --t) {\n"
+UNROLL = "#pragma unroll\n"
+TRIALS = {
+    "lin_only": [(K1_CORE, (
+        "    float sum = 0.0f;\n" + UNROLL + "    for (int i = 0; i < NX; ++i) {\n"
+        + UNROLL + "      for (int j = 0; j < NX; ++j) sum = sum + A[i][j];\n"
+        + UNROLL + "      for (int j = 0; j < NU; ++j) sum = sum + Bm[i][j];\n"
+        "      sum = sum + lx[i];\n    }\n"
+        + UNROLL + "    for (int i = 0; i < NU; ++i) {\n      k[i] = sum + lu[i];\n"
+        + UNROLL + "      for (int j = 0; j < NX; ++j) K[i][j] = 0.0f;\n    }\n"))],
+    "rec_only": [
+        (K1_LIN, (
+            UNROLL + "    for (int i = 0; i < NX; ++i) {\n"
+            + UNROLL + "      for (int j = 0; j < NX; ++j) A[i][j] = A0[i][j];\n"
+            + UNROLL + "      for (int j = 0; j < NU; ++j) Bm[i][j] = B0[i][j];\n"
+            "      lx[i] = lx0[i];\n    }\n"
+            + UNROLL + "    for (int i = 0; i < NU; ++i) lu[i] = lu0[i];\n")),
+        (K1_LOOP, (
+            "  float A0[NX][NX], B0[NX][NU], lx0[NX], lu0[NU];\n  {\n"
+            "    float x0[NX], u0[NU];\n    const size_t s0 = static_cast<size_t>(T - 1);\n"
+            + UNROLL + "    for (int i = 0; i < NX; ++i) x0[i] = xs[(s0 * NX + i) * sB + b];\n"
+            + UNROLL + "    for (int i = 0; i < NU; ++i) u0[i] = us[(s0 * NU + i) * sB + b];\n"
+            "    stage_derivatives<DISCRETE>(dyn, cost, h, x0, u0, A0, B0, lx0, lu0);\n  }\n"
+            + K1_LOOP))],
+}
+
+
+def trial_tree(tree: Path, name: str) -> Path:
+    """A copy of ``tree``'s package under ``build/trial_NAME_TREE/`` with K1
+    patched by ``TRIALS[name]``, without the sources of K4's explicit mode
+    at (8, 4) (``riccati_explicit_wide*.cu``, the build's long pole), which
+    no K1 row runs."""
+    dest = HERE / "build" / f"trial_{name}_{tree.name}"
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(tree / "multi_agent_solver_tpu_torch", dest / "multi_agent_solver_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "riccati_explicit_wide*.cu"))
+    src = dest / "multi_agent_solver_tpu_torch" / "csrc" / "riccati.cuh"
+    text = src.read_text()
+    start = text.rindex("__global__", 0, text.index("riccati_fusedlin_kernel("))
+    end = text.index("\n}\n", start)
+    kernel = text[start:end]
+    for before, after in TRIALS[name]:
+        pattern = before if isinstance(before, re.Pattern) else re.compile(re.escape(before))
+        if len(pattern.findall(kernel)) != 1:
+            sys.exit(f"trial {name}: {pattern.pattern!r} is not in K1 exactly once")
+        kernel = pattern.sub(lambda m: after, kernel)
+    src.write_text(text[:start] + kernel + text[end:])
+    return dest
+
+
+def k1_ptxas(build_log: Path) -> dict:
+    """``{"boxqp=B discrete=D": ptxas's lines}`` of K1's instantiations in a
+    build's log: its registers, and its stack frame and spills."""
+    out, name = {}, None
+    for line in build_log.read_text().splitlines() if build_log.exists() else ():
+        if "Compiling entry function" in line:
+            m = re.search(r"riccati_fusedlin_kernel\w*?Lb([01])ELb([01])E", line)
+            name = f"boxqp={m.group(1)} discrete={m.group(2)}" if m else None
+        elif name and ("registers" in line or "stack frame" in line):
+            out[name] = (out.get(name, "") + " " + line.strip()).strip()
+    return out
 
 
 def k4_sweep(cs, entry):
@@ -131,8 +208,12 @@ def main() -> None:
                         help="which groups of rows to time (default: all)")
     parser.add_argument("--rows", nargs="+", choices=MAIN_ROWS, default=MAIN_ROWS,
                         help="which of the main path's rows to time (default: all)")
+    parser.add_argument("--trial", choices=sorted(TRIALS),
+                        help="time a copy of the tree with K1 cut to one part (TRIALS)")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
+    if args.trial:
+        tree = trial_tree(tree, args.trial)
     sys.path.insert(0, str(tree))
     # chip_smoke.py of this checkout, whatever the tree timed.
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -155,7 +236,10 @@ def main() -> None:
                          capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
     _build.library()
+    ptxas = k1_ptxas(_build.BUILD_DIR / "build.log")
     cs.log(f"tree {tree}, package {pkg.__file__}, card {card}")
+    for name, line in ptxas.items():
+        cs.log(f"  K1 {name}: {line}")
     rows, main_rows, sweep = {}, {}, {}
     for agents, neighbors in entry.COUPLED_ROWS if "games" in args.parts else ():
         ms, _, _, device, k4_digest = cs.time_game_kernels(entry, agents, neighbors,
@@ -179,7 +263,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"tree": str(tree), "card": card, "ms": rows,
-                      "main": main_rows, "k4_sweep": sweep}))
+                      "main": main_rows, "k4_sweep": sweep, "ptxas": ptxas}))
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@
 // The tangent rules are JAX's: d(x y) = dx y + x dy, d sin = dx cos,
 // d cos = -(dx sin), d tan = dx (1 + tan^2), d(x / c) = dx / c,
 // d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x), d exp = dx exp.
-// Transcendentals are the accurate sinf/cosf/tanf/expf and the IEEE sqrtf
+// Transcendentals are the accurate sincosf/tanf/expf and the IEEE sqrtf
 // (no fast-math).
 #pragma once
 
@@ -27,8 +27,6 @@ struct Dual {
 };
 
 // Scalar base cases.
-__device__ __forceinline__ float dsin(float x) { return sinf(x); }
-__device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ float dtan(float x) { return tanf(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -144,24 +142,18 @@ __device__ __forceinline__ Dual<S, N> operator/(float c, const Dual<S, N>& a) {
   return r;
 }
 
-template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> dsin(const Dual<S, N>& a) {
-  Dual<S, N> r;
-  r.v = dsin(a.v);
-  const S c = dcos(a.v);
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * c;
-  return r;
-}
+// sin and cos of one value together: one sincosf (one range reduction;
+// the bits of sinf and cosf apart) builds both duals.
+__device__ __forceinline__ void dsincos(float x, float& s, float& c) { sincosf(x, &s, &c); }
 
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> dcos(const Dual<S, N>& a) {
-  Dual<S, N> r;
-  r.v = dcos(a.v);
-  const S s = dsin(a.v);
+__device__ __forceinline__ void dsincos(const Dual<S, N>& a, Dual<S, N>& s, Dual<S, N>& c) {
+  dsincos(a.v, s.v, c.v);
 #pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = -(a.d[k] * s);
-  return r;
+  for (int k = 0; k < N; ++k) {
+    s.d[k] = a.d[k] * c.v;
+    c.d[k] = -(a.d[k] * s.v);
+  }
 }
 
 template <typename S, int N>

@@ -11,27 +11,109 @@
 // tag's float parameters by from(params); NPARAMS says how many it reads.
 #pragma once
 
+#include <type_traits>
+#include <utility>
+
 #include "dual.cuh"
 
 namespace mas {
 
 // Kinematic single-track model (models/single_track.py):
 //   f = (v cos psi, v sin psi, v tan(delta) / L, a),  x = (X, Y, psi, v), u = (delta, a).
+// f reads psi and v alone (READS).  hold(u) is what f needs of a control
+// that an RK4 step holds, tan(delta) and a, so that a step takes tan once;
+// f at a control is f at its hold.
 struct SingleTrack {
   static constexpr int NX = 4;
   static constexpr int NU = 2;
+  static constexpr unsigned READS = (1u << 2) | (1u << 3);
   float wheelbase;
 
   static SingleTrack from(const float* p) { return SingleTrack{p[0]}; }
 
   template <typename S>
+  struct Held {
+    S tan_delta, a;
+  };
+
+  template <typename S>
+  __device__ __forceinline__ Held<S> hold(const S* u) const {
+    return Held<S>{dtan(u[0]), u[1]};
+  }
+
+  // One sincosf for sin and cos of psi: the bits of sinf and cosf apart.
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const Held<S>& h, S* f) const {
+    S s, c;
+    dsincos(x[2], s, c);
+    f[0] = x[3] * c;
+    f[1] = x[3] * s;
+    f[2] = x[3] * h.tan_delta / wheelbase;
+    f[3] = h.a;
+  }
+
+  template <typename S>
   __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
-    f[0] = x[3] * dcos(x[2]);
-    f[1] = x[3] * dsin(x[2]);
-    f[2] = x[3] * dtan(u[0]) / wheelbase;
-    f[3] = u[1];
+    (*this)(x, hold(u), f);
   }
 };
+
+// What K1's linearization asks of a dynamics device function beyond f:
+// READS, the bit set of the state components f reads (default: all), and
+// hold(u), what f needs of a control that the RK4 step holds, evaluated
+// once a step, with f's form f(x, hold(u), out) (default: the control
+// itself and f(x, u, out)).
+template <typename Dyn, typename = void>
+struct state_reads {
+  static constexpr unsigned value = (1u << Dyn::NX) - 1u;
+};
+template <typename Dyn>
+struct state_reads<Dyn, std::void_t<decltype(Dyn::READS)>> {
+  static constexpr unsigned value = Dyn::READS;
+};
+
+template <typename Dyn, typename S, typename = void>
+struct has_hold : std::false_type {};
+template <typename Dyn, typename S>
+struct has_hold<Dyn, S,
+                std::void_t<decltype(std::declval<const Dyn&>().hold(std::declval<const S*>()))>>
+    : std::true_type {};
+
+template <typename Dyn, typename S>
+__device__ __forceinline__ auto control_hold(const Dyn& f, const S* u) {
+  if constexpr (has_hold<Dyn, S>::value)
+    return f.hold(u);
+  else
+    return u;
+}
+
+// f(std::integral_constant<int, I>{}) for I = 0 .. N-1, in order: a loop
+// whose index (decltype(i)::value in f's body) is a constant expression,
+// so that arrays in registers are only ever indexed by constants.
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_each(F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_each(f, std::make_integer_sequence<int, N>{});
+}
+
+// Position of state component i among the components of `reads`, -1 if
+// it is not one of them; and how many there are.
+__host__ __device__ constexpr int read_index(unsigned reads, int i) {
+  if (!((reads >> i) & 1u)) return -1;
+  int n = 0;
+  for (int j = 0; j < i; ++j) n += static_cast<int>((reads >> j) & 1u);
+  return n;
+}
+
+__host__ __device__ constexpr int read_count(unsigned reads) {
+  int n = 0;
+  for (; reads != 0u; reads >>= 1) n += static_cast<int>(reads & 1u);
+  return n;
+}
 
 // Diagonal quadratic tracking cost (ocp.diagonal_quadratic_cost), terms
 // summed in the order the torch callable sums them:
@@ -324,8 +406,9 @@ struct Step {
 
 // One classic RK4 step of the continuous dynamics, control held:
 //   x + dt/6 (k1 + 2 k2 + 2 k3 + k4), evaluated in the reference's order.
-template <typename Dyn, typename S>
-__device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const S* u,
+// u is the control (an array or pointer) or a held control (control_hold).
+template <typename Dyn, typename S, typename U>
+__device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const U& u,
                                          const Step& h, S* out) {
   constexpr int NX = Dyn::NX;
   S k1[NX], k2[NX], k3[NX], k4[NX], y[NX];
@@ -344,9 +427,29 @@ __device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const S* u,
     out[i] = x[i] + h.sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
 }
 
-// A and B and the cost gradient (lx, lu) at one stage, from ONE forward
-// pass in Dual<float, NX + NU>: tangents 0..NX-1 seed x, NX..NX+NU-1 seed
-// u.  DISCRETE: A = d step / dx, B = d step / du through the RK4 step (the
+// The stage cost's gradient (lx, lu) at x, u from one pass in
+// Dual<float, NX + NU>: tangents 0..NX-1 seed x, NX..NX+NU-1 seed u.
+template <int NX, int NU, typename Cost>
+__device__ __forceinline__ void cost_gradient(const Cost& cost, const float* x, const float* u,
+                                              const CtxView& ctx, float* lx, float* lu) {
+  constexpr int NZ = NX + NU;
+  using D = Dual<float, NZ>;
+  D xd[NX], ud[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xd[i] = seed<NZ>(x[i], i);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) ud[i] = seed<NZ>(u[i], NX + i);
+  const D c = stage_cost(cost, xd, ud, ctx);
+#pragma unroll
+  for (int j = 0; j < NX; ++j) lx[j] = c.d[j];
+#pragma unroll
+  for (int j = 0; j < NU; ++j) lu[j] = c.d[NX + j];
+}
+
+// A and B at one stage from one forward pass in Dual<float, NX + NU>
+// (tangents 0..NX-1 seed x, NX..NX+NU-1 seed u), and the cost gradient
+// (lx, lu) from cost_gradient's pass in the same tangents.  DISCRETE:
+// A = d step / dx, B = d step / du through the RK4 step (the
 // jacobian_mode "discrete"); otherwise the Jacobians of the continuous
 // dynamics f(x, u) (the reference's "continuous" mode, as the TPU kernels'
 // step_map with discrete=False).  The context is a constant.
@@ -373,11 +476,55 @@ __device__ __forceinline__ void stage_derivatives(
 #pragma unroll
     for (int j = 0; j < NU; ++j) Bm[i][j] = nxt[i].d[NX + j];
   }
-  const D c = stage_cost(cost, xd, ud, ctx);
+  cost_gradient<NX, NU>(cost, x, u, ctx, lx, lu);
+}
+
+// K1's linearization: stage_derivatives' A, B, lx, lu (no context), with
+// the dynamics' tangents seeded only for the state components f reads
+// (state_reads) and the controls, and the held control evaluated once
+// (control_hold).  Each of those tangents sees stage_derivatives'
+// arithmetic, so its columns come out bit for bit.  The tangent of a
+// component f does not read is zero in every k_i, so for finite inputs its
+// column of A is exactly e_j (DISCRETE: x_j.d + h/6 (+-0) rounds to the
+// seed) or zero (continuous; the full pass may give -0), written without
+// a pass.  The cost reads every component: lx and lu come from
+// cost_gradient, as in stage_derivatives.
+template <bool DISCRETE = true, typename Dyn, typename Cost>
+__device__ __forceinline__ void stage_derivatives_live(
+    const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
+    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  constexpr unsigned R = state_reads<Dyn>::value;
+  constexpr int NL = read_count(R), NT = NL + NU;
+  using D = Dual<float, NT>;
+  D xd[NX], ud[NU], nxt[NX];
+  static_for<NX>([&](auto i_) {
+    constexpr int i = decltype(i_)::value, l = read_index(R, i);
+    if constexpr (l >= 0)
+      xd[i] = seed<NT>(x[i], l);
+    else
+      xd[i] = D(x[i]);
+  });
 #pragma unroll
-  for (int j = 0; j < NX; ++j) lx[j] = c.d[j];
+  for (int i = 0; i < NU; ++i) ud[i] = seed<NT>(u[i], NL + i);
+  const auto held = control_hold(dyn, ud);
+  if constexpr (DISCRETE)
+    rk4_step(dyn, xd, held, h, nxt);
+  else
+    dyn(xd, held, nxt);
 #pragma unroll
-  for (int j = 0; j < NU; ++j) lu[j] = c.d[NX + j];
+  for (int i = 0; i < NX; ++i) {
+    static_for<NX>([&](auto j_) {
+      constexpr int j = decltype(j_)::value, l = read_index(R, j);
+      if constexpr (l >= 0)
+        A[i][j] = nxt[i].d[l];
+      else
+        A[i][j] = DISCRETE && i == j ? 1.0f : 0.0f;
+    });
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Bm[i][j] = nxt[i].d[NL + j];
+  }
+  cost_gradient<NX, NU>(cost, x, u, CtxView(), lx, lu);
 }
 
 // The stage cost's Hessians at one stage from one Dual<Dual<float, NZ>, NZ>

@@ -26,15 +26,19 @@
 // luu [NU, NU, B], lux [NU, NX, B], xT [NX, B] in; k [T, NU, B],
 // K [T, NU, NX, B] out.  Neighbouring threads read neighbouring addresses.
 //
-// What bounds it on the H100: not the bytes (it reads x, u and writes k,
-// K: (T (NX + NU) + T NU (1 + NX)) 4 bytes a problem) but the arithmetic
-// of a sequential recursion -- per stage a 6-tangent dual RK4 step
-// (12 sin/cos/tan) and the small dense algebra.  Design: one thread per
-// problem, the whole recursion in registers (the TPU kernel's VMEM scratch
-// carry becomes v_x / v_xx registers), the t loop inside the thread (the
-// TPU's sequential grid axis), the dual pass giving all NX + NU Jacobian
-// columns at once.  The linearization does not depend on the carry, so
-// the compiler can overlap it with the previous stage's algebra.
+// What limits it on the H100: not the bytes (it reads x, u and writes k,
+// K: (T (NX + NU) + T NU (1 + NX)) 4 bytes a problem) but the instructions
+// issued for the arithmetic of a sequential recursion -- per stage a dual
+// RK4 step and the small dense algebra.  Design: one thread per problem,
+// the whole recursion in registers (the TPU kernel's VMEM scratch carry
+// becomes v_x / v_xx registers), the t loop inside the thread (the TPU's
+// sequential grid axis).  The linearization (stage_derivatives_live) seeds
+// tangents only for the state components the dynamics read and the
+// controls (4 of 6 at the single track: psi, v, delta, a), writes the
+// other columns of A exactly, takes sin and cos of psi by one sincosf an
+// evaluation and tan(delta) once a step (5 accurate calls a stage), and
+// gives K3's A, B, lx, lu bit for bit.  It does not depend on the carry,
+// so the compiler can overlap it with the previous stage's algebra.
 //
 // K4 runs the same stage recursion on A [T, NX, NX, B], B [T, NX, NU, B],
 // lx [T, NX, B], lu [T, NU, B] and cost Hessians lxx [H, NX, NX, B],
@@ -590,7 +594,7 @@ __global__ void __launch_bounds__(128) riccati_fusedlin_kernel(
 #pragma unroll
     for (int i = 0; i < NU; ++i) u[i] = us[(st * NU + i) * sB + b];
     float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-    stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
+    stage_derivatives_live<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
     float lb[NU], ub[NU];
     if constexpr (BOXQP) load_bounds<NU>(lb_in, ub_in, st, b, sB, lb, ub);
     float k[NU], K[NU][NX];
