@@ -26,20 +26,24 @@ Phases, each reported on its own lines:
 2. build: the kernels' build time and ptxas' register / spill report,
    with the redesigned kernels named (the lane-group kernels of K6's
    context select and K3's context mode; K2's lane select, which K6's AL
-   select shares, and its re-roll; K7; K4's group kernel);
+   select shares, and its re-roll; K7; K4's group kernel; K1; K2's rollout
+   kernel and K3's hoist mode), and the SASS instructions of a rollout
+   stage and of the hoist, and the issue floors they give (sass_floors);
 3. per-kernel checks at B = 8192, T = 80, each output's tolerance printed
    beside its max abs error and max error relative to the output's scale;
    K2's select also on merits where every rung wins somewhere
-   (rung_inputs, which fails if a rung wins nowhere);
+   (rung_inputs, which fails if a rung wins nowhere); K3's hoist at one
+   stage and over the horizon, also exactly against K3's Hessians;
 4. end to end at B = 4096: kernels against the plain versions on the card
    (cost rtol 1e-5, controls atol 2e-4, as tests/test_fused_loop.py);
 5. the main path at B = 262,144: cost median / p99 / max against the
-   anchors of docs/BENCHMARKS.md, launch counts K3 = 1, K2 = 1 + iterations,
-   K1 = iterations; then 5 timed warm solves at 262,144 and 524,288 and the
-   kernels' times per launch; the redesigned select at the bench ladder
-   and K1, each a wrapper call (CUDA events around 20 calls) and a launch
-   on the device (a CUDA graph of 20), and their output digests, which
-   must be the parent commit's (PARENT_DIGEST);
+   anchors of docs/BENCHMARKS.md, launch counts K2r (the rollout) = K3h
+   (the hoist) = 1, K2 (the select) = K1 = iterations; then 5 timed warm
+   solves at 262,144 and 524,288 and the kernels' times per launch; the
+   redesigned select at the bench ladder, K1, the rollout and the
+   one-stage hoist, each a wrapper call (CUDA events around 20 calls) and
+   a launch on the device (a CUDA graph of 20), and their output digests,
+   which must be the parent commit's (PARENT_DIGEST);
 and, run after phase 5 and before 6 and 7, in this order:
 
 8. K4 (per-stage and hess_tconst Hessians, clamp and boxqp), K1 with
@@ -61,8 +65,9 @@ and, run after phase 5 and before 6 and 7, in this order:
    and the median of 5 warm sweeps each;
 12. the new kernels' times per launch and bounds at 262,144 and 524,288
    (K4 both Hessian modes, clamp and boxqp; K3 over the whole horizon
-   with and without Hessians; K2 at 10 candidates; K1 with boxqp); the
-   redesigned select at 10 candidates and K1 with boxqp on both
+   with and without Hessians; K3's hoist over the horizon; K2 at 10
+   candidates; K1 with boxqp); the redesigned select at 10 candidates, K1
+   with boxqp, the horizon hoist and the sweep's rollout on both
    yardsticks, and their digests, which must be the parent's;
 13. K3 and K2 in context mode (K6) against their plain versions at
    B = 8192, T = 10, with K = 8 and 63 neighbours, K3 also at B = 64 and
@@ -78,8 +83,9 @@ and, run after phase 5 and before 6 and 7, in this order:
    row's shapes, and their share of the wall; the redesigned kernels' ms
    a wrapper call (CUDA events around 20 calls, as every kernel's) and a
    launch on the device (a CUDA graph of 20 launches), and their bounds;
-   K4's wrapper-call and device ms, and the digest of its gains, which
-   must be the parent commit's (PARENT_DIGEST);
+   K4's wrapper-call and device ms, and the digest of its gains, and the
+   rollout's (with a context), and its digests, which must be the parent
+   commit's (PARENT_DIGEST);
 16. K2's AL mode (K6) against its plain version at B = 8192, T = 80, with
    3 and 10 candidates, one equality and four inequality rows (and the
    four alone), random multipliers and a spread of rho, with the one-ulp
@@ -140,17 +146,18 @@ and, run after phase 5 and before 6 and 7, in this order:
    counts per solve; 64 cars over 2 sweeps of at most 8 iterations through
    the kernels against the plain versions;
 24. agent-solves/s and wall ms of the constrained game at 64, 256 and
-   1,024 cars (median of 5 calls) with K6 AL + context's ms per launch at
+   1,024 cars (one call each) with K6 AL + context's ms per launch at
    each row's shapes (a wrapper call and on the device), its plain ms and
    bound, and K4's wrapper-call and device ms, with its digest held to the
    parent's;
    K8, K9 (A = 3 and 10) and
    K10 per launch at B = 262,144, T = 80, with plain ms and bounds;
-6. one JSON line listing every ported kernel (K1-K10, K6's AL mode and
-   its AL and context mode, K4's explicit-terminal mode and the continuous
-   modes of K1 and K3; K6's context rows and K3's context mode marked
-   "redesigned: lane groups", K2's, K7's, K6-AL's and K4's rows with their
-   own "status"), printed after them; every row's ``ms`` is a wrapper
+6. one JSON line listing every ported kernel (K1-K10, K2's rollout
+   kernel, K3's hoist mode, K6's AL mode and its AL and context mode, K4's
+   explicit-terminal mode and the continuous modes of K1 and K3; K6's
+   context rows and K3's context mode marked "redesigned: lane groups",
+   K2's, K7's, K6-AL's, K4's, K1's, the rollout's and the hoist's rows
+   with their own "status"), printed after them; every row's ``ms`` is a wrapper
    call's, and the redesigned rows add ``device_ms``; every row's
    ``bound_ms`` takes the card's float32 peak (PEAK_F32), and its
    ``issue_floor_ms`` the issue rate that ``-fmad=false`` leaves
@@ -166,9 +173,11 @@ from __future__ import annotations
 
 import base64
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -259,6 +268,11 @@ KNIFE_EDGE_Z = 3.0
 # phase 9 holds boxqp, and the knife-edge is measured beside.
 SELECT_SHARE = 0.995
 GAME_TIMED = 5
+# The constrained game's rows take 6-8 s a call (1,000 iterations) and
+# phase 23 plays each row 7 times for its anchor check; phase 24 times one
+# call a row (the call its launch counts are read around), which keeps the
+# run near 1,000 s of its 1,200 s limit on a slow host.
+CONSTRAINED_TIMED = 1
 # The lane-group kernels (phase 2 names them in its ptxas report).
 REDESIGNED = "redesigned: lane groups"
 # The main path's redesigned kernels: K2's select without a context or AL
@@ -274,6 +288,10 @@ REDESIGNED_K4 = ("redesigned: a group of lanes a problem, inputs prefetched, up 
 # K1 in its three modes: the linearization in the tangents the dynamics
 # read, each transcendental once.
 REDESIGNED_K1 = "redesigned: live tangents only, each transcendental once"
+# K2's rollout mode on a kernel of its own, and K3's hoist mode.
+REDESIGNED_K2R = ("redesigned: a kernel of its own, the next stage's controls loaded ahead, "
+                  "tan once a step, neighbours in groups of eight")
+REDESIGNED_K3H = "redesigned: the cost Hessians alone, no dynamics"
 # Each redesigned kernel's name in the ptxas report of phase 2 (the lane
 # select's instantiations with constraint rows are K6-AL's).
 REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
@@ -282,7 +300,9 @@ REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
                       "forward_select_reroll_kernel": REDESIGNED_K2,
                       "linearize_flat_kernel": REDESIGNED_K7,
                       "riccati_backward_group_kernel": REDESIGNED_K4,
-                      "riccati_fusedlin_kernel": REDESIGNED_K1}
+                      "riccati_fusedlin_kernel": REDESIGNED_K1,
+                      "forward_rollout_kernel": REDESIGNED_K2R,
+                      "linearize_hessians_kernel": REDESIGNED_K3H}
 # K4 launches up to its crossover (csrc/riccati.cuh: backward_group_max_b,
 # 64 to 16,384 problems by (nx, nu) and mode) run on the group kernel, so
 # phases 8 and 19 check K4 at CHECK_BATCH and on the first GROUP_CHECK_B
@@ -296,9 +316,10 @@ GROUP_CHECK_B, ONE_THREAD_CHECK_B = (61, 1001), 5 * CHECK_BATCH
 # inequality rows alone and with the equality row) and of K4's gains on
 # the games' first-iteration stacks (64, 256 and 1,024 cars, T = 10) and
 # of K1's gains in its three modes (redesigned_calls' two inputs, -0
-# folded into +0), from kernel_times.py's runs of the trees of commit
-# 0fb1bda (K2, K7), d50f335 (K6-AL, K4) and d206199 (K1): the redesigned
-# kernels must give them bit for bit.
+# folded into +0) and of K2's rollout and K3's hoist on their rows' inputs
+# (rollout_hoist_calls), from kernel_times.py's runs of the trees of commit
+# 0fb1bda (K2, K7), d50f335 (K6-AL, K4), d206199 (K1) and 59adb5d (the
+# rollout, the hoist): the redesigned kernels must give them bit for bit.
 # (Those runs' times are in PERF.md.)
 PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
                  "K2_A10": ("44e13541c3755be7", "7cf3af587ccf2b51"),
@@ -311,7 +332,14 @@ PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
                  "K4_1024": ("46b562a66d7fc77b",),
                  "K1": ("a26be1e4d7094ac1", "3c17e05a1c93575f"),
                  "K1_boxqp": ("2a487111de00afd3", "5a4dabaec345ff2a"),
-                 "K1_continuous": ("5e4c6069171b0607", "735dc8948107a58e")}
+                 "K1_continuous": ("5e4c6069171b0607", "735dc8948107a58e"),
+                 "K2_rollout": ("232e801cd0ca7a6f", "9f8c12d01609214d"),
+                 "K2_rollout_sweep": ("43ce53a560687a23", "37020f641f4a1eaf"),
+                 "K6_rollout_64": ("119be0be2cc19f3e", "0b26788bb306fdfc"),
+                 "K6_rollout_256": ("6e1f4bad8febbef3", "2103e8f7ee4dd5d3"),
+                 "K6_rollout_1024": ("7f80a636b75b7600", "dca094b96d4a6f3f"),
+                 "K3_hoist_stage": ("324e9f7208492ef4", "1d64e3bda39fb277"),
+                 "K3_hoist_horizon": ("ea521397526814de", "3c9e45cdf7ff4a9e")}
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -582,11 +610,30 @@ def redesigned_calls(spec, B, rows, reps=20):
     rung_inputs', each with the inequality rows alone and with the equality
     row too; a K1 row two, with -0 folded into +0: the timed inputs', and
     those of the rollout under main_path_inputs' drawn controls, where
-    tan(delta) and every tangent of the linearization carry weight."""
+    tan(delta) and every tangent of the linearization carry weight.
+
+    The rows of K2's rollout kernel and K3's hoist mode (rollout_hoist_calls):
+    "K2_rollout" (the main path's rollout at B), "K2_rollout_sweep" (the
+    sweep's at 256 x 1,024 problems, T = 10), "K6_rollout_N" (the rollout
+    with a context at the N-car game row's first-iteration inputs),
+    "K3_hoist_stage" and "K3_hoist_horizon" (the one-stage and the horizon
+    hoist at B).  A row named with "_524288" is that row at BENCH_BATCH."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
     from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    main_rows = []
+    for row in rows:
+        if row.endswith("_524288"):
+            for _, calls, restore, digests in redesigned_calls(spec, BENCH_BATCH, (row[:-7],), reps):
+                yield row, calls, restore, digests
+        elif row.startswith(("K2_rollout", "K6_rollout", "K3_hoist")):
+            yield (row,) + rollout_hoist_calls(spec, B, row, reps)
+            torch.cuda.empty_cache()
+        else:
+            main_rows.append(row)
+    if not main_rows:
+        return
     x0, us0, lb, ub, _ = main_path_inputs(spec, B, seed=2)
     us_drawn = us0.clone()
     us0.zero_()                                   # the main path's warm start
@@ -595,7 +642,7 @@ def redesigned_calls(spec, B, rows, reps=20):
     xs_tail, cost = k2.rollout_cost(spec, x0, us0)
     xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
     xT = xs_tail[-1].clone()
-    for row in rows:
+    for row in main_rows:
         if row.startswith("K6AL"):
             yield (row,) + al_select_calls(B, int(row.split("_A")[1]), reps)
         elif row.startswith("K1"):
@@ -660,6 +707,66 @@ def redesigned_calls(spec, B, rows, reps=20):
             yield row, [call] * reps, lambda: None, (digest(call()),)
             del xs_bf, us_bf
         torch.cuda.empty_cache()
+
+
+def hoist(spec, xs, us):
+    """K3's hoist: ``linearize_hessians`` of the package timed, or where it
+    has none (a tree from before K3's hoist mode) K3 with Hessians and its
+    last three outputs, as that tree's fused loop hoisted them."""
+    from multi_agent_solver_tpu_torch.ops import linearize as k3
+    fn = getattr(k3, "linearize_hessians", None)
+    return fn(spec, xs, us) if fn is not None else k3.linearize(spec, xs, us, True)[4:]
+
+
+def poisoned(x0):
+    """A copy of the starts ``x0 [nx, B]`` whose first twelve problems are
+    not finite or nearly so: four with a NaN heading, four with an infinite
+    position, four with a speed of 1e30."""
+    x0 = x0.clone()
+    x0[2, 0:4], x0[0, 4:8], x0[3, 8:12] = float("nan"), float("inf"), 1e30
+    return x0
+
+
+def rollout_hoist_calls(spec, B, row, reps):
+    """redesigned_calls' ``(calls, restore, digests)`` of K2's rollout and
+    K3's hoist (rows there).  Two digests each: on zero controls (the main
+    path's and the sweep's warm start; the game row's first-iteration
+    controls) and on controls drawn from a seed with poisoned() starts,
+    whose states are or become non-finite (the horizon hoist at the
+    rollout of those)."""
+    import torch
+    from multi_agent_solver_tpu_torch import entry
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    ctx = None
+    if row.startswith("K6_rollout"):
+        agents = int(row.rsplit("_", 1)[1])
+        spec, x0, us, ctx = game_inputs(entry, agents, dict(entry.COUPLED_ROWS)[agents])
+        drawn = torch.as_tensor(np.random.RandomState(agents).uniform(-0.5, 0.5, tuple(us.shape)),
+                                dtype=torch.float32, device=DEVICE)
+    elif row == "K2_rollout_sweep":
+        spec = entry.circular_sweep_specs(*SWEEP_BIG, device=DEVICE)
+        x0 = spec.initial_state.T.contiguous()
+        drawn = torch.as_tensor(np.random.RandomState(11).uniform(-0.5, 0.5, (T_SWEEP, 2, x0.shape[1])),
+                                dtype=torch.float32, device=DEVICE)
+        us = torch.zeros_like(drawn)
+    else:
+        x0, drawn, _, _, _ = main_path_inputs(spec, B, seed=2)
+        us = torch.zeros_like(drawn)
+    if row.startswith("K3_hoist"):
+        if row == "K3_hoist_stage":
+            args = [(x[None].contiguous(), u[:1].contiguous())
+                    for x, u in ((x0, us), (poisoned(x0), drawn))]
+        else:
+            args = []
+            for x, u in ((x0, us), (poisoned(x0), drawn)):
+                tail, _ = k2.rollout_cost(spec, x, u)
+                args.append((torch.cat([x[None], tail[:-1]], 0).contiguous(), u))
+        call = lambda: hoist(spec, *args[0])
+        digests = (digest(call()), digest(hoist(spec, *args[1])))
+    else:
+        call = lambda: k2.rollout_cost(spec, x0, us, ctx)
+        digests = (digest(call()), digest(k2.rollout_cost(spec, poisoned(x0), drawn, ctx)))
+    return [call] * reps, lambda: None, digests
 
 
 def al_select_calls(B, A, reps):
@@ -765,16 +872,27 @@ def check_kernels(spec):
     log(f"[3] per-kernel checks, B={B}, T={T}")
     xs_k, cost_k = k2.rollout_cost(spec, x0, us)
     xs_p, cost_p = k2.rollout_cost_plain(spec, x0, us)
-    record("K2", [compare("K2 rollout xs", xs_k, xs_p, 1e-5, 1e-5),
-                  compare("K2 rollout cost", cost_k, cost_p, 1e-5, 0.0)])
+    record("K2r", [compare("K2 rollout xs", xs_k, xs_p, 1e-5, 1e-5),
+                   compare("K2 rollout cost", cost_k, cost_p, 1e-5, 0.0)])
 
-    lin_k = k3.linearize(spec, x0[None].contiguous(), us[:1].contiguous(), True)
-    lin_p = k3.linearize_plain(spec, x0[None].contiguous(), us[:1].contiguous(), True)
+    x1, u1 = x0[None].contiguous(), us[:1].contiguous()
+    lin_k = k3.linearize(spec, x1, u1, True)
+    lin_p = k3.linearize_plain(spec, x1, u1, True)
     record("K3", [compare(f"K3 {n}", a, b, 1e-5, 1e-5)
                   for n, a, b in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), lin_k, lin_p)])
 
     xs = torch.cat([x0[None], xs_p[:-1]], 0).contiguous()
     xT = xs_p[-1].clone()
+    # K3's hoist mode, at one stage and over the horizon: its plain version
+    # within K3's tolerance, K3's last three outputs bit for bit.
+    for tag, xh, uh, full in (("stage", x1, u1, lin_k), ("horizon", xs, us, None)):
+        hess_k = k3.linearize_hessians(spec, xh, uh)
+        full = k3.linearize(spec, xh, uh, True) if full is None else full
+        same = all(torch.equal(a, b) for a, b in zip(hess_k, full[4:]))
+        log(f"  K3 hoist ({tag}) against K3's lxx, luu, lux: {'equal' if same else 'NOT EQUAL'}")
+        record("K3h", [compare(f"K3 hoist {tag} {n}", a, b, 1e-5, 1e-5) for n, a, b in
+                       zip(("lxx", "luu", "lux"), hess_k, k3.linearize_hessians_plain(spec, xh, uh))]
+               + [(same, 0.0, 0.0)])
     hess = [h[0] for h in lin_p[4:]]
     levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor, BENCH_CONFIG.reg_levels)
     k_k, K_k = k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels)
@@ -945,7 +1063,7 @@ def check_backward_kernels(spec, circ_spec):
     x0c, usc = circular_inputs(circ_spec, B, seed=4, horizon=T_SWEEP)
     xs_k, cost_k = k2.rollout_cost(circ_spec, x0c, usc)
     xs_p, cost_p = k2.rollout_cost_plain(circ_spec, x0c, usc)
-    record("K2", [compare("K2 circular rollout xs", xs_k, xs_p, 1e-5, 1e-5),
+    record("K2r", [compare("K2 circular rollout xs", xs_k, xs_p, 1e-5, 1e-5),
                   compare("K2 circular rollout cost", cost_k, cost_p, 1e-5, 1e-4)])
     xsc = torch.cat([x0c[None], xs_p[:-1]], 0).contiguous()
     xTc = xs_p[-1].clone()
@@ -1034,13 +1152,13 @@ def run_branches(ilqr, entry, stats):
         # name: (config, expected launches for `it` iterations)
         "stationary_fusedlin=False": (
             dataclasses.replace(cfg, stationary_fusedlin=False),
-            lambda it: {"K1": 0, "K2": 1 + it, "K3": 1 + it, "K4": it, "K5": 0}),
+            lambda it: {"K2": it, "K2r": 1, "K3": it, "K3h": 1, "K4": it}),
         "quadratic_cost=True, stationary_cost=False": (
             dataclasses.replace(cfg, quadratic_cost=True, stationary_cost=False),
-            lambda it: {"K1": 0, "K2": 1 + it, "K3": 1 + it, "K4": it, "K5": 0}),
+            lambda it: {"K2": it, "K2r": 1, "K3": it, "K3h": 1, "K4": it}),
         "quadratic_cost=False": (
             dataclasses.replace(cfg, quadratic_cost=False),
-            lambda it: {"K1": 0, "K2": 1 + it, "K3": it, "K4": it, "K5": 0}),
+            lambda it: {"K2": it, "K2r": 1, "K3": it, "K4": it}),
     }
     out = {}
     for name, (config, want_of) in branches.items():
@@ -1063,7 +1181,7 @@ def run_branches(ilqr, entry, stats):
         f"{float(np.percentile(costs, 99))!r} max {float(np.max(costs))!r}; controls in box {in_box}")
     if not in_box:
         fail("boxqp controls outside their box")
-    check_counts(launches, {"K1": it, "K2": 1 + it, "K3": 1, "K4": 0, "K5": it}, name)
+    check_counts(launches, {"K1": it, "K2": it, "K2r": 1, "K3h": 1, "K5": it}, name)
     rate = time_solves(ilqr, entry, MAIN_BATCH, config)
     out[name] = {"launches": launches, "iterations": it, "solves_per_s": rate}
     return out
@@ -1094,8 +1212,7 @@ def circular_sweep(ilqr, entry, stats):
             f"{int(result.converged.sum())} of {B}")
         if it != SWEEP_ITERATIONS:
             fail(f"circular sweep: {it} iterations, the anchor took {SWEEP_ITERATIONS}")
-        check_counts(launches, {"K1": 0, "K2": 1 + it, "K3": it, "K4": it, "K5": 0},
-                     "circular sweep")
+        check_counts(launches, {"K2": it, "K2r": 1, "K3": it, "K4": it}, "circular sweep")
         if (agents, scenarios) == SWEEP_SMALL:
             rp = ilqr.solve_ilqr_batched_fused(specs, cfg, ilqr.PLAIN_OPS)
             good = [compare("sweep cost vs plain", result.cost, rp.cost, 1e-5, 0.0)[0],
@@ -1107,10 +1224,10 @@ def circular_sweep(ilqr, entry, stats):
         out[B] = {"agents": agents, "scenarios": scenarios, "launches": launches,
                   "iterations": it, "agent_solves_per_s": rate, "per_agent_cost": per_agent}
         if (agents, scenarios) == SWEEP_BIG:
-            kms, select_bound = time_sweep_kernels(specs)
-            out[B].update(kernel_ms=kms, select_bound=select_bound)
-            in_kernels = (kms["K2_rollout"] + launches["K3"] * kms["K3_hess"]
-                          + launches["K4"] * kms["K4"] + (launches["K2"] - 1) * kms["K2_A10"])
+            kms, select_bound, rollout_bound = time_sweep_kernels(specs)
+            out[B].update(kernel_ms=kms, select_bound=select_bound, rollout_bound=rollout_bound)
+            in_kernels = (launches["K2r"] * kms["K2_rollout"] + launches["K3"] * kms["K3_hess"]
+                          + launches["K4"] * kms["K4"] + launches["K2"] * kms["K2_A10"])
             solve_ms = B / rate * 1e3
             log(f"  B={B}: kernel time per sweep {in_kernels:.3f} ms (launch counts x ms per "
                 f"launch) of {solve_ms:.3f} ms median sweep, {100 * in_kernels / solve_ms:.1f}%")
@@ -1151,16 +1268,128 @@ def time_sweep_kernels(specs):
                                                           ladder) for b in sel_bufs]),
     }
     # The select's bound as time_kernels counts K2's, with the circular
-    # track's cost.
+    # track's cost; the rollout's as time_kernels counts it.
     nx, nu, f, A = 4, 2, 4, len(ladder)
     bound = bound_of(B * f * (T_SWEEP * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
                      + n_acc * f * (T_SWEEP * (nx + nu) + nx),
                      B * T_SWEEP * A * (OPS_CONTROL + OPS_TRACK + OPS_RK4)
                      + n_acc * T_SWEEP * (OPS_CONTROL + OPS_RK4))
+    rollout_bound = bound_of(B * f * (nx + T_SWEEP * nu + T_SWEEP * nx + 1),
+                             B * T_SWEEP * (OPS_RK4 + OPS_TRACK))
     log(f"  B={B}, T={T_SWEEP}: sweep kernel ms/launch "
         f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; K2 (A={A}) accepted {n_acc} "
-        f"of {B}, bound {bound[0]:.6f} ms ({bound[1]})")
-    return ms, bound
+        f"of {B}, bound {bound[0]:.6f} ms ({bound[1]}); the rollout's {rollout_bound[0]:.6f} ms "
+        f"({rollout_bound[1]})")
+    return ms, bound, rollout_bound
+
+
+# The SASS functions counted for an issue floor: (object, substrings of the
+# mangled name, what is counted), the lane-follow instantiations.  The
+# rollout: one stage of its t loop (the loop runs one stage an iteration),
+# and the same without the blocks that touch local memory (the slow path
+# of sincosf's and tanf's range reduction, taken for |x| beyond ~1e5);
+# the hoist: its whole body, one thread a problem-stage.  PARENT_SASS is
+# the rollout of the tree before this kernel (the one-thread kernel's
+# rollout mode, MAXA = 1, INIT = true), for kernel_times.py.
+SASS = {"K2_rollout": ("forward_select", ("forward_rollout_kernel", "DiagQuadratic"), "loop"),
+        "K3_hoist": ("linearize", ("linearize_hessians_kernel", "DiagQuadratic"), "body")}
+PARENT_SASS = ("forward_select", ("forward_select_kernel", "DiagQuadratic", "Li1ELb1ELb0E"), "loop")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_function(build_dir, obj, names):
+    """``(mangled name, [(address, instruction)], {label: address})`` of the
+    first function of ``build_dir``'s newest ``obj_*/OBJ.o`` whose name holds
+    every one of ``names``, from ``cuobjdump -sass``; its SASS text is also
+    written to ``build/sass_<first name>.txt``."""
+    import shutil
+    objs = sorted(Path(build_dir).glob(f"obj_*/{obj}.o"), key=lambda q: q.stat().st_mtime)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not objs:
+        fail(f"no {obj}.o under {build_dir} to read SASS from")
+    text = subprocess.run([tool, "-sass", str(objs[-1])], capture_output=True, text=True,
+                          check=True).stdout
+    for part in text.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if all(n in name for n in names):
+            Path("build", f"sass_{names[0]}.txt").write_text(part)
+            code, labels, pending = [], {}, []
+            for line in part.splitlines():
+                m = SASS_LABEL.match(line)
+                if m:
+                    pending.append(m.group(1))
+                m = SASS_LINE.search(line)
+                if m and not line.lstrip().startswith("/* 0x"):
+                    addr = int(m.group(1), 16)
+                    labels.update({lab: addr for lab in pending})
+                    pending = []
+                    code.append((addr, m.group(2).strip()))
+            return name, code, labels
+    fail(f"no SASS function with {names} in {objs[-1]}")
+
+
+def sass_count(code, labels, what):
+    """Instructions of a SASS function (sass_function's code and labels),
+    NOPs left out: ``what`` "body", every one up to the last EXIT; "loop",
+    those of one stage of its main loop -- the span of the widest
+    conditional backward branch whose span stores to device memory (STG),
+    over the stages it holds (its STGs over the NX = 4 a stage stores, in
+    case the compiler unrolled it) -- as ``(all, without the basic blocks
+    that touch local memory, stages in the span)``."""
+    code = [(a, i) for a, i in code if not i.startswith("NOP")]
+    if what == "body":   # up to the last EXIT (after it, the self-branch padding)
+        return max(n for n, (_, i) in enumerate(code, 1) if i.split()[-1] == "EXIT"
+                   or i.startswith("EXIT"))
+    target = lambda ins: (labels.get(re.search(r"\((\.L_x_\d+)\)", ins).group(1))
+                          if "(.L_x_" in ins else int(re.search(r"0x([0-9a-f]+)", ins).group(1), 16))
+    best = None
+    for a, ins in code:
+        if re.match(r"@\S+\s+BRA\b", ins):
+            t = target(ins)
+            if t is not None and t <= a:
+                span = [(b, j) for b, j in code if t <= b <= a]
+                if any(j.split()[0].startswith("STG") or " STG" in j for _, j in span) and (
+                        best is None or len(span) > len(best)):
+                    best = span
+    if best is None:
+        fail("no loop with a device-memory store in the SASS")
+    # Basic blocks: a label or the instruction after a branch starts one.
+    starts = set(labels.values())
+    blocks, cur = [], []
+    for b, j in best:
+        if b in starts and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(j)
+        if "BRA" in j or "EXIT" in j:
+            blocks.append(cur)
+            cur = []
+    if cur:
+        blocks.append(cur)
+    local = lambda blk: any(("LDL" in j or "STL" in j) for j in blk)
+    stages = max(1, sum(j.startswith(("STG", "@")) and "STG" in j for _, j in best) // 4)
+    return (len(best) / stages, sum(len(blk) for blk in blocks if not local(blk)) / stages,
+            stages)
+
+
+def sass_floors(build_dir, B, horizon, parent=False):
+    """The rollout's and the hoist's SASS counts (SASS), or with ``parent``
+    the parent tree's rollout's (PARENT_SASS), and the issue floors they
+    give at B problems and ``horizon`` stages at PEAK_ISSUE: ``{row:
+    {"instructions": n, "issue_floor_ms": t, ...}}`` (the rollout's floor
+    from its count without the local-memory blocks)."""
+    rows = {"K2_rollout": PARENT_SASS} if parent else SASS
+    out = {}
+    for row, (obj, names, what) in rows.items():
+        name, code, labels = sass_function(build_dir, obj, names)
+        n = sass_count(code, labels, what)
+        per = n[1] if what == "loop" else n
+        out[row] = {"function": name, "instructions": n,
+                    "issue_floor_ms": per * B * horizon / PEAK_ISSUE * 1e3}
+        log(f"  SASS {row} ({name[:60]}...): {what} {n} instructions, issue floor "
+            f"{out[row]['issue_floor_ms']:.6f} ms at {B} x {horizon}")
+    return out
 
 
 def bound_of(bytes_, ops):
@@ -1179,12 +1408,13 @@ def bound_keys(bound, tag=""):
             f"issue_floor_ms{tag}": bound[2]}
 
 
-def time_new_kernels(spec, B, with_plain):
-    """Phase 12: per-launch device time of K4 (both Hessian modes, clamp
-    and boxqp), K3 over the whole horizon (with and without Hessians), K2
-    at the reference's 10 candidates and K1 with boxqp, at the main path's
-    shapes with iteration-1 inputs; bounds from these inputs; optionally
-    the plain versions' times."""
+def time_new_kernels(spec, B, with_plain, hoist_ops):
+    """Phase 12: per-launch time of K4 (both Hessian modes, clamp and
+    boxqp), K3 over the whole horizon (with and without Hessians), K3's
+    hoist over the horizon ("K3h_horizon"), K2 at the reference's 10
+    candidates and K1 with boxqp, at the main path's shapes with
+    iteration-1 inputs; bounds from these inputs (the hoist's operations
+    ``hoist_ops`` a problem-stage); optionally the plain versions' times."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
@@ -1211,7 +1441,9 @@ def time_new_kernels(spec, B, with_plain):
     lin_h = lambda: k3.linearize(spec, xs, us0, True)
     lin_n = lambda: k3.linearize(spec, xs, us0, False)
     stacks = {"per_stage": lin, "hess_tconst": tconst}
-    ms = {"K3_full_hess": event_ms([lin_h] * reps), "K3_full": event_ms([lin_n] * reps)}
+    hoist_h = lambda: k3.linearize_hessians(spec, xs, us0)
+    ms = {"K3_full_hess": event_ms([lin_h] * reps), "K3_full": event_ms([lin_n] * reps),
+          "K3h_horizon": event_ms([hoist_h] * reps)}
     for mode, st in stacks.items():
         for tag, bounds in (("", none), ("_boxqp", box)):
             ms[f"K4_{mode}{tag}"] = event_ms(
@@ -1227,6 +1459,7 @@ def time_new_kernels(spec, B, with_plain):
         plain = {
             "K3_full_hess": event_ms([lambda: k3.linearize_plain(spec, xs, us0, True)]),
             "K3_full": event_ms([lambda: k3.linearize_plain(spec, xs, us0, False)]),
+            "K3h_horizon": event_ms([lambda: k3.linearize_hessians_plain(spec, xs, us0)]),
             "K4_per_stage": event_ms([lambda: k1.riccati_backward_plain(
                 spec, *stacks["per_stage"], xT, levels)]),
             "K4_hess_tconst": event_ms([lambda: k1.riccati_backward_plain(spec, *tconst, xT, levels)]),
@@ -1247,6 +1480,7 @@ def time_new_kernels(spec, B, with_plain):
     bytes_ = {
         "K3_full_hess": B * f * T * ((nx + nu) + per_stage_in + hess_in),
         "K3_full": B * f * T * ((nx + nu) + per_stage_in),
+        "K3h_horizon": B * f * T * ((nx + nu) + hess_in),
         "K4_per_stage": B * f * (T * (per_stage_in + hess_in + gains_out) + nx),
         "K4_hess_tconst": B * f * (T * (per_stage_in + gains_out) + hess_in + nx),
         "K1_boxqp": B * f * (T * (nx + nu + 2 * nu + gains_out) + hess_in + nx),
@@ -1259,6 +1493,7 @@ def time_new_kernels(spec, B, with_plain):
     ops = {
         "K3_full_hess": B * T * OPS_K3,
         "K3_full": B * T * OPS_DUAL_STAGE,
+        "K3h_horizon": B * T * hoist_ops,
         "K4_per_stage": B * T * OPS_STAGE_CORE,
         "K4_hess_tconst": B * T * OPS_STAGE_CORE,
         "K4_per_stage_boxqp": B * T * (OPS_STAGE_CORE + box_ops),
@@ -1342,8 +1577,8 @@ def check_coupled_kernels(spec):
         ctx = ring_context(torch.cat([x0[None], xs_free[:-1]], 0), K, ring)
         xs_k, cost_k = k2.rollout_cost(spec, x0, us, ctx)
         xs_p, cost_p = k2.rollout_cost_plain(spec, x0, us, ctx)
-        record("K6", [scaled(f"K6 rollout K={K} xs", xs_k, xs_p),
-                      scaled(f"K6 rollout K={K} cost", cost_k, cost_p)])
+        record("K2r", [scaled(f"K6 rollout K={K} xs", xs_k, xs_p),
+                       scaled(f"K6 rollout K={K} cost", cost_k, cost_p)])
         xs = torch.cat([x0[None], xs_p[:-1]], 0).contiguous()
         xT = xs_p[-1].clone()
         lin = {}
@@ -1523,7 +1758,7 @@ def al_counts(it):
     """Launches of one AL solve of ``it`` iterations: the K2 rollout, the K3
     hoist over the horizon and K3 without Hessians, K4 and K6-AL once an
     iteration; no K1, no plain select."""
-    return {"K2": 1, "K3": 1 + it, "K4": it, "K6al": it}
+    return {"K2r": 1, "K3": it, "K3h": 1, "K4": it, "K6al": it}
 
 
 def f32_b64(text):
@@ -1721,9 +1956,10 @@ def time_al(ilqr, entry, card, kms, nkms):
         f"{json.dumps({k_: round(v, 3) for k_, v in glue_parts.items()})}")
     del lin, st
     solve_ms = B / rate * 1e3
-    kernels = kms["K2_rollout"] + nkms["K3_full_hess"] + it * (nkms["K3_full"] + nkms["K4_per_stage"] + ms[3])
+    kernels = kms["K2_rollout"] + nkms["K3h_horizon"] + it * (nkms["K3_full"] + nkms["K4_per_stage"]
+                                                             + ms[3])
     log(f"  B={B}: {rate:.1f} solves/s, {solve_ms:.3f} ms a solve of {it} iterations; kernels "
-        f"{kernels:.3f} ms ({100 * kernels / solve_ms:.1f}%: rollout, K3 hoist, and per iteration K3, "
+        f"{kernels:.3f} ms ({100 * kernels / solve_ms:.1f}%: rollout, K3's hoist, and per iteration K3, "
         f"K4 and K6-AL at A=3); AL glue {glue_ms:.3f} ms an iteration, {it * glue_ms:.3f} ms a solve "
         f"({100 * it * glue_ms / solve_ms:.1f}%); the rest {solve_ms - kernels - it * glue_ms:.3f} ms; "
         f"card {card}")
@@ -1812,12 +2048,12 @@ def coupled_games(entry, ilqr, stats):
         if solution.states[0].shape != (T_SWEEP + 1, 4) or solution.controls[0].shape != (T_SWEEP, 2):
             fail(f"coupled game {tag}: result shapes {tuple(solution.states[0].shape)}")
         for it, launches, _ in solves:
-            check_counts(launches, {"K6": 1 + it, "K3ctx": it, "K4": it}, f"coupled game {tag}",
-                         quiet=True)
+            check_counts(launches, {"K6": it, "K2r": 1, "K3ctx": it, "K4": it},
+                         f"coupled game {tag}", quiet=True)
         its = [it for it, _, _ in solves]
         total_launches = {k: sum(l[k] for _, l, _ in solves) for k in solves[0][1]}
-        log(f"  {len(solves)} solves, iterations {its}; launches per solve K6 = 1 + iterations, "
-            f"K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
+        log(f"  {len(solves)} solves, iterations {its}; launches per solve K2r (the rollout) = 1, "
+            f"K6 = K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
         totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER, solution.total_cost)
         z = abs(anchor["total"] - mean) / std
         log(f"  total {solution.total_cost!r} anchor {anchor['total']} (rel "
@@ -1913,6 +2149,7 @@ def time_game_kernels(entry, agents, neighbors, with_plain):
             for buf, src in zip(b, (xs, us, xT)):
                 buf.copy_(src)
     device = {
+        "K6_rollout": graph_ms([lambda: k2.rollout_cost(spec, x0, us, ctx)] * reps),
         "K3ctx_hess": graph_ms([lambda: k3.linearize(spec, xs, us, True, ctx)] * reps),
         "K3ctx": graph_ms([lambda: k3.linearize(spec, xs, us, False, ctx)] * reps),
         "K4": graph_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
@@ -1977,7 +2214,8 @@ def time_games(entry, card):
     row's shapes, and the kernels' share of the wall time."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
-    stats = {"K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS, "K4": k1.BACKWARD_STATS}
+    stats = {"K2r": k2.ROLLOUT_STATS, "K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS,
+             "K4": k1.BACKWARD_STATS}
     rows = {}
     for agents, neighbors in entry.COUPLED_ROWS:
         problem, strategy = entry.coupled_game(agents, neighbors, device=DEVICE)
@@ -1998,18 +2236,19 @@ def time_games(entry, card):
             lane_group_times(agents, neighbors or agents - 1, name, kms[name], device[name],
                              bound[name])
         log(f"  {agents} cars: K4 ({REDESIGNED_K4}) bound {bound['K4'][0]:.6f} ms "
-            f"({bound['K4'][1]})")
+            f"({bound['K4'][1]}); the rollout ({REDESIGNED_K2R}) bound "
+            f"{bound['K6_rollout'][0]:.6f} ms ({bound['K6_rollout'][1]})")
         against_parent({f"K4_{agents}": (kms["K4"], device["K4"], (k4_digest,))}, 15)
-        # One K6 rollout a sweep, the other K6 launches select.
-        in_kernels = (entry.MAX_OUTER * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
-                      + launches["K4"] * kms["K4"]
-                      + (launches["K6"] - entry.MAX_OUTER) * kms["K6_A10"])
+        against_parent(redesigned_rows(None, agents, (f"K6_rollout_{agents}",)), 15)
+        # One rollout a sweep (K2r), K6 the selects.
+        in_kernels = (launches["K2r"] * kms["K6_rollout"] + launches["K3ctx"] * kms["K3ctx_hess"]
+                      + launches["K4"] * kms["K4"] + launches["K6"] * kms["K6_A10"])
         # ... with the redesigned kernels' device time in place of a wrapper
         # call's.
-        on_device = in_kernels + (launches["K3ctx"] * (device["K3ctx_hess"] - kms["K3ctx_hess"])
+        on_device = in_kernels + (launches["K2r"] * (device["K6_rollout"] - kms["K6_rollout"])
+                                  + launches["K3ctx"] * (device["K3ctx_hess"] - kms["K3ctx_hess"])
                                   + launches["K4"] * (device["K4"] - kms["K4"])
-                                  + (launches["K6"] - entry.MAX_OUTER)
-                                  * (device["K6_A10"] - kms["K6_A10"]))
+                                  + launches["K6"] * (device["K6_A10"] - kms["K6_A10"]))
         log(f"[15] {agents} cars, {'all pairs' if neighbors is None else f'{neighbors} nearest'}: "
             f"wall {[round(t * 1e3, 3) for t in times]} ms, median {wall * 1e3:.3f} ms, "
             f"{rate:.1f} agent-solves/s ({agents} x {entry.MAX_OUTER} sweeps); launches per call "
@@ -2184,7 +2423,8 @@ def nonfused_routes(ilqr, entry, stats):
                      f"{what} against the fused solve at the reference ladder")
         share_within(r.cost[:n], want_disc, NONFUSED_RTOL, NONFUSED_ANCHOR_SHARE,
                      f"{what}, first {n} against the JAX scan anchors")
-        check_counts(launches, {"K2": 1 + it, "K4x": it, "K7": it if name == "pallas" else 0}, what)
+        check_counts(launches, {"K2": it, "K2r": 1, "K4x": it, "K7": it if name == "pallas" else 0},
+                     what)
         paths[what] = {"launches": launches, "iterations": it, "peak_gib": peak}
     del fused_ref
     for sfl in (True, False):
@@ -2197,8 +2437,8 @@ def nonfused_routes(ilqr, entry, stats):
             f"{float(np.percentile(costs, 99))!r}, max {float(costs.max())!r}")
         share_within(r.cost[:n], want_cont, NONFUSED_RTOL, NONFUSED_ANCHOR_SHARE,
                      f"{what}, first {n} against the JAX scan anchors")
-        want = ({"K1cont": it, "K2": 1 + it, "K3cont": 1} if sfl
-                else {"K3cont": 1 + it, "K4": it, "K2": 1 + it})
+        want = ({"K1cont": it, "K2": it, "K2r": 1, "K3h": 1} if sfl
+                else {"K3cont": it, "K3h": 1, "K4": it, "K2": it, "K2r": 1})
         check_counts(launches, want, what)
         paths[what] = {"launches": launches, "iterations": it}
     del specs
@@ -2240,7 +2480,7 @@ def nonfused_routes(ilqr, entry, stats):
     fused_al = ilqr.solve_ilqr_batched(al_specs, cfg, device=DEVICE)
     share_within(r.cost, fused_al.cost, NONFUSED_RTOL, NONFUSED_AL_SHARE,
                  f"{what}, {it} iterations, against the fused loop")
-    check_counts(launches, {"K2": 1, "K6al": it, "K4x": it}, what)
+    check_counts(launches, {"K2r": 1, "K6al": it, "K4x": it}, what)
     paths[what] = {"launches": launches, "iterations": it}
 
     # The single problem through make_solver(...).solve(ocp): torch on the card.
@@ -2730,7 +2970,7 @@ def constrained_games(entry, ilqr, stats):
     """Phase 23: the constrained game through the strategy."""
     import torch
     out = {}
-    want_of = lambda it: {"K6": 1, "K6alctx": it, "K3ctx": it, "K4": it}
+    want_of = lambda it: {"K2r": 1, "K6alctx": it, "K3ctx": it, "K4": it}
     # (a) The 12-car ring after a few sweeps of a few iterations, on its JAX
     # anchor agent by agent, and against the plain versions.
     agents, neighbors, sweeps, iters = CONSTRAINED_SMALL
@@ -2747,7 +2987,7 @@ def constrained_games(entry, ilqr, stats):
             for it, launches, _ in solves:
                 check_counts(launches, want_of(it), f"constrained ring ({name})", quiet=True)
             log(f"  kernels: {len(solves)} solves, iterations {[it for it, _, _ in solves]}; "
-                f"launches per solve K6 rollout 1, K6alctx = K3ctx = K4 = iterations")
+                f"launches per solve K2r (the rollout) 1, K6alctx = K3ctx = K4 = iterations")
     anchor = np.asarray(CONSTRAINED_SMALL_ANCHOR)
     rel = float(np.max(np.abs(res["kernels"] - anchor) / anchor))
     rel_p = float(np.max(np.abs(res["kernels"] - res["plain"]) / res["plain"]))
@@ -2775,7 +3015,7 @@ def constrained_games(entry, ilqr, stats):
             check_counts(launches, want_of(it), f"constrained game {tag}", quiet=True)
         its = [it for it, _, _ in solves]
         total_launches = {k: sum(l[k] for _, l, _ in solves) for k in solves[0][1]}
-        log(f"  {len(solves)} solves, iterations {its}; launches per solve K6 rollout 1, "
+        log(f"  {len(solves)} solves, iterations {its}; launches per solve K2r (the rollout) 1, "
             f"K6alctx = K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
         n_conv, v_conv = feasible_converged([r for _, _, r in solves], f"constrained game {tag}")
         totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER,
@@ -2883,21 +3123,21 @@ def time_al_context_kernel(entry, ilqr, agents, neighbors, with_plain):
 
 
 def time_constrained(entry, ilqr, card):
-    """Phase 24a: agent-solves/s and wall ms of each constrained row (median
-    of GAME_TIMED calls after phase 23's, host clock around the whole
-    strategy call), and K6 AL + context's time per launch at each row's
-    shapes."""
+    """Phase 24a: agent-solves/s and wall ms of each constrained row (the
+    median of CONSTRAINED_TIMED calls after phase 23's, host clock around
+    the whole strategy call), and K6 AL + context's time per launch at each
+    row's shapes."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
-    stats = {"K6": k2.CTX_STATS, "K6alctx": k2.AL_CTX_STATS, "K3ctx": k3.CTX_STATS,
-             "K4": k1.BACKWARD_STATS}
+    stats = {"K2r": k2.ROLLOUT_STATS, "K6": k2.CTX_STATS, "K6alctx": k2.AL_CTX_STATS,
+             "K3ctx": k3.CTX_STATS, "K4": k1.BACKWARD_STATS}
     rows = {}
     for agents, neighbors in entry.COUPLED_ROWS:
         problem, strategy = entry.constrained_game(agents, neighbors, device=DEVICE)
         # Phase 23 warmed these kernels up; the counts are read around the
         # first timed call.
         times = []
-        for i in range(GAME_TIMED):
+        for i in range(CONSTRAINED_TIMED):
             if i == 0:
                 reset_counts(stats)
             t0 = time.perf_counter()
@@ -3153,7 +3393,7 @@ def solve_and_check(ilqr, entry, stats, config=None, want_of=None, what="main pa
     """Phase 5a (and 10): one solve at MAIN_BATCH with the counts set to 0
     just before it, anchors and launch counts read just after."""
     config = config or entry.BENCH_CONFIG
-    want_of = want_of or (lambda it: {"K1": it, "K2": 1 + it, "K3": 1, "K4": 0, "K5": 0})
+    want_of = want_of or (lambda it: {"K1": it, "K2": it, "K2r": 1, "K3h": 1})
     log(f"[{phase}] {what}, B={MAIN_BATCH}")
     specs = entry.bench_specs(MAIN_BATCH, device=DEVICE)
     reset_counts(stats)
@@ -3198,10 +3438,11 @@ def time_solves(ilqr, entry, B, config=None, specs=None, label="solves"):
     return B / med
 
 
-def time_kernels(spec, B, with_plain):
-    """Phase 5c: each kernel's device time per launch at the main path's
-    shapes (iteration-1 inputs), its bound from these inputs, and
-    optionally the plain version's time."""
+def time_kernels(spec, B, with_plain, hoist_ops):
+    """Phase 5c: each kernel's time per launch (a wrapper call) at the main
+    path's shapes (iteration-1 inputs), its bound from these inputs (the
+    hoist's operations ``hoist_ops`` a problem), and optionally the plain
+    version's time."""
     import torch
     from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
     from multi_agent_solver_tpu_torch.entry import BENCH_CONFIG
@@ -3217,7 +3458,7 @@ def time_kernels(spec, B, with_plain):
     xs_tail, cost = k2.rollout_cost(spec, x0, us0)
     xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
     xT = xs_tail[-1].clone()
-    hess = [h[0] for h in k3.linearize(spec, x1, u1, True)[4:]]
+    hess = [h[0] for h in k3.linearize_hessians(spec, x1, u1)]
     k, K = k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels)
     fresh = lambda: [xs.clone(), us0.clone(), xT.clone()]
     _, accept = k2.forward_select(spec, *fresh(), k, K, cost, active, lb, ub, ladder)
@@ -3229,7 +3470,7 @@ def time_kernels(spec, B, with_plain):
     reps = 5
     sel_bufs = [fresh() for _ in range(reps)]
     ms = {
-        "K3": event_ms([lambda: k3.linearize(spec, x1, u1, True)] * reps),
+        "K3h": event_ms([lambda: k3.linearize_hessians(spec, x1, u1)] * reps),
         "K2_rollout": event_ms([lambda: k2.rollout_cost(spec, x0, us0)] * reps),
         "K1": event_ms([lambda: k1.riccati_fusedlin(spec, xs, us0, *hess, xT, levels)] * reps),
         "K2": event_ms([lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, lb, ub, ladder)
@@ -3240,7 +3481,8 @@ def time_kernels(spec, B, with_plain):
     if with_plain:
         b = fresh()
         plain = {
-            "K3": event_ms([lambda: k3.linearize_plain(spec, x1, u1, True)]),
+            "K3h": event_ms([lambda: k3.linearize_hessians_plain(spec, x1, u1)]),
+            "K2_rollout": event_ms([lambda: k2.rollout_cost_plain(spec, x0, us0)]),
             "K1": event_ms([lambda: k1.riccati_fusedlin_plain(spec, xs, us0, *hess, xT, levels)]),
             "K2": event_ms([lambda: k2.forward_select_plain(spec, *b, k, K, cost, active,
                                                             lb, ub, ladder)]),
@@ -3251,7 +3493,7 @@ def time_kernels(spec, B, with_plain):
     # only on accepted problems).
     nx, nu, f = 4, 2, 4
     bytes_ = {
-        "K3": B * f * ((nx + nu) + nx * nx + nx * nu + nx + nu + nx * nx + nu * nu + nu * nx),
+        "K3h": B * f * ((nx + nu) + nx * nx + nu * nu + nu * nx),
         "K1": B * f * (T * (nx + nu) + T * nu * (1 + nx) + nx * nx + nu * nu + nu * nx + nx),
         # reads x, u, k, K, merit, lb, ub (+ 1 byte active); writes merit
         # (+ 1 byte accept) and, where accepted, x, u and x_T.
@@ -3261,7 +3503,7 @@ def time_kernels(spec, B, with_plain):
         "K2_rollout": B * f * (nx + T * nu + T * nx + 1),
     }
     ops = {
-        "K3": B * OPS_K3,
+        "K3h": B * hoist_ops,
         "K1": B * T * OPS_K1_STAGE,
         "K2": B * T * A * (OPS_CONTROL + OPS_COST + OPS_RK4) + n_acc * T * (OPS_CONTROL + OPS_RK4),
         "K2_rollout": B * T * (OPS_RK4 + OPS_COST),
@@ -3315,10 +3557,15 @@ def main() -> None:
                 for name, label in REDESIGNED_KERNELS.items():
                     if name in line:
                         log(f"  {label}: " + line.strip())
+    # The instructions of the rollout's stage and of the hoist (SASS): their
+    # issue floors at the main path's shapes.
+    sass = sass_floors(_build.BUILD_DIR, MAIN_BATCH, T)
 
     spec = entry.single_track_spec(device=DEVICE)
-    # K6 and K3ctx: the context-mode launches of K2 and K3 (counted apart).
-    stats = {"K1": k1.STATS, "K2": k2.STATS, "K3": k3.STATS, "K4": k1.BACKWARD_STATS,
+    # K6 and K3ctx: the context-mode launches of K2 and K3 (counted apart);
+    # K2r: the rollout kernel, with or without a context; K3h: K3's hoist.
+    stats = {"K1": k1.STATS, "K2": k2.STATS, "K2r": k2.ROLLOUT_STATS, "K3": k3.STATS,
+             "K3h": k3.HOIST_STATS, "K4": k1.BACKWARD_STATS,
              "K5": k1.BOXQP_STATS, "K6": k2.CTX_STATS, "K3ctx": k3.CTX_STATS, "K6al": k2.AL_STATS,
              "K4x": k1.EXPLICIT_STATS, "K7": k3.FLAT_STATS, "K3cont": k3.CONT_STATS,
              "K1cont": k1.CONT_STATS, "K6alctx": k2.AL_CTX_STATS, "K8": k2.EMIT_STATS,
@@ -3328,17 +3575,22 @@ def main() -> None:
 
     launches, got, it = solve_and_check(ilqr, entry, stats)
     rates = {B: time_solves(ilqr, entry, B) for B in (MAIN_BATCH, BENCH_BATCH)}
-    timing = {B: time_kernels(spec, B, with_plain=(B == MAIN_BATCH)) for B in (MAIN_BATCH, BENCH_BATCH)}
+    # The hoist's operations: its SASS instructions (OPS_K3's count of its
+    # second-order pass, 2,368, is what the source writes; the compiler
+    # folds the products by the dual seeds' constant parts).
+    hoist_ops = sass["K3_hoist"]["instructions"]
+    timing = {B: time_kernels(spec, B, (B == MAIN_BATCH), hoist_ops)
+              for B in (MAIN_BATCH, BENCH_BATCH)}
     log(f"  card {card}: {rates[MAIN_BATCH]:.1f} solves/s at {MAIN_BATCH}, "
         f"{rates[BENCH_BATCH]:.1f} solves/s at {BENCH_BATCH}")
-    log(f"[5] the redesigned select at A = 3 and K1 (B={MAIN_BATCH}), their digests against the "
-        f"parent's, card {card}")
-    redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3", "K1"))
+    log(f"[5] the redesigned select at A = 3, K1, the rollout and the one-stage hoist "
+        f"(B={MAIN_BATCH}), their digests against the parent's, card {card}")
+    redesigned = redesigned_rows(spec, MAIN_BATCH, ("K2_A3", "K1", "K2_rollout", "K3_hoist_stage"))
     against_parent(redesigned, 5)
     for B in (MAIN_BATCH, BENCH_BATCH):
         kms = timing[B][0]
-        in_kernels = (launches["K1"] * kms["K1"] + (launches["K2"] - 1) * kms["K2"]
-                      + kms["K2_rollout"] + launches["K3"] * kms["K3"])
+        in_kernels = (launches["K1"] * kms["K1"] + launches["K2"] * kms["K2"]
+                      + launches["K2r"] * kms["K2_rollout"] + launches["K3h"] * kms["K3h"])
         solve_ms = B / rates[B] * 1e3
         log(f"  B={B}: kernel time per solve {in_kernels:.3f} ms (launch counts x ms per "
             f"launch) of {solve_ms:.3f} ms median solve, {100 * in_kernels / solve_ms:.1f}%")
@@ -3352,11 +3604,12 @@ def main() -> None:
     branches = run_branches(ilqr, entry, stats)
     sweep = circular_sweep(ilqr, entry, stats)
     log(f"[12] new kernel modes per launch, T={T}")
-    new_timing = {B: time_new_kernels(spec, B, with_plain=(B == MAIN_BATCH))
+    new_timing = {B: time_new_kernels(spec, B, (B == MAIN_BATCH), hoist_ops)
                   for B in (MAIN_BATCH, BENCH_BATCH)}
-    log(f"[12] the redesigned select at A = 10 and K1 with boxqp (B={MAIN_BATCH}), their digests "
-        f"against the parent's, card {card}")
-    rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10", "K1_boxqp"))
+    log(f"[12] the redesigned select at A = 10, K1 with boxqp, the horizon hoist (B={MAIN_BATCH}) "
+        f"and the sweep's rollout, their digests against the parent's, card {card}")
+    rows = redesigned_rows(spec, MAIN_BATCH, ("K2_A10", "K1_boxqp", "K3_hoist_horizon",
+                                              "K2_rollout_sweep"))
     against_parent(rows, 12)
     redesigned.update(rows)
     # Kernel time per solve of each branch at MAIN_BATCH from the per-launch
@@ -3364,15 +3617,15 @@ def main() -> None:
     # iteration the branch's kernels and K2 select.
     kms, nkms = timing[MAIN_BATCH][0], new_timing[MAIN_BATCH][0]
     parts = {   # name: (hoist, one iteration's kernels besides K2 select)
-        "stationary_fusedlin=False": (kms["K3"], nkms["K3_full"] + nkms["K4_hess_tconst"]),
+        "stationary_fusedlin=False": (kms["K3h"], nkms["K3_full"] + nkms["K4_hess_tconst"]),
         "quadratic_cost=True, stationary_cost=False": (
-            nkms["K3_full_hess"], nkms["K3_full"] + nkms["K4_per_stage"]),
+            nkms["K3h_horizon"], nkms["K3_full"] + nkms["K4_per_stage"]),
         "quadratic_cost=False": (0.0, nkms["K3_full_hess"] + nkms["K4_per_stage"]),
-        "bound_mode=boxqp": (kms["K3"], nkms["K1_boxqp"]),
+        "bound_mode=boxqp": (kms["K3h"], nkms["K1_boxqp"]),
     }
     for name, v in branches.items():
-        hoist, per_iteration = parts[name]
-        in_kernels = kms["K2_rollout"] + hoist + v["iterations"] * (per_iteration + kms["K2"])
+        hoisted, per_iteration = parts[name]
+        in_kernels = kms["K2_rollout"] + hoisted + v["iterations"] * (per_iteration + kms["K2"])
         solve_ms = MAIN_BATCH / v["solves_per_s"] * 1e3
         log(f"  {name}, B={MAIN_BATCH}: kernel time per solve {in_kernels:.3f} ms (launch counts "
             f"x ms per launch) of {solve_ms:.3f} ms median solve, {100 * in_kernels / solve_ms:.1f}%")
@@ -3383,7 +3636,8 @@ def main() -> None:
 
     # Phases 13-15: the coupled Nash game.
     for key, (a, r) in check_coupled_kernels(coupled_spec()).items():
-        errs[key] = (a, r)
+        a0, r0 = errs.get(key, (0.0, 0.0))
+        errs[key] = (max(a0, a), max(r0, r))
     games = coupled_games(entry, ilqr, stats)
     game_rows = time_games(entry, card)
     log(f"  card {card}: " + "; ".join(
@@ -3438,18 +3692,26 @@ def main() -> None:
     meta = {
         "K1": ("K1 riccati_fusedlin", "multi_agent_solver_tpu_torch/csrc/riccati.cu",
                "multi_agent_solver_tpu/ops/riccati_pallas.py:526"),
-        "K2": ("K2 forward_select", "multi_agent_solver_tpu_torch/csrc/forward_select.cu",
+        "K2": ("K2 forward_select (select mode)",
+               "multi_agent_solver_tpu_torch/csrc/forward_select.cu",
                "multi_agent_solver_tpu/ops/forward_select_pallas.py:300"),
         "K3": ("K3 linearize", "multi_agent_solver_tpu_torch/csrc/linearize.cu",
                "multi_agent_solver_tpu/ops/linearize_pallas.py:143"),
     }
     kernels = []
+    big_sweep = next(v for v in sweep.values() if "kernel_ms" in v)
+    # K1 and K2 timed at the main path's launches (phase 5c); K3 at the
+    # general branch's, over the horizon with Hessians (phase 12): the main
+    # path launches K3 only in its hoist mode.
     for key, (name, source, replaces) in meta.items():
+        t_key, t_ms, t_plain, t_bound, t_big = ((key, ms, plain, bound, ms_big) if key != "K3" else
+                                                ("K3_full_hess", nms, nplain, nbound, nms_big))
         entry_ = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
-            "ms": ms[key], "plain_ms": plain[key], **bound_keys(bound[key]), "library_ms": None,
-            "batch": MAIN_BATCH, "ms_at_524288": ms_big[key], "launches_by_path": by_path(key),
+            "ms": t_ms[t_key], "plain_ms": t_plain[t_key], **bound_keys(t_bound[t_key]),
+            "library_ms": None, "batch": MAIN_BATCH, "ms_at_524288": t_big[t_key],
+            "launches_by_path": by_path(key),
         }
         if key == "K1":
             entry_.update(ms_boxqp=nms["K1_boxqp"], plain_ms_boxqp=nplain["K1_boxqp"],
@@ -3460,21 +3722,16 @@ def main() -> None:
             # The select without a context, redesigned: both yardsticks and
             # the output digests at the bench ladder and the reference one.
             entry_.update(redesigned_entry(redesigned, "K2_A3", "K2_A10", REDESIGNED_K2))
-            entry_["ms_rollout_mode"] = ms["K2_rollout"]
-            entry_.update(bound_keys(bound["K2_rollout"], "_rollout_mode"))
-            entry_["ms_rollout_mode_at_524288"] = ms_big["K2_rollout"]
-            big_sweep = next(v for v in sweep.values() if "kernel_ms" in v)
             entry_.update(ms_select_sweep_T10=big_sweep["kernel_ms"]["K2_A10"],
                           **bound_keys(big_sweep["select_bound"], "_select_sweep_T10"))
             entry_.update(ms_select_A10=nms["K2_A10"], plain_ms_select_A10=nplain["K2_A10"],
                           bound_ms_select_A10=nbound["K2_A10"][0],
                           ms_select_A10_at_524288=nms_big["K2_A10"])
         if key == "K3":
-            for mode in ("K3_full_hess", "K3_full"):
-                tag = "full_T_hessians" if mode == "K3_full_hess" else "full_T"
-                entry_.update({f"ms_{tag}": nms[mode], f"plain_ms_{tag}": nplain[mode],
-                               f"bound_ms_{tag}": nbound[mode][0], f"bound_by_{tag}": nbound[mode][1],
-                               f"ms_{tag}_at_524288": nms_big[mode]})
+            entry_["ms_of"] = "the whole horizon with Hessians"
+            entry_.update(ms_full_T=nms["K3_full"], plain_ms_full_T=nplain["K3_full"],
+                          **bound_keys(nbound["K3_full"], "_full_T"),
+                          ms_full_T_at_524288=nms_big["K3_full"])
             # The context mode (the coupled game; T = 10): launches counted
             # apart as K3ctx, times at each bench_coupled row's shapes.
             entry_.update(context_launches_by_path=by_path("K3ctx"), context_status=REDESIGNED,
@@ -3490,6 +3747,44 @@ def main() -> None:
                     if mode in row["plain"]:
                         entry_[f"plain_ms_{m}"] = row["plain"][mode]
         kernels.append(entry_)
+    # K2's rollout kernel (with and without a context) and K3's hoist mode.
+    rollout = {
+        "name": "K2 forward_rollout (rollout mode, with or without a context)", "route": "cuda",
+        "source": "multi_agent_solver_tpu_torch/csrc/forward_select.cuh",
+        "replaces": "multi_agent_solver_tpu/ops/forward_select_pallas.py:300",
+        "launches": launches["K2r"], "max_abs_err": errs["K2r"][0],
+        "max_rel_err": errs["K2r"][1], "ms": ms["K2_rollout"], "plain_ms": plain["K2_rollout"],
+        **bound_keys(bound["K2_rollout"]), "library_ms": None, "batch": MAIN_BATCH,
+        "ms_at_524288": ms_big["K2_rollout"], "launches_by_path": by_path("K2r"),
+        "sass_instructions_per_stage": sass["K2_rollout"]["instructions"],
+        "sass_issue_floor_ms": sass["K2_rollout"]["issue_floor_ms"],
+        "ms_sweep_T10": big_sweep["kernel_ms"]["K2_rollout"],
+        **bound_keys(big_sweep["rollout_bound"], "_sweep_T10"),
+        **redesigned_entry(redesigned, "K2_rollout", "K2_rollout_sweep", REDESIGNED_K2R),
+    }
+    for (n, k), row in game_rows.items():
+        tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
+        rollout.update({f"ms_context_{tag}": row["ms"]["K6_rollout"],
+                        f"device_ms_context_{tag}": row["device_ms"]["K6_rollout"],
+                        f"bound_ms_context_{tag}": row["bound"]["K6_rollout"][0]})
+        if "K6_rollout" in row["plain"]:
+            rollout[f"plain_ms_context_{tag}"] = row["plain"]["K6_rollout"]
+    hoist_e = {
+        "name": "K3 linearize, hoist mode (the cost Hessians alone)", "route": "cuda",
+        "source": "multi_agent_solver_tpu_torch/csrc/linearize.cu",
+        "replaces": "multi_agent_solver_tpu/ops/linearize_pallas.py:143",
+        "launches": launches["K3h"], "max_abs_err": errs["K3h"][0],
+        "max_rel_err": errs["K3h"][1], "ms": ms["K3h"], "plain_ms": plain["K3h"],
+        **bound_keys(bound["K3h"]), "library_ms": None, "batch": MAIN_BATCH,
+        "ms_at_524288": ms_big["K3h"], "launches_by_path": by_path("K3h"),
+        "ms_horizon": nms["K3h_horizon"], "plain_ms_horizon": nplain["K3h_horizon"],
+        **bound_keys(nbound["K3h_horizon"], "_horizon"),
+        "ms_horizon_at_524288": nms_big["K3h_horizon"],
+        "sass_instructions_per_stage": sass["K3_hoist"]["instructions"],
+        "sass_issue_floor_ms_horizon": sass["K3_hoist"]["issue_floor_ms"],
+        **redesigned_entry(redesigned, "K3_hoist_stage", "K3_hoist_horizon", REDESIGNED_K3H),
+    }
+    kernels += [rollout, hoist_e]
     k4 = {
         "name": "K4 riccati_backward", "route": "cuda",
         "source": "multi_agent_solver_tpu_torch/csrc/riccati.cu",
@@ -3542,17 +3837,13 @@ def main() -> None:
         "device_ms": main_game["device_ms"]["K6_A10"], "plain_ms": main_game["plain"]["K6_A10"],
         **bound_keys(main_game["bound"]["K6_A10"]),
         "library_ms": None, "batch": 64, "launches_by_path": by_path("K6"),
-        "ms_rollout_mode": main_game["ms"]["K6_rollout"],
-        "plain_ms_rollout_mode": main_game["plain"]["K6_rollout"],
-        "bound_ms_rollout_mode": main_game["bound"]["K6_rollout"][0],
     }
     for (n, k), row in game_rows.items():
         tag = f"{n}_cars_{'all_pairs' if k is None else f'{k}nn'}"
         k6.update({f"ms_{tag}": row["ms"]["K6_A10"],
                    f"device_ms_{tag}": row["device_ms"]["K6_A10"],
                    f"bound_ms_{tag}": row["bound"]["K6_A10"][0],
-                   f"bound_by_{tag}": row["bound"]["K6_A10"][1],
-                   f"ms_rollout_mode_{tag}": row["ms"]["K6_rollout"]})
+                   f"bound_by_{tag}": row["bound"]["K6_A10"][1]})
     k6al = {
         "name": "K6 forward_select, AL mode", "route": "cuda",
         "source": "multi_agent_solver_tpu_torch/csrc/forward_select_al.cu",

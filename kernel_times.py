@@ -19,7 +19,12 @@ Three groups of rows:
   every rung wins somewhere; K1's also on a rollout under drawn controls),
   so that two trees' outputs are compared bit
   for bit, and the device ms of each kernel that a call launches (a
-  torch.profiler trace, ``kernel_split``);
+  torch.profiler trace, ``kernel_split``); and K2's rollout (the main
+  path's, also at 524,288 problems, the sweep's at T = 10 and the game
+  rows' with a context, ``K6_rollout_N``) and K3's hoist (one stage and the
+  horizon), with the digests of their outputs on zero and on drawn
+  controls from partly non-finite starts (``chip_smoke.py``'s
+  ``rollout_hoist_calls``), and K1 clamp at 524,288 problems;
 * K4 at T = 10 on 64 to 65,536 problems (``K4_SWEEP``), on the 1,024-car
   game's stacks, tiled, and in the explicit-terminal mode at each
   instantiated (nx, nu), clamp and boxqp, on seeded random stacks: where
@@ -36,9 +41,12 @@ cut to one of its parts (``TRIALS``).  Prints the card's name and
 power limit, then one JSON line ``{"tree": ..., "card": ..., "ms": {cars:
 {kernel: [wrapper-call ms, device ms(, digest)]}}, "main": {row: [wrapper-call
 ms, device ms, digests, {kernel: device ms}]}, "k4_sweep": {instantiation:
-{problems: [wrapper-call ms, device ms, digest]}}, "ptxas": {K1 instantiation:
-ptxas's lines of its registers, stack frame and spills}}``; the log goes to
-``build/kernel_times.log``.  ``--parts`` and ``--rows`` time a subset.
+{problems: [wrapper-call ms, device ms, digest]}}, "ptxas": {instantiation of
+K1, of the rollout and of the hoist: ptxas's lines of its registers, stack
+frame and spills}, "sass": the rollout's stage and the hoist's body in SASS
+instructions, and their issue floors (``chip_smoke.sass_floors``)}``; the
+log goes to ``build/kernel_times.log``, the SASS of those functions to
+``build/sass_*.txt``.  ``--parts`` and ``--rows`` time a subset.
 
     python3 kernel_times.py [--tree DIR] [--trial NAME] [--parts games main sweep] [--rows K1 ...]
 
@@ -59,29 +67,35 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 MAIN_ROWS = ("K2_A3", "K2_A10", "K7", "K7_continuous", "K6AL_A3", "K6AL_A10", "K4_per_stage",
-             "K4_explicit", "K1", "K1_boxqp", "K1_continuous")
+             "K4_explicit", "K1", "K1_boxqp", "K1_continuous", "K2_rollout", "K2_rollout_524288",
+             "K2_rollout_sweep", "K6_rollout_64", "K6_rollout_256", "K6_rollout_1024",
+             "K3_hoist_stage", "K3_hoist_horizon", "K1_524288")
 K4_SWEEP = (64, 256, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 PARTS = ("games", "main", "sweep")
-# Trial copies of a tree's K1 that time its parts apart, as text patches of
-# riccati_fusedlin_kernel in csrc/riccati.cuh ((before, after) pairs, each
-# found there exactly once; the stage loop's lines are matched by regular
-# expressions, so that any tree's K1 takes them): "lin_only" runs the
-# linearization and writes the sum of A, B, lx, lu to k (K = 0) in place of
-# the stage core; "rec_only" runs the stage core on the A, B, lx, lu of
-# stage T-1, computed once before the loop, so that no stage loads x or u.
+# Trial copies of a tree, as text patches of one of its csrc files (file,
+# the kernel patched or None for the whole file, (before, after) pairs,
+# each found there exactly once).  K1 cut to its parts, patches of
+# riccati_fusedlin_kernel in csrc/riccati.cuh (the stage loop's lines are
+# matched by regular expressions, so that any tree's K1 takes them):
+# "lin_only" runs the linearization and writes the sum of A, B, lx, lu to k
+# (K = 0) in place of the stage core; "rec_only" runs the stage core on the
+# A, B, lx, lu of stage T-1, computed once before the loop, so that no stage
+# loads x or u.  "rollout_one_wave" bounds the rollout kernel
+# (csrc/forward_select.cuh) to 32 registers a thread, 16 blocks of 128 an
+# SM, so that 262,144 problems are one wave.
 K1_CORE = re.compile(r"    stage_core<NX, NU, BOXQP>\(A, Bm, lx, lu, lxx, luu, lux, [^;]*\);\n")
 K1_LIN = re.compile(r"    stage_derivatives\w*<DISCRETE>\(dyn, cost, h, [^;]*\);\n")
 K1_LOOP = "  for (int t = T - 1; t >= 0; --t) {\n"
 UNROLL = "#pragma unroll\n"
 TRIALS = {
-    "lin_only": [(K1_CORE, (
+    "lin_only": ("riccati.cuh", "riccati_fusedlin_kernel", [(K1_CORE, (
         "    float sum = 0.0f;\n" + UNROLL + "    for (int i = 0; i < NX; ++i) {\n"
         + UNROLL + "      for (int j = 0; j < NX; ++j) sum = sum + A[i][j];\n"
         + UNROLL + "      for (int j = 0; j < NU; ++j) sum = sum + Bm[i][j];\n"
         "      sum = sum + lx[i];\n    }\n"
         + UNROLL + "    for (int i = 0; i < NU; ++i) {\n      k[i] = sum + lu[i];\n"
-        + UNROLL + "      for (int j = 0; j < NX; ++j) K[i][j] = 0.0f;\n    }\n"))],
-    "rec_only": [
+        + UNROLL + "      for (int j = 0; j < NX; ++j) K[i][j] = 0.0f;\n    }\n"))]),
+    "rec_only": ("riccati.cuh", "riccati_fusedlin_kernel", [
         (K1_LIN, (
             UNROLL + "    for (int i = 0; i < NX; ++i) {\n"
             + UNROLL + "      for (int j = 0; j < NX; ++j) A[i][j] = A0[i][j];\n"
@@ -94,41 +108,66 @@ TRIALS = {
             + UNROLL + "    for (int i = 0; i < NX; ++i) x0[i] = xs[(s0 * NX + i) * sB + b];\n"
             + UNROLL + "    for (int i = 0; i < NU; ++i) u0[i] = us[(s0 * NU + i) * sB + b];\n"
             "    stage_derivatives<DISCRETE>(dyn, cost, h, x0, u0, A0, B0, lx0, lu0);\n  }\n"
-            + K1_LOOP))],
+            + K1_LOOP))]),
+    "rollout_one_wave": ("forward_select.cuh", "forward_rollout_kernel", [
+        ("__launch_bounds__(ROLLOUT_BLOCK)", "__launch_bounds__(ROLLOUT_BLOCK, 16)")]),
+}
+# ptxas's report of these instantiations (a regular expression on the
+# mangled name of "Compiling entry function"): K1's four, the rollout's
+# (this tree's kernel, or the one-thread kernel's rollout mode, MAXA = 1,
+# INIT = true) and the Hessian hoist's (this tree's) beside K3 with
+# Hessians (the parent's hoist); the first label that matches names a line.
+PTXAS = {
+    "K1 boxqp=0 discrete=1": r"riccati_fusedlin_kernel\w*?Lb0ELb1E",
+    "K1 boxqp=1 discrete=1": r"riccati_fusedlin_kernel\w*?Lb1ELb1E",
+    "K1 boxqp=0 discrete=0": r"riccati_fusedlin_kernel\w*?Lb0ELb0E",
+    "K1 boxqp=1 discrete=0": r"riccati_fusedlin_kernel\w*?Lb1ELb0E",
+    "K2 rollout, lane follow": r"forward_rollout_kernel\w*DiagQuadratic|"
+                               r"forward_select_kernel\w*DiagQuadratic\w*Li1ELb1ELb0E",
+    "K2 rollout, coupled": r"forward_rollout_kernel\w*Coupled|"
+                           r"forward_select_kernel\w*Coupled\w*Li1ELb1ELb0E",
+    "K2 rollout, circular track": r"forward_rollout_kernel\w*?_13CircularTrackE|"
+                                  r"forward_select_kernel\w*?_13CircularTrackE\w*Li1ELb1ELb0E",
+    "K3 hoist, lane follow": r"linearize_hessians_kernel\w*DiagQuadratic",
+    "K3 with Hessians, lane follow": r"linearize_kernel\w*DiagQuadratic\w*Lb1ELb1E",
 }
 
 
 def trial_tree(tree: Path, name: str) -> Path:
-    """A copy of ``tree``'s package under ``build/trial_NAME_TREE/`` with K1
-    patched by ``TRIALS[name]``, without the sources of K4's explicit mode
-    at (8, 4) (``riccati_explicit_wide*.cu``, the build's long pole), which
-    no K1 row runs."""
+    """A copy of ``tree``'s package under ``build/trial_NAME_TREE/`` patched
+    by ``TRIALS[name]``, without the sources of K4's explicit mode at (8, 4)
+    (``riccati_explicit_wide*.cu``, the build's long pole), which no trial's
+    rows run."""
     dest = HERE / "build" / f"trial_{name}_{tree.name}"
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(tree / "multi_agent_solver_tpu_torch", dest / "multi_agent_solver_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "riccati_explicit_wide*.cu"))
-    src = dest / "multi_agent_solver_tpu_torch" / "csrc" / "riccati.cuh"
+    file, kernel_name, patches = TRIALS[name]
+    src = dest / "multi_agent_solver_tpu_torch" / "csrc" / file
     text = src.read_text()
-    start = text.rindex("__global__", 0, text.index("riccati_fusedlin_kernel("))
-    end = text.index("\n}\n", start)
-    kernel = text[start:end]
-    for before, after in TRIALS[name]:
+    start, end = 0, len(text)
+    if kernel_name is not None:
+        start = text.rindex("__global__", 0, text.index(kernel_name + "("))
+        end = text.index("\n}\n", start)
+    part = text[start:end]
+    for before, after in patches:
         pattern = before if isinstance(before, re.Pattern) else re.compile(re.escape(before))
-        if len(pattern.findall(kernel)) != 1:
-            sys.exit(f"trial {name}: {pattern.pattern!r} is not in K1 exactly once")
-        kernel = pattern.sub(lambda m: after, kernel)
-    src.write_text(text[:start] + kernel + text[end:])
+        if len(pattern.findall(part)) != 1:
+            sys.exit(f"trial {name}: {pattern.pattern!r} is not in {kernel_name or file} "
+                     "exactly once")
+        part = pattern.sub(lambda m: after, part)
+    src.write_text(text[:start] + part + text[end:])
     return dest
 
 
-def k1_ptxas(build_log: Path) -> dict:
-    """``{"boxqp=B discrete=D": ptxas's lines}`` of K1's instantiations in a
-    build's log: its registers, and its stack frame and spills."""
+def ptxas_report(build_log: Path) -> dict:
+    """``{PTXAS label: ptxas's lines}`` of the instantiations PTXAS names in
+    a build's log: their registers, and their stack frames and spills."""
     out, name = {}, None
     for line in build_log.read_text().splitlines() if build_log.exists() else ():
         if "Compiling entry function" in line:
-            m = re.search(r"riccati_fusedlin_kernel\w*?Lb([01])ELb([01])E", line)
-            name = f"boxqp={m.group(1)} discrete={m.group(2)}" if m else None
+            name = next((label for label, pattern in PTXAS.items() if re.search(pattern, line)),
+                        None)
         elif name and ("registers" in line or "stack frame" in line):
             out[name] = (out.get(name, "") + " " + line.strip()).strip()
     return out
@@ -209,7 +248,7 @@ def main() -> None:
     parser.add_argument("--rows", nargs="+", choices=MAIN_ROWS, default=MAIN_ROWS,
                         help="which of the main path's rows to time (default: all)")
     parser.add_argument("--trial", choices=sorted(TRIALS),
-                        help="time a copy of the tree with K1 cut to one part (TRIALS)")
+                        help="time a copy of the tree patched by one of TRIALS")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     if args.trial:
@@ -236,10 +275,13 @@ def main() -> None:
                          capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
     _build.library()
-    ptxas = k1_ptxas(_build.BUILD_DIR / "build.log")
+    ptxas = ptxas_report(_build.BUILD_DIR / "build.log")
     cs.log(f"tree {tree}, package {pkg.__file__}, card {card}")
     for name, line in ptxas.items():
-        cs.log(f"  K1 {name}: {line}")
+        cs.log(f"  {name}: {line}")
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    sass = cs.sass_floors(_build.BUILD_DIR, cs.MAIN_BATCH, cs.T,
+                          parent=not hasattr(k2, "ROLLOUT_STATS"))
     rows, main_rows, sweep = {}, {}, {}
     for agents, neighbors in entry.COUPLED_ROWS if "games" in args.parts else ():
         ms, _, _, device, k4_digest = cs.time_game_kernels(entry, agents, neighbors,
@@ -263,7 +305,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"tree": str(tree), "card": card, "ms": rows,
-                      "main": main_rows, "k4_sweep": sweep, "ptxas": ptxas}))
+                      "main": main_rows, "k4_sweep": sweep, "ptxas": ptxas, "sass": sass}))
 
 
 if __name__ == "__main__":

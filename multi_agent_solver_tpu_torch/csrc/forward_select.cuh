@@ -14,12 +14,13 @@
 //   reads every stage before it overwrites it.  Rejected or frozen
 //   problems write nothing, so their buffers keep the reference verbatim.
 //   Out: the kept merit and the accept flag.
-// * rollout mode (INIT): the initial rollout and its cost -- alpha 0, zero
-//   gains, no bounds, merit +inf -- writing x_1..x_T.  A cost that does
-//   not beat +inf (NaN) is +inf, and once a state is not finite every
-//   later control is NaN (init_control), as in the TPU kernel.  Its single candidate
-//   IS the trajectory, so it is written during phase 1 and there is no
-//   phase 2.
+// * rollout mode: the initial rollout and its cost -- alpha 0, zero gains,
+//   no bounds, merit +inf -- writing x_1..x_T.  A cost that does not beat
+//   +inf (NaN) is +inf, and once a state is not finite every later control
+//   is NaN (init_control), as in the TPU kernel.  Its single candidate IS
+//   the trajectory, so it is written as it is rolled out and there is no
+//   phase 2.  It runs on a kernel of its own, forward_rollout_kernel
+//   (below), with or without a context.
 //
 // Layout: batch innermost.  Select mode: xs [T, NX, B], us [T, NU, B],
 // xT [NX, B] (in/out), k [T, NU, B], K [T, NU, NX, B], merit [B],
@@ -30,8 +31,8 @@
 // Context mode (K6; a Coupled stage cost, problems.cuh; the TPU kernel's
 // ctx_l, forward_select_pallas.py:79-81, 132-144): both modes also read
 // ctx [T, K, C, B], the other agents' states at each stage, and the stage
-// cost depends on ctx_t.  The rollout mode runs on the one-thread kernel,
-// which reads each neighbour's state once per stage.  The select mode, with
+// cost depends on ctx_t.  The rollout mode reads each neighbour's state
+// once per stage, ROLLOUT_PAIRS of them at a time.  The select mode, with
 // or without AL, runs on forward_select_group_kernel: a group of G = 4 or
 // 16 lanes per problem, one candidate a lane.  Its bound at the coupled
 // game's shapes (B = 64 / 256 / 1,024 cars, K = 63 / 8 / 8 neighbours,
@@ -99,14 +100,32 @@
 //   again and writes the trajectory.  The one-thread kernel it replaced
 //   kept A <= 16 candidates in registers and spilled at A > 4;
 // * the context select (above): forward_select_group_kernel;
-// * the rollout and the emit mode: one thread per problem with the A <= 16
-//   candidate states and costs in registers (the TPU kernel's VMEM
+// * the emit mode: forward_select_kernel, one thread per problem with the
+//   A <= 16 candidate states and costs in registers (the TPU kernel's VMEM
 //   scratch), the t loop inside the thread, coalesced batch-innermost
-//   loads; the emit mode's phase 2 re-rolls every problem.
-// Every kernel runs a candidate's stage through one device function,
-// candidate_step, and the in-place re-roll through reroll_in_place, so a
-// candidate's arithmetic and its order are the same in all of them and the
-// outputs the same floats.
+//   loads; its phase 2 re-rolls every problem;
+// * the rollout mode: forward_rollout_kernel, one thread a problem, the t
+//   loop inside it.  Its bound at the main path's 262,144 problems and T =
+//   80 is its bytes, 4 (NX + T (NU + NX) + 1) a problem (0.152 ms), and
+//   every thread runs one serial chain of T RK4 steps, each stage about 320
+//   SASS instructions (four sincosf, a tanf, four IEEE divisions: an issue
+//   floor of 0.20 ms).  The design keeps each chain fed: restrict pointers
+//   and u_{t+1} loaded while stage t computes (the stage waits on no
+//   load); tan(delta) once a step (the held control); and with a context
+//   the neighbours ROLLOUT_PAIRS at a time, the next group's loads issued
+//   before this group's pair costs, which are independent of each other
+//   and summed in index order.  Measured on the H100 and not kept: 32
+//   registers a thread, so that 262,144 problems are one wave (2,048
+//   threads an SM), spilled 32 bytes and was 5% slower than 48 registers
+//   in 1.55 waves; 32-thread blocks for the games' 64-1,024 problems ran
+//   as fast as 128-thread ones.
+// Every select kernel runs a candidate's stage through one device
+// function, candidate_step, and the in-place re-roll through
+// reroll_in_place, so a candidate's arithmetic and its order are the same
+// in all of them and the outputs the same floats.  The rollout kernel runs
+// the stage of the one-thread kernel it replaced in that kernel's order
+// (init_control's control, the stage cost -- base, then the pair costs
+// from neighbour 0 up --, the RK4 step), so it gives that kernel's floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -146,23 +165,21 @@ struct StageRef {
   float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
 };
 
-// Stage t's StageRef of problem b; the rollout mode reads u_t alone.
-template <int NX, int NU, bool INIT = false>
+// Stage t's StageRef of problem b.
+template <int NX, int NU>
 __device__ __forceinline__ void load_stage(const float* xs, const float* us, const float* k,
                                            const float* K, int t, size_t sB, int b,
                                            StageRef<NX, NU>& s) {
 #pragma unroll
   for (int i = 0; i < NU; ++i) s.ur[i] = us[(static_cast<size_t>(t) * NU + i) * sB + b];
-  if constexpr (!INIT) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) s.xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
+  for (int i = 0; i < NX; ++i) s.xr[i] = xs[(static_cast<size_t>(t) * NX + i) * sB + b];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      s.kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
+  for (int i = 0; i < NU; ++i) {
+    s.kt[i] = k[(static_cast<size_t>(t) * NU + i) * sB + b];
 #pragma unroll
-      for (int j = 0; j < NX; ++j)
-        s.Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
-    }
+    for (int j = 0; j < NX; ++j)
+      s.Kt[i][j] = K[((static_cast<size_t>(t) * NU + i) * NX + j) * sB + b];
   }
 }
 
@@ -227,23 +244,19 @@ __device__ __forceinline__ void load_multipliers(const float* eq_mult, const flo
 }
 
 // One candidate's stage step, the arithmetic every select kernel runs for a
-// candidate: its control at x (the rollout mode: init_control from x_0;
-// otherwise the feedback control at alpha), its step cost at (x, u) -- the
-// stage cost (a context cost: base + ps, the pair costs that the caller
-// sums over the neighbours in its own layout) plus, in the AL mode, the AL
-// terms, stage first -- and x advanced in place by one RK4 step.  Returns
-// the step cost.
-template <bool INIT, typename Dyn, typename Cost, typename Eq, typename In>
+// candidate: its feedback control at x and alpha, its step cost at (x, u)
+// -- the stage cost (a context cost: base + ps, the pair costs that the
+// caller sums over the neighbours in its own layout) plus, in the AL mode,
+// the AL terms, stage first -- and x advanced in place by one RK4 step.
+// Returns the step cost.
+template <typename Dyn, typename Cost, typename Eq, typename In>
 __device__ __forceinline__ float candidate_step(
     const Dyn& dyn, const Cost& cost, const Eq& eq, const In& in, const Step& h,
-    const StageRef<Dyn::NX, Dyn::NU>& s, const AlStage<Eq::M, In::M>& al, const float* x0,
-    float alpha, const float* lb, const float* ub, float ps, float* x) {
+    const StageRef<Dyn::NX, Dyn::NU>& s, const AlStage<Eq::M, In::M>& al, float alpha,
+    const float* lb, const float* ub, float ps, float* x) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   float u[NU];
-  if constexpr (INIT)
-    init_control<NX, NU>(x, x0, s.ur, u);
-  else
-    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, alpha, lb, ub, u);
+  feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, alpha, lb, ub, u);
   float step;
   if constexpr (takes_context<Cost>::value)
     step = cost.base(x, u) + ps;
@@ -332,27 +345,28 @@ __device__ __forceinline__ void emit_linearization(const EmitOut& e, const Dyn& 
     for (int j = 0; j < NX; ++j) e.lux[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
 }
 
-template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT, bool EMIT = false,
-          bool LIN_DISCRETE = true>
+// The emit mode (K8): every candidate at once, from x_0, every problem
+// live; then every problem re-rolled at its selected alpha (0 where none
+// improved), writing x_1..x_T, the controls and the linearization into the
+// fresh EmitOut buffers.  xs and us are only read.
+template <typename Dyn, typename Cost, typename Term, int MAXA, bool LIN_DISCRETE>
 __global__ void __launch_bounds__(128) forward_select_kernel(
-    const float* __restrict__ x0, float* xs, float* us, float* xT,
-    const float* __restrict__ k, const float* __restrict__ K,
-    const float* __restrict__ merit, const bool* __restrict__ active,
+    const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
+    const float* __restrict__ K, const float* __restrict__ merit,
     const float* __restrict__ lb_in, const float* __restrict__ ub_in,
     float* __restrict__ cost_out, bool* __restrict__ accept_out,
     const float* __restrict__ ctx, Dyn dyn, Cost cost, Term term, Step h, Alphas alphas, int T,
     int B, int n_ctx, int c_ctx, EmitOut emit) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  static_assert(!(EMIT && INIT), "the emit mode is a select mode");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
-  const int A = INIT ? 1 : alphas.n;
+  const int A = alphas.n;
   const NoConstraint nc{};
   const AlStage<0, 0> al{};
 
   float lb[NU], ub[NU];
-  const bool bounded = !INIT && lb_in != nullptr;
+  const bool bounded = lb_in != nullptr;
   if (bounded) {
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
@@ -363,7 +377,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 
   float xstart[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xstart[i] = INIT ? x0[i * sB + b] : xs[i * sB + b];
+  for (int i = 0; i < NX; ++i) xstart[i] = xs[i * sB + b];
 
   // Phase 1: all candidates at once.
   float xa[MAXA][NX], ca[MAXA];
@@ -375,7 +389,7 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
   }
   for (int t = 0; t < T; ++t) {
     StageRef<NX, NU> s;
-    load_stage<NX, NU, INIT>(xs, us, k, K, t, sB, b, s);
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
     // A context cost's pair sums, neighbour by neighbour (one read of each
     // for all the candidates).
     float ps[MAXA];
@@ -397,64 +411,132 @@ __global__ void __launch_bounds__(128) forward_select_kernel(
 #pragma unroll
     for (int a = 0; a < MAXA; ++a) {
       if (a >= A) break;
-      ca[a] = ca[a] + candidate_step<INIT>(dyn, cost, nc, nc, h, s, al, xstart, alphas.v[a],
-                                           bounded ? lb : nullptr, ub, ps[a], xa[a]);
-      if constexpr (INIT) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xa[a][i];
-      }
+      ca[a] = ca[a] + candidate_step(dyn, cost, nc, nc, h, s, al, alphas.v[a],
+                                     bounded ? lb : nullptr, ub, ps[a], xa[a]);
     }
   }
 
-  if constexpr (INIT) {
-    const float total = ca[0] + term(xa[0]);
-    cost_out[b] = total < INFINITY ? total : INFINITY;
-    return;
-  } else {
-    // Selection: smallest alpha first, so the largest improving one wins.
-    const float m = merit[b];
-    const bool live = EMIT || active[b];
-    float best = m, sel = 0.0f;
-    bool found = false;
+  // Selection: smallest alpha first, so the largest improving one wins.
+  const float m = merit[b];
+  float best = m, sel = 0.0f;
+  bool found = false;
 #pragma unroll
-    for (int a = MAXA - 1; a >= 0; --a) {
-      if (a >= A) continue;
-      const float total = ca[a] + term(xa[a]);
-      if (total < m && live) {
-        sel = alphas.v[a];
-        best = total;
-        found = true;
-      }
-    }
-    cost_out[b] = best;
-    accept_out[b] = found;
-    if constexpr (!EMIT) {
-      if (found)
-        reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, sel, T, sB, b);
-      return;
-    }
-
-    // The emit mode's phase 2: re-roll every problem, writing x_1..x_T,
-    // the controls and the linearization into fresh buffers.
-    float x[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = xstart[i];
-    for (int t = 0; t < T; ++t) {
-      StageRef<NX, NU> s;
-      load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
-      float u[NU], xn[NX];
-      feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, bounded ? lb : nullptr, ub, u);
-      rk4_step(dyn, x, u, h, xn);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
-      emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
-                                       ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  for (int a = MAXA - 1; a >= 0; --a) {
+    if (a >= A) continue;
+    const float total = ca[a] + term(xa[a]);
+    if (total < m) {
+      sel = alphas.v[a];
+      best = total;
+      found = true;
     }
   }
+  cost_out[b] = best;
+  accept_out[b] = found;
+
+  // Phase 2: re-roll every problem, writing x_1..x_T, the controls and the
+  // linearization into fresh buffers.
+  float x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xstart[i];
+  for (int t = 0; t < T; ++t) {
+    StageRef<NX, NU> s;
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    float u[NU], xn[NX];
+    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, bounded ? lb : nullptr, ub, u);
+    rk4_step(dyn, x, u, h, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
+    emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
+                                     ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+}
+
+// K2's rollout mode (design in the header): thread b rolls problem b out
+// from x_0 under its controls, writing x_1..x_T [T, NX, B] and the cost
+// [B]; with a context, the neighbours' pair costs in groups of
+// ROLLOUT_PAIRS.
+constexpr int ROLLOUT_BLOCK = 128;
+constexpr int ROLLOUT_PAIRS = 8;
+
+// The pair costs of x against the neighbours of one stage, summed from 0 in
+// index order, one neighbour at a time, as the select kernels sum them.
+// The pairs are evaluated ROLLOUT_PAIRS at a time, independent of each
+// other, with the next group's loads issued before this group's
+// arithmetic; a group's slots past the last neighbour are evaluated on
+// zeros and not summed.
+template <typename Cost>
+__device__ __forceinline__ float pair_sum(const Cost& cost, const CtxView& cv, const float* x) {
+  constexpr int NC = Cost::PairT::NCTX, G = ROLLOUT_PAIRS;
+  float cur[G][NC], nxt[G][NC];
+#pragma unroll
+  for (int q = 0; q < G; ++q)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) cur[q][c] = q < cv.K ? cv.at(q, c) : 0.0f;
+  float ps = 0.0f;
+#pragma unroll 1
+  for (int j0 = 0; j0 < cv.K; j0 += G) {
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) nxt[q][c] = j0 + G + q < cv.K ? cv.at(j0 + G + q, c) : 0.0f;
+    float p[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) p[q] = cost.pair(x, cur[q]);
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+      if (j0 + q < cv.K) ps = ps + p[q];
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) cur[q][c] = nxt[q][c];
+  }
+  return ps;
+}
+
+template <typename Dyn, typename Cost, typename Term>
+__global__ void __launch_bounds__(ROLLOUT_BLOCK) forward_rollout_kernel(
+    const float* __restrict__ x0, const float* __restrict__ us, float* __restrict__ xs_out,
+    float* __restrict__ cost_out, const float* __restrict__ ctx, Dyn dyn, Cost cost, Term term,
+    Step h, int T, int B, int n_ctx, int c_ctx) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = static_cast<size_t>(B);
+  float xstart[NX], x[NX], ur[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xstart[i] = x0[i * sB + b];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) ur[i] = us[i * sB + b];
+  float c = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    float u[NU];
+    init_control<NX, NU>(x, xstart, ur, u);
+    // u_{t+1}'s load, issued before stage t's arithmetic.
+    if (t + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) ur[i] = us[(static_cast<size_t>(t + 1) * NU + i) * sB + b];
+    }
+    float step;
+    if constexpr (takes_context<Cost>::value)
+      step = cost.base(x, u) + pair_sum(cost, ctx_view(ctx, t, n_ctx, c_ctx, sB, b), x);
+    else
+      step = cost(x, u);
+    c = c + step;
+    float xn[NX];
+    rk4_step(dyn, x, control_hold(dyn, static_cast<const float*>(u)), h, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      x[i] = xn[i];
+      xs_out[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
+    }
+  }
+  const float total = c + term(x);
+  cost_out[b] = total < INFINITY ? total : INFINITY;
 }
 
 // K6's context select: the select mode of a Coupled stage cost, with or
@@ -542,8 +624,8 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
     StageRef<NX, NU> s;
     load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
     load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
-    c = c + candidate_step<false>(dyn, cost, eq, in, h, s, al, nullptr, alpha,
-                                  bounded ? lb : nullptr, ub, ps, x);
+    c = c + candidate_step(dyn, cost, eq, in, h, s, al, alpha, bounded ? lb : nullptr, ub, ps,
+                           x);
   }
 
   // Selection by ballot: bit a of `wins` is candidate a's `total < merit`
@@ -633,8 +715,8 @@ __global__ void __launch_bounds__(SELECT_LANES_BLOCK) forward_select_lanes_kerne
       StageRef<NX, NU> s;
       load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
       load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
-      c = c + candidate_step<false>(dyn, cost, eq, in, h, s, al, nullptr, alpha,
-                                    bounded ? lb : nullptr, ub, 0.0f, x);
+      c = c + candidate_step(dyn, cost, eq, in, h, s, al, alpha, bounded ? lb : nullptr, ub,
+                             0.0f, x);
     }
   }
 
@@ -690,16 +772,22 @@ struct Args {
   int T, B, n_ctx, c_ctx;
 };
 
-template <typename Dyn, typename Cost, typename Term, int MAXA, bool INIT, bool EMIT = false,
-          bool LIN_DISCRETE = true>
-void launch_one(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Step& h,
-                const Alphas& al, cudaStream_t stream, const EmitOut& emit = EmitOut()) {
+template <typename Dyn, typename Cost, typename Term, int MAXA, bool LIN_DISCRETE>
+void launch_emit(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Step& h,
+                 const Alphas& al, cudaStream_t stream, const EmitOut& emit) {
   const int block = 128;
   const int grid = (a.B + block - 1) / block;
-  forward_select_kernel<Dyn, Cost, Term, MAXA, INIT, EMIT, LIN_DISCRETE>
-      <<<grid, block, 0, stream>>>(a.x0, a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb,
-                                   a.ub, a.cost_out, a.accept_out, a.ctx, dyn, cost, term, h,
-                                   al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
+  forward_select_kernel<Dyn, Cost, Term, MAXA, LIN_DISCRETE><<<grid, block, 0, stream>>>(
+      a.xs, a.us, a.k, a.K, a.merit, a.lb, a.ub, a.cost_out, a.accept_out, a.ctx, dyn, cost, term,
+      h, al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
+}
+
+template <typename Dyn, typename Cost, typename Term>
+void launch_rollout(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term,
+                    const Step& h, cudaStream_t stream) {
+  const int grid = (a.B + ROLLOUT_BLOCK - 1) / ROLLOUT_BLOCK;
+  forward_rollout_kernel<Dyn, Cost, Term><<<grid, ROLLOUT_BLOCK, 0, stream>>>(
+      a.x0, a.us, a.xs, a.cost_out, a.ctx, dyn, cost, term, h, a.T, a.B, a.n_ctx, a.c_ctx);
 }
 
 template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int G>
@@ -730,7 +818,8 @@ void launch_lanes(const Args& a, const Dyn& dyn, const Cost& cost, const Term& t
       a.xs, a.us, a.xT, a.k, a.K, a.lb, a.ub, a.accept_out, a.alpha_out, dyn, h, a.T, a.B);
 }
 
-// init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost); alphas unused.
+// init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost) on the rollout
+// kernel, with or without a context; alphas unused; refused with AL.
 // init == 0: select mode: without a context, with or without AL, on the
 // lane kernel (a lane a candidate; alpha_out [B] its scratch), with a
 // context on the group kernel (lanes a group, sized 4 or 16 by n_alphas).
@@ -762,13 +851,12 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
     return bad;
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = (!init && a < al.n) ? alphas[a] : 0.0f;
   if constexpr (takes_context<Cost>::value) {
-    // The context select, with or without AL, runs on the group kernel, the
-    // rollout mode on the one-thread kernel.
+    // The context select, with or without AL, runs on the group kernel.
     if (init) {
       if constexpr (AL)
         return bad;
       else
-        launch_one<Dyn, Cost, Term, 1, true>(args, dyn, cost, term, h, al, stream);
+        launch_rollout<Dyn, Cost, Term>(args, dyn, cost, term, h, stream);
     } else if (al.n <= 4) {
       launch_group<Dyn, Cost, Term, Eq, In, 4>(args, dyn, cost, term, eq, in, h, al, stream);
     } else {
@@ -777,13 +865,12 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
     }
   } else {
     // The select, with or without AL, runs on the lane kernel and its
-    // re-roll (alpha_out: the caller's [B] scratch), the rollout mode on the
-    // one-thread kernel.
+    // re-roll (alpha_out: the caller's [B] scratch).
     if (init) {
       if constexpr (AL)
         return bad;
       else
-        launch_one<Dyn, Cost, Term, 1, true>(args, dyn, cost, term, h, al, stream);
+        launch_rollout<Dyn, Cost, Term>(args, dyn, cost, term, h, stream);
     } else {
       if (args.alpha_out == nullptr) return bad;
       launch_lanes<Dyn, Cost, Term, Eq, In>(args, dyn, cost, term, eq, in, h, al, stream);
@@ -819,17 +906,14 @@ int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discre
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = a < al.n ? alphas[a] : 0.0f;
   if (discrete) {
     if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, 4, false, true, true>(args, dyn, cost, term, h, al, stream, emit);
+      launch_emit<Dyn, Cost, Term, 4, true>(args, dyn, cost, term, h, al, stream, emit);
     else
-      launch_one<Dyn, Cost, Term, MAX_ALPHAS, false, true, true>(args, dyn, cost, term, h, al,
-                                                                stream, emit);
+      launch_emit<Dyn, Cost, Term, MAX_ALPHAS, true>(args, dyn, cost, term, h, al, stream, emit);
   } else {
     if (al.n <= 4)
-      launch_one<Dyn, Cost, Term, 4, false, true, false>(args, dyn, cost, term, h, al, stream,
-                                                        emit);
+      launch_emit<Dyn, Cost, Term, 4, false>(args, dyn, cost, term, h, al, stream, emit);
     else
-      launch_one<Dyn, Cost, Term, MAX_ALPHAS, false, true, false>(args, dyn, cost, term, h, al,
-                                                                 stream, emit);
+      launch_emit<Dyn, Cost, Term, MAX_ALPHAS, false>(args, dyn, cost, term, h, al, stream, emit);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,12 +40,26 @@
 // becomes a flat thread index t * B + b, so a warp reads and writes 32
 // neighbouring problems of one stage, coalesced.  One Dual<float, NX+NU>
 // pass gives A, B, lx, lu; one Dual<Dual<float, NX+NU>, NX+NU> pass of the
-// stage cost gives every Hessian entry.  The fused loop calls it once, on
-// one stage, to hoist the time-constant Hessians of a stationary cost;
-// on its other branches over the whole horizon, with Hessians (the
-// quadratic hoist, and every iteration of the general branch) or without
-// (every iteration of the quadratic and separate-kernel stationary
-// branches).
+// stage cost gives every Hessian entry.  The fused loop calls it over the
+// whole horizon, with Hessians (every iteration of the general branch) or
+// without (every iteration of the quadratic and separate-kernel
+// stationary branches).
+//
+// K3's hoist mode (linearize_hessians_kernel): the cost Hessians alone,
+// which the fused loop hoists once a solve for a quadratic cost -- on one
+// stage for a stationary one (the main path), over the horizon otherwise
+// (the quadratic time-varying branch, every fused AL solve) -- where the
+// TPU driver runs K3 whole and keeps its last three outputs
+// (multi_agent_solver_tpu/solvers/ilqr.py:1088-1097).  One thread a
+// (problem, stage) at the flat index t B + b, as K3: it loads (x_t, u_t),
+// runs stage_hessians -- K3's device function, so the Hessians are K3's
+// floats -- and writes lxx, luu and lux in K3's layout: no dynamics, no
+// first-order pass, 4 (NX NX + NU NU + NU NX) bytes written and 4 (NX + NU)
+// read a stage, which bound it (0.0106 ms at one stage of 262,144
+// problems, 0.851 ms over 80 stages).  Its arithmetic is one pass of the
+// stage cost in second-order duals, most of it products by the seeds'
+// zeros, which IEEE arithmetic does not fold, so over the horizon its
+// issue slots may bind it as much as its bytes.
 //
 // K7 computes K3's outputs, Hessians always, in either Jacobian mode, on
 // the non-fused path's batch-first stacks ([B, T, ...], the layout of the
@@ -109,6 +123,38 @@ __global__ void __launch_bounds__(128) linearize_kernel(
 #pragma unroll
       for (int j = 0; j < NX; ++j) lux_out[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
   }
+}
+
+// K3's hoist mode: lxx [T, NX, NX, B], luu [T, NU, NU, B], lux [T, NU, NX,
+// B] of the stage cost at xs [T, NX, B], us [T, NU, B].
+template <typename Cost, int NX, int NU>
+__global__ void __launch_bounds__(128) linearize_hessians_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us, float* __restrict__ lxx_out,
+    float* __restrict__ luu_out, float* __restrict__ lux_out, Cost cost, int T, int B) {
+  static_assert(!takes_context<Cost>::value, "a hoist with a context runs K3's context mode");
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t sB = static_cast<size_t>(B);
+  if (idx >= static_cast<size_t>(T) * sB) return;
+  const size_t t = idx / sB, b = idx % sB;
+  float x[NX], u[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xs[(t * NX + i) * sB + b];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = us[(t * NU + i) * sB + b];
+  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+  stage_hessians<NX, NU>(cost, x, u, CtxView(), lxx, luu, lux);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) lxx_out[((t * NX + i) * NX + j) * sB + b] = lxx[i][j];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) luu_out[((t * NU + i) * NU + j) * sB + b] = luu[i][j];
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) lux_out[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
 }
 
 // K3's context mode: a Coupled stage cost whose neighbour sum is spread
@@ -396,6 +442,23 @@ int launch_linearize(const float* xs, const float* us, float* A, float* Bm, floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// The hoist mode of a cost without a context; NX and NU are the
+// dynamics', which the kernel does not run.
+template <typename Dyn, typename Cost>
+int launch_linearize_hessians(const float* xs, const float* us, float* lxx, float* luu,
+                              float* lux, int T, int B, const float* cost_p,
+                              cudaStream_t stream) {
+  if constexpr (takes_context<Cost>::value) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const size_t n = static_cast<size_t>(T) * static_cast<size_t>(B);
+    const int grid = static_cast<int>((n + LIN_BLOCK - 1) / LIN_BLOCK);
+    linearize_hessians_kernel<Cost, Dyn::NX, Dyn::NU><<<grid, LIN_BLOCK, 0, stream>>>(
+        xs, us, lxx, luu, lux, Cost::from(cost_p), T, B);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 template <typename Dyn, typename Cost>
 int launch_linearize_flat(const float* xs, const float* us, float* A, float* Bm, float* lx,
                           float* lu, float* lxx, float* luu, float* lux, int T, int B,
@@ -431,6 +494,15 @@ int launch_linearize_flat(const float* xs, const float* us, float* A, float* Bm,
                                             static_cast<cudaStream_t>(stream));            \
   }
 
+// K3's hoist mode's entry points, for the stage costs without a context.
+#define MAS_LINEARIZE_HESSIANS(NAME, DYN, COST)                                            \
+  extern "C" int mas_linearize_hessians__##NAME(const float* xs, const float* us,          \
+                                                float* lxx, float* luu, float* lux, int T, \
+                                                int B, const float* cost_p, void* stream) { \
+    return mas::launch_linearize_hessians<DYN, COST>(xs, us, lxx, luu, lux, T, B, cost_p,  \
+                                                     static_cast<cudaStream_t>(stream));   \
+  }
+
 // K7's entry points, for the stage costs without a context.
 #define MAS_LINEARIZE_FLAT(NAME, DYN, COST)                                                \
   extern "C" int mas_linearize_flat__##NAME(                                               \
@@ -448,5 +520,7 @@ MAS_LINEARIZE(single_track__circular_track, mas::SingleTrack, mas::CircularTrack
 using CoupledTrack = mas::Coupled<mas::CircularTrack, mas::GaussianCollision>;
 MAS_LINEARIZE(single_track__coupled_circular_track_gaussian_collision, mas::SingleTrack,
               CoupledTrack)
+MAS_LINEARIZE_HESSIANS(single_track__diag_quadratic, mas::SingleTrack, LaneFollowCost)
+MAS_LINEARIZE_HESSIANS(single_track__circular_track, mas::SingleTrack, mas::CircularTrack)
 MAS_LINEARIZE_FLAT(single_track__diag_quadratic, mas::SingleTrack, LaneFollowCost)
 MAS_LINEARIZE_FLAT(single_track__circular_track, mas::SingleTrack, mas::CircularTrack)

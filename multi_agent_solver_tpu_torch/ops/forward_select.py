@@ -2,14 +2,17 @@
 
 Port of ``multi_agent_solver_tpu/ops/forward_select_pallas.py ::
 forward_select_pallas_tiled`` in its two modes on the iLQR main path; the
-CUDA kernel is ``csrc/forward_select.cu`` (one kernel, a template flag per
-mode; one launch counter without a context, ``STATS``, and one with,
-``CTX_STATS``):
+CUDA kernels are in ``csrc/forward_select.cuh``, instantiated in
+``csrc/forward_select*.cu`` (one launch counter for the select without a
+context, ``STATS``, one with, ``CTX_STATS``, and one for the rollout mode
+with or without, ``ROLLOUT_STATS``):
 
 * :func:`rollout_cost` -- the initial rollout and its cost: alpha 0, zero
   gains, no clamp, merit +inf (a NaN cost becomes +inf, and a state that is
-  not finite makes every later control NaN, as the TPU kernel's).  ``x0 [nx, B]``, ``us [T, nu, B]`` ->
-  ``xs [T, nx, B]`` holding x_1..x_T, ``cost [B]``.
+  not finite makes every later control NaN, as the TPU kernel's).  ``x0
+  [nx, B]``, ``us [T, nu, B]`` -> ``xs [T, nx, B]`` holding x_1..x_T,
+  ``cost [B]``.  It runs on a kernel of its own, one thread a problem
+  (``forward_rollout_kernel``), with or without a context.
 * :func:`forward_select` -- stage-out mode: every candidate alpha scored,
   the largest one that beats ``merit`` on an active problem re-rolled.
   ``xs [T, nx, B]`` (x_0..x_{T-1}), ``us [T, nu, B]`` and ``xT [nx, B]``
@@ -76,11 +79,12 @@ from ._build import (KernelStats, check_context, check_tensor, launch, problem_s
                      stage_major, step_constants)
 from .linearize import linearize_plain
 
-STATS = KernelStats()         # launches and plain calls without a context
+STATS = KernelStats()         # the select's launches and plain calls without a context
 CTX_STATS = KernelStats()     # ... and with one (the context mode, K6)
 AL_STATS = KernelStats()      # ... in the AL mode (K6)
 AL_CTX_STATS = KernelStats()  # ... in the AL mode with a context (K6)
 EMIT_STATS = KernelStats()    # the emit mode (K8)
+ROLLOUT_STATS = KernelStats()  # the rollout mode, with or without a context
 MAX_ALPHAS = 16   # candidates the CUDA kernels take
 
 
@@ -144,7 +148,7 @@ def _control(x, x_ref, u_ref, k_t, K_t, alpha, lb, ub):
 
 def rollout_cost_plain(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
     """Plain PyTorch version of the K2 rollout mode."""
-    _stats(ctx).plain_calls += 1
+    ROLLOUT_STATS.plain_calls += 1
     T, nu, B = us.shape
     x = x_start = x0.T
     xs = torch.empty((T, x0.shape[0], B), dtype=torch.float32, device=x0.device)
@@ -260,7 +264,7 @@ def rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
 
 
 def launch_rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
-    """The CUDA launch of the K2 rollout mode."""
+    """The CUDA launch of the K2 rollout mode (``forward_rollout_kernel``)."""
     T, nu, B = us.shape
     nx = x0.shape[0]
     check_tensor(x0, "x0", (nx, B), x0.device)
@@ -273,7 +277,7 @@ def launch_rollout_cost(spec, x0: Tensor, us: Tensor, ctx: Tensor = None):
         launch(symbol, 1, x0, xs, us, None, None, None, None, None, None, None,
                cost, None, None, ctx, None, None, None, 0.0, T, B, n_ctx, nx, 0, 0, *params,
                step_constants(spec.dt), (0.0,), 1)
-    _stats(ctx).launches += 1
+    ROLLOUT_STATS.launches += 1
     return xs, cost
 
 

@@ -19,6 +19,15 @@ constant of the derivatives.  The card runs it on a lane-group kernel
 32 lanes and a shuffle tree: another order of the sum than the plain
 version's, within rtol 1e-5 of it.
 
+:func:`linearize_hessians` is K3's hoist mode: the cost Hessians ``(lxx,
+luu, lux)`` alone, in K3's layout, which the fused loop hoists once a
+solve for a quadratic cost (the TPU driver runs K3 whole for them and keeps
+its last three outputs).  The card runs ``linearize_hessians_kernel``: no
+dynamics and no first-order pass, K3's device function for the Hessians,
+so they are K3's floats; with a context it runs K3's context mode and keeps
+its Hessians, as before (the fused loop never hoists with a context on the
+card: a context cost there is ``Coupled``, which is not quadratic).
+
 K10 (:func:`terminal_derivs_tiled`, the TPU function of the same name)
 takes terminal states ``xT [nx, B]`` and gives the terminal cost's
 gradient ``phix [nx, B]`` and Hessian ``phixx [nx, nx, B]``, its upper
@@ -39,7 +48,8 @@ index a float.
 tensors and raise on anything it does not take; for CPU tensors they run
 the plain versions; so does :func:`terminal_derivs_tiled`.  Launches are
 counted per mode: ``STATS`` (discrete), ``CONT_STATS`` (continuous),
-``CTX_STATS`` (a context, either mode), ``FLAT_STATS`` (K7) and
+``CTX_STATS`` (a context, either mode; the hoist with a context too),
+``HOIST_STATS`` (the hoist mode), ``FLAT_STATS`` (K7) and
 ``TERMINAL_STATS`` (K10).
 """
 
@@ -56,6 +66,7 @@ from ._build import (KernelStats, check_context, check_tensor, launch, problem_s
 STATS = KernelStats()       # launches and plain calls without a context
 CTX_STATS = KernelStats()   # ... and with one (the context mode)
 CONT_STATS = KernelStats()  # ... without one, in the continuous Jacobian mode
+HOIST_STATS = KernelStats()  # the hoist mode (Hessians alone), without a context
 FLAT_STATS = KernelStats()  # K7
 TERMINAL_STATS = KernelStats()  # K10
 
@@ -168,24 +179,44 @@ def launch_terminal_derivs_tiled(spec, xT: Tensor):
     return phix, phixx
 
 
-def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
-                    discrete: bool = True):
-    """Plain PyTorch version of the K3 kernel (same layout and outputs)."""
-    _stats(ctx, discrete).plain_calls += 1
-    T = xs.shape[0]
-    x = xs.permute(0, 2, 1)                      # [T, B, nx]
+def _stage_inputs(spec, xs: Tensor, us: Tensor, ctx: Tensor):
+    """``(spec, x [T, B, nx], u [T, B, nu], t [T, B])``: the stage-major
+    stacks batch-second, the spec's stage cost bound to the context (a
+    constant of the derivatives), and the stage index as a float, as the
+    TPU kernel passes it."""
+    x = xs.permute(0, 2, 1)
     u = us.permute(0, 2, 1)
     if ctx is not None:
         ctx_b = ctx.movedim(-1, 1)               # [T, B, ...]
         spec = spec.replace(stage_cost=lambda a, b, tt, c=spec.stage_cost: c(a, b, tt, ctx_b))
-    # The TPU kernel passes the stage index as a float lane value.
-    t = torch.arange(T, dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
+    t = torch.arange(xs.shape[0], dtype=xs.dtype, device=xs.device)[:, None].expand(x.shape[:2])
+    return spec, x, u, t
+
+
+def _hessian_stacks(spec, x, u, t):
+    """:func:`cost_hessians` in K3's layout, float32."""
+    return tuple(h.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+                 for h in cost_hessians(spec, x, u, t))
+
+
+def linearize_plain(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
+                    discrete: bool = True):
+    """Plain PyTorch version of the K3 kernel (same layout and outputs)."""
+    _stats(ctx, discrete).plain_calls += 1
+    spec, x, u, t = _stage_inputs(spec, xs, us, ctx)
     A, Bm, lx, lu = stage_derivatives(spec, x, u, t, discrete)
     outs = [A.permute(0, 2, 3, 1), Bm.permute(0, 2, 3, 1), lx.permute(0, 2, 1), lu.permute(0, 2, 1)]
-    if hessians:
-        lxx, luu, lux = cost_hessians(spec, x, u, t)
-        outs += [lxx.permute(0, 2, 3, 1), luu.permute(0, 2, 3, 1), lux.permute(0, 2, 3, 1)]
-    return tuple(o.to(torch.float32).contiguous() for o in outs)
+    outs = tuple(o.to(torch.float32).contiguous() for o in outs)
+    return outs + (_hessian_stacks(spec, x, u, t) if hessians else ())
+
+
+def linearize_hessians_plain(spec, xs: Tensor, us: Tensor, ctx: Tensor = None):
+    """Plain PyTorch version of K3's hoist mode: :func:`linearize_plain`'s
+    ``(lxx, luu, lux)`` alone, by the same jvp over jvp (counted on
+    ``CTX_STATS`` with a context, which the card runs on K3's context
+    mode)."""
+    (HOIST_STATS if ctx is None else CTX_STATS).plain_calls += 1
+    return _hessian_stacks(*_stage_inputs(spec, xs, us, ctx))
 
 
 def linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: Tensor = None,
@@ -213,6 +244,35 @@ def launch_linearize(spec, xs: Tensor, us: Tensor, hessians: bool = True, ctx: T
                dyn_p, cost_p, step_constants(spec.dt))
     _stats(ctx, discrete).launches += 1
     return tuple(outs + (hess if hessians else []))
+
+
+def linearize_hessians(spec, xs: Tensor, us: Tensor, ctx: Tensor = None):
+    """K3's hoist mode: ``(lxx [T, nx, nx, B], luu [T, nu, nu, B], lux [T,
+    nu, nx, B])`` of the stage cost at ``xs [T, nx, B]``, ``us [T, nu, B]``;
+    on the card for CUDA tensors (with a context: K3's context mode, its
+    last three outputs), the plain version for CPU tensors."""
+    if xs.device.type == "cpu":
+        return linearize_hessians_plain(spec, xs, us, ctx)
+    if ctx is not None:
+        return launch_linearize(spec, xs, us, True, ctx)[4:]
+    return launch_linearize_hessians(spec, xs, us)
+
+
+def launch_linearize_hessians(spec, xs: Tensor, us: Tensor):
+    """The CUDA launch of K3's hoist mode, without a context."""
+    T, nx, B = xs.shape
+    nu = us.shape[1]
+    check_tensor(xs, "xs", (T, nx, B), xs.device)
+    check_tensor(us, "us", (T, nu, B), xs.device)
+    symbol, (_, cost_p) = problem_symbol("linearize_hessians", nx, nu, spec.dynamics,
+                                         spec.stage_cost)
+    check_context(None, spec.stage_cost, T, nx, B, xs.device)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=xs.device)
+    hess = (empty(T, nx, nx, B), empty(T, nu, nu, B), empty(T, nu, nx, B))
+    with torch.cuda.device(xs.device):
+        launch(symbol, xs, us, *hess, T, B, cost_p)
+    HOIST_STATS.launches += 1
+    return hess
 
 
 def _flat(xs: Tensor, us: Tensor):

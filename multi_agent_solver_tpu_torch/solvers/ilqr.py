@@ -8,17 +8,19 @@ with its lane AL machinery, the scan functions ``compute_merit``,
 ``_forward_pass``, ``solve_ilqr``, the router and non-fused body of
 ``solve_ilqr_batched``, and the ``ILQR`` solver class).
 
-**The fused loop.**  Per solve it launches K2 (``ops/forward_select.rollout_cost``)
-once for the initial rollout and cost, then by the cost structure that
-:func:`resolve_cost_structure` finds:
+**The fused loop.**  Per solve it launches K2's rollout mode
+(``ops/forward_select.rollout_cost``) once for the initial rollout and
+cost, then by the cost structure that :func:`resolve_cost_structure` finds:
 
-* stationary quadratic (the main path): K3 (``ops/linearize.linearize``)
-  once on one stage to hoist the time-constant Hessians; per iteration K1
+* stationary quadratic (the main path): K3's hoist mode
+  (``ops/linearize.linearize_hessians``) once on one stage to hoist the
+  time-constant Hessians; per iteration K1
   (``ops/riccati.riccati_fusedlin``) -- or, with
-  ``stationary_fusedlin=False``, K3 without Hessians and K4
-  (``ops/riccati.riccati_backward``) on one-stage Hessian blocks;
-* quadratic, time-varying: K3 once over the horizon to hoist the per-stage
-  Hessians; per iteration K3 without Hessians and K4;
+  ``stationary_fusedlin=False``, K3 (``ops/linearize.linearize``) without
+  Hessians and K4 (``ops/riccati.riccati_backward``) on one-stage Hessian
+  blocks;
+* quadratic, time-varying: K3's hoist mode once over the horizon to hoist
+  the per-stage Hessians; per iteration K3 without Hessians and K4;
 * general: per iteration K3 with Hessians and K4;
 
 and per iteration K2 in select mode.  ``bound_mode="boxqp"`` runs the
@@ -276,6 +278,7 @@ class KernelOps:
 
     rollout: Callable
     linearize: Callable
+    linearize_hessians: Callable   # K3's hoist mode
     riccati: Callable            # K1, in-kernel linearization
     riccati_backward: Callable   # K4, precomputed stacks
     select: Callable
@@ -286,15 +289,15 @@ class KernelOps:
 
 
 # The wrappers: CUDA kernels on CUDA tensors, plain versions on CPU tensors.
-KERNEL_OPS = KernelOps(_k2.rollout_cost, _k3.linearize, _k1.riccati_fusedlin,
-                       _k1.riccati_backward, _k2.forward_select, _k2.rollout_select,
-                       _k2.forward_select_pallas, _k1.riccati_backward_pallas,
-                       _k3.linearize_pallas)
+KERNEL_OPS = KernelOps(_k2.rollout_cost, _k3.linearize, _k3.linearize_hessians,
+                       _k1.riccati_fusedlin, _k1.riccati_backward, _k2.forward_select,
+                       _k2.rollout_select, _k2.forward_select_pallas,
+                       _k1.riccati_backward_pallas, _k3.linearize_pallas)
 # The plain PyTorch versions on any device: the reference the kernels are
 # held against on the card (chip_smoke.py).
 PLAIN_OPS = KernelOps(
-    _k2.rollout_cost_plain, _k3.linearize_plain, _k1.riccati_fusedlin_plain,
-    _k1.riccati_backward_plain, _k2.forward_select_plain,
+    _k2.rollout_cost_plain, _k3.linearize_plain, _k3.linearize_hessians_plain,
+    _k1.riccati_fusedlin_plain, _k1.riccati_backward_plain, _k2.forward_select_plain,
     functools.partial(_k2.rollout_select, rollout=_k2.rollout_cost_plain),
     functools.partial(_k2.forward_select_pallas, select=_k2.forward_select_plain),
     functools.partial(_k1.riccati_backward_pallas, explicit=_k1.riccati_backward_explicit_plain),
@@ -544,8 +547,9 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: KernelOps 
     xT = xs_tail[-1].clone()
 
     # Quadratic-cost hoisting: the Hessian stacks do not depend on the
-    # trajectory, so they are computed once -- one block per problem for a
-    # stationary cost, one per stage otherwise.
+    # trajectory, so they are computed once, by K3's hoist mode (the
+    # Hessians alone, where the TPU driver keeps K3's last three outputs) --
+    # one block per problem for a stationary cost, one per stage otherwise.
     if structure is None:
         structure = resolve_cost_structure(_unbatch(specs), config)
     quad, stationary = structure
@@ -556,10 +560,9 @@ def solve_ilqr_batched_fused(specs: OCPSpec, config: ILQRConfig, ops: KernelOps 
     fusedlin = stationary and config.stationary_fusedlin
     hess = None
     if stationary:
-        hess = ops.linearize(specs, x0[None].contiguous(), us[:1].contiguous(), True, None,
-                             discrete)[4:]
+        hess = ops.linearize_hessians(specs, x0[None].contiguous(), us[:1].contiguous())
     elif quad:
-        hess = ops.linearize(specs, xs, us, True, ctx, discrete)[4:]
+        hess = ops.linearize_hessians(specs, xs, us, ctx)
     levels = _k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
 
     # The AL carries: multipliers [T, m, B], penalty [B], violation norms [B].

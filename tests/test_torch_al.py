@@ -318,9 +318,10 @@ def jax_equality():
 
 
 def test_speed_cap_solve_matches_jax_fused_loop(jax_speed_cap):
-    """8 iterations: K2 rollout once, K3 once plus once per iteration, K4 and
-    K6-AL once per iteration, as plain versions."""
-    stats = (k2.STATS, k2.AL_STATS, k3.STATS, k1.BACKWARD_STATS, k1.STATS)
+    """8 iterations: K2's rollout and K3's hoist (over the horizon) once, K3,
+    K4 and K6-AL once per iteration, as plain versions."""
+    stats = (k2.STATS, k2.AL_STATS, k3.STATS, k1.BACKWARD_STATS, k1.STATS, k2.ROLLOUT_STATS,
+             k3.HOIST_STATS)
     for s in stats:
         s.reset()
     got = solve_ilqr_batched(_speed_cap_specs(), ILQRConfig(max_iterations=8, tolerance=1e-8),
@@ -328,8 +329,8 @@ def test_speed_cap_solve_matches_jax_fused_loop(jax_speed_cap):
     want = jax_speed_cap
     it = int(got.iterations[0])
     assert it == int(np.asarray(want.iterations)[0]) == 8
-    assert [s.plain_calls for s in stats] == [1, it, 1 + it, it, 0]
-    assert [s.launches for s in stats] == [0] * 5
+    assert [s.plain_calls for s in stats] == [0, it, it, it, 0, 1, 1]
+    assert [s.launches for s in stats] == [0] * 7
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=1e-4)
     np.testing.assert_allclose(got.ineq_violation.numpy(), np.asarray(want.ineq_violation),
                                atol=1e-4)

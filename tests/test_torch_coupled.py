@@ -126,7 +126,7 @@ def test_forward_select_context_rollout_mode_matches_pallas(specs):
         plain, _lanes(np.broadcast_to(x[0], (T, NX, B))), _lanes(u), _lanes(zk), _lanes(zK),
         _lanes(np.full(B, np.inf, np.float32)), _lanes(zb), _lanes(zb), (0.0,), True,
         ctx_l=_lanes(ctx))
-    stats = k2.CTX_STATS
+    stats = k2.ROLLOUT_STATS
     stats.reset()
     xs_g, cost_g = k2.rollout_cost_plain(tspec, torch.as_tensor(x[0]), torch.as_tensor(u),
                                          torch.as_tensor(ctx))
@@ -261,7 +261,8 @@ def jax_game():
 
 def test_sequential_coupled_game_matches_jax(jax_game):
     want, jsol = jax_game
-    stats = (k2.CTX_STATS, k3.CTX_STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS, k1.STATS)
+    stats = (k2.CTX_STATS, k3.CTX_STATS, k1.BACKWARD_STATS, k2.ROLLOUT_STATS, k2.STATS, k3.STATS,
+             k1.STATS)
     for s in stats:
         s.reset()
     problem, strategy = entry.coupled_game(GAME["agents"], GAME["neighbors"], GAME["sweeps"],
@@ -276,10 +277,11 @@ def test_sequential_coupled_game_matches_jax(jax_game):
     assert got.mean() > 1.877
     for g, w in zip(solution.controls + solution.states, jsol.controls + jsol.states):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4)
-    # Context-mode plain versions only: K2 and K3 with a context, K4.
-    ctx_k2, ctx_k3, k4 = (s.plain_calls for s in stats[:3])
-    assert ctx_k3 == k4 > 0 and ctx_k2 == ctx_k3 + GAME["sweeps"]
-    assert [s.plain_calls for s in stats[3:]] == [0, 0, 0]
+    # Context-mode plain versions only: K2 and K3 with a context, K4, and
+    # K2's rollout once a sweep.
+    ctx_k2, ctx_k3, k4, rollout = (s.plain_calls for s in stats[:4])
+    assert ctx_k3 == k4 == ctx_k2 > 0 and rollout == GAME["sweeps"]
+    assert [s.plain_calls for s in stats[4:]] == [0, 0, 0]
     assert all(s.launches == 0 for s in stats)
 
 
@@ -372,10 +374,11 @@ def test_zero_coupling_solves_as_the_uncoupled_track():
         context=torch.as_tensor(np.random.RandomState(9).normal(0, 20, (4, 10, 2, 4)),
                                 dtype=torch.float32))
     config = dataclasses.replace(entry.SWEEP_CONFIG, max_iterations=3)
-    for s in (k2.CTX_STATS, k3.CTX_STATS):
+    for s in (k2.CTX_STATS, k3.CTX_STATS, k2.ROLLOUT_STATS):
         s.reset()
     got = solve_ilqr_batched(ctx_specs, config, fused=True, device="cpu")
+    rollouts = k2.ROLLOUT_STATS.plain_calls
     want = solve_ilqr_batched(sweep, config, device="cpu")
     it = int(got.iterations[0])
     assert torch.equal(got.cost, want.cost) and torch.equal(got.controls, want.controls)
-    assert (k2.CTX_STATS.plain_calls, k3.CTX_STATS.plain_calls) == (1 + it, it)
+    assert (k2.CTX_STATS.plain_calls, k3.CTX_STATS.plain_calls, rollouts) == (it, it, 1)

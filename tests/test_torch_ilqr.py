@@ -86,17 +86,18 @@ def test_short_and_scheduled_ladders_match_reference_ladder():
 
 
 def test_cpu_solve_runs_plain_versions_only():
-    """K3 once, K2 once plus once per iteration, K1 once per iteration --
-    as plain versions: no kernel launches on the CPU."""
-    stats = (k1.STATS, k2.STATS, k3.STATS)
+    """K2's rollout and K3's hoist once, K1 and K2's select once per
+    iteration, K3 whole never -- as plain versions: no kernel launches on
+    the CPU."""
+    stats = (k1.STATS, k2.STATS, k3.STATS, k2.ROLLOUT_STATS, k3.HOIST_STATS)
     for s in stats:
         s.reset()
     specs = entry.bench_specs(3, device="cpu", horizon=10)
     r = solve_ilqr_batched(specs, entry.BENCH_CONFIG, device="cpu")
     it = int(r.iterations[0])
     assert it >= 1
-    assert [s.launches for s in stats] == [0, 0, 0]
-    assert [s.plain_calls for s in stats] == [it, 1 + it, 1]
+    assert [s.launches for s in stats] == [0, 0, 0, 0, 0]
+    assert [s.plain_calls for s in stats] == [it, it, 0, 1, 1]
     assert torch.isfinite(r.cost).all()
     assert (r.controls[..., 0].abs() <= 0.7 + 1e-6).all()
 
@@ -116,12 +117,12 @@ def test_time_varying_cost_hoists_per_stage_hessians():
     general branch, which evaluates them every iteration (as JAX's
     tests/test_fused_loop.py asserts for its own two branches)."""
     specs = _time_varying_specs()
-    stats = (k1.STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS)
+    stats = (k1.STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS, k2.ROLLOUT_STATS, k3.HOIST_STATS)
     for s in stats:
         s.reset()
     hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, device="cpu")
     it = int(hoisted.iterations[0])
-    assert [s.plain_calls for s in stats] == [0, it, 1 + it, 1 + it]
+    assert [s.plain_calls for s in stats] == [0, it, it, it, 1, 1]
     general = solve_ilqr_batched(
         specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), device="cpu")
     assert torch.isfinite(hoisted.cost).all()
@@ -151,12 +152,13 @@ def test_context_cost_hoists_per_stage_hessians():
     result is bit-identical to the general branch, and the reference moves
     it."""
     specs = _context_specs()
-    stats = (k1.BACKWARD_STATS, k2.CTX_STATS, k3.CTX_STATS, k2.STATS, k3.STATS)
+    stats = (k1.BACKWARD_STATS, k2.CTX_STATS, k3.CTX_STATS, k2.STATS, k3.STATS, k2.ROLLOUT_STATS,
+             k3.HOIST_STATS)
     for s in stats:
         s.reset()
     hoisted = solve_ilqr_batched(specs, entry.BENCH_CONFIG, fused=True, device="cpu")
     it = int(hoisted.iterations[0])
-    assert [s.plain_calls for s in stats] == [it, 1 + it, 1 + it, 0, 0]
+    assert [s.plain_calls for s in stats] == [it, it, 1 + it, 0, 0, 1, 0]
     general = solve_ilqr_batched(
         specs, dataclasses.replace(entry.BENCH_CONFIG, quadratic_cost=False), fused=True,
         device="cpu")

@@ -66,6 +66,13 @@ def test_linearize_plain_matches_pallas(specs):
     assert len(got) == len(want) == 7
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), _unlanes(w), **TOL)
+    # K3's hoist mode: the Hessians alone, the TPU kernel's last three
+    # outputs (the fused driver hoists them), and linearize_plain's exactly.
+    hess = k3.linearize_hessians_plain(tspec, torch.as_tensor(x), torch.as_tensor(u))
+    assert len(hess) == 3
+    for g, w, full in zip(hess, want[4:], got[4:]):
+        np.testing.assert_allclose(g.numpy(), _unlanes(w), **TOL)
+        assert torch.equal(g, full)
 
 
 def _hessians(tspec):
@@ -145,21 +152,23 @@ def test_forward_select_stage_out_mode_matches_pallas(specs):
 
 def test_cpu_tensors_take_the_plain_versions(specs):
     """On CPU tensors every wrapper runs its plain version: the launch
-    counters stay at 0 and the plain counters move."""
+    counters stay at 0 and the plain counters move (K2's rollout and K3's
+    hoist on their own counters)."""
     _, tspec = specs
     x, u = _inputs(8)
     xt, ut = torch.as_tensor(x[:, :, :16]).contiguous(), torch.as_tensor(u[:, :, :16]).contiguous()
-    stats = (k1.STATS, k2.STATS, k3.STATS)
+    stats = (k1.STATS, k2.STATS, k3.STATS, k2.ROLLOUT_STATS, k3.HOIST_STATS)
     for s in stats:
         s.reset()
-    lin = k3.linearize(tspec, xt[:1].contiguous(), ut[:1].contiguous(), True)
+    k3.linearize(tspec, xt[:1].contiguous(), ut[:1].contiguous(), True)
+    hess = k3.linearize_hessians(tspec, xt[:1].contiguous(), ut[:1].contiguous())
     xs_tail, cost = k2.rollout_cost(tspec, xt[0].contiguous(), ut)
-    k, K = k1.riccati_fusedlin(tspec, xt, ut, *(h[0] for h in lin[4:]), xs_tail[-1].clone(),
+    k, K = k1.riccati_fusedlin(tspec, xt, ut, *(h[0] for h in hess), xs_tail[-1].clone(),
                                k1.reg_ladder(1e-6, 10.0, 16))
     k2.forward_select(tspec, xt.clone(), ut.clone(), xs_tail[-1].clone(), k, K, cost,
                       torch.ones(16, dtype=torch.bool), None, None, LADDER)
-    assert [s.launches for s in stats] == [0, 0, 0]
-    assert [s.plain_calls for s in stats] == [1, 2, 1]
+    assert [s.launches for s in stats] == [0, 0, 0, 0, 0]
+    assert [s.plain_calls for s in stats] == [1, 1, 1, 1, 1]
 
 
 def test_problem_symbol_names_the_instantiation(specs):

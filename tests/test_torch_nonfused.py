@@ -460,26 +460,26 @@ def _assert_matches(got, want, cost_tol, ctrl_atol):
 def test_nonfused_scan_matches_jax(jax_nonfused):
     """The torch scan functions alone: no kernel, float64 on both sides."""
     want, tspecs = jax_nonfused("scan")
-    stats = (k1.EXPLICIT_STATS, k2.STATS, k3.FLAT_STATS)
+    stats = (k1.EXPLICIT_STATS, k2.STATS, k3.FLAT_STATS, k2.ROLLOUT_STATS)
     for s in stats:
         s.reset()
     got = _port("scan", tspecs)
     _assert_matches(got, want, TOL_F64, 1e-9)
     np.testing.assert_allclose(got.states.numpy(), np.asarray(want.states), atol=1e-9)
-    assert [s.plain_calls for s in stats] == [0, 0, 0]
+    assert [s.plain_calls for s in stats] == [0, 0, 0, 0]
 
 
 def test_nonfused_pallas_matches_jax(jax_nonfused):
     """The K2 rollout, then per iteration K4 explicit and K2 select (at the
     reference ladder) around the vmapped linearizer."""
     want, tspecs = jax_nonfused("pallas")
-    stats = (k1.EXPLICIT_STATS, k2.STATS, k3.FLAT_STATS, k1.STATS, k3.STATS)
+    stats = (k1.EXPLICIT_STATS, k2.STATS, k3.FLAT_STATS, k1.STATS, k3.STATS, k2.ROLLOUT_STATS)
     for s in stats:
         s.reset()
     got = _port("pallas", tspecs)
     it = int(got.iterations[0])
     _assert_matches(got, want, dict(rtol=1e-5), 2e-4)
-    assert [s.plain_calls for s in stats] == [it, 1 + it, 0, 0, 0]
+    assert [s.plain_calls for s in stats] == [it, it, 0, 0, 0, 1]
 
 
 def test_nonfused_linearize_pallas_matches_jax(jax_nonfused):
@@ -501,9 +501,10 @@ def test_nonfused_user_objective_matches_jax(jax_nonfused):
     assert ilqr.route(tspecs, entry.BENCH_CONFIG, fused=False, device_type="cpu") == ilqr.Route(
         fused=False, backward="pallas", lane_forward=False)
     k2.STATS.reset()
+    k2.ROLLOUT_STATS.reset()
     got = _port("user_objective", tspecs)
     _assert_matches(got, want, dict(rtol=1e-5), 2e-4)
-    assert k2.STATS.plain_calls == 0
+    assert k2.STATS.plain_calls == k2.ROLLOUT_STATS.plain_calls == 0
 
 
 def test_nonfused_unbatched_constraint_matches_jax(jax_nonfused):
@@ -526,7 +527,7 @@ def test_nonfused_al_auto_route_matches_jax(jax_nonfused):
     want, tspecs = jax_nonfused("al_auto")
     assert ilqr.route(tspecs, entry.BENCH_CONFIG, device_type="cpu") == ilqr.Route(
         fused=False, backward="pallas", lane_forward=True)
-    stats = (k2.STATS, k2.AL_STATS, k1.EXPLICIT_STATS, k1.BACKWARD_STATS)
+    stats = (k2.STATS, k2.AL_STATS, k1.EXPLICIT_STATS, k1.BACKWARD_STATS, k2.ROLLOUT_STATS)
     for s in stats:
         s.reset()
     got = _port("al_auto", tspecs)
@@ -535,7 +536,7 @@ def test_nonfused_al_auto_route_matches_jax(jax_nonfused):
     np.testing.assert_allclose(got.ineq_violation.numpy(), np.asarray(want.ineq_violation),
                                atol=1e-4)
     assert float(got.ineq_violation.max()) > 1e-3           # the cap binds
-    assert [s.plain_calls for s in stats] == [1, it, it, 0]
+    assert [s.plain_calls for s in stats] == [0, it, it, 0, 1]
 
 
 def test_nonfused_context_auto_route_matches_jax(jax_nonfused):
@@ -545,9 +546,11 @@ def test_nonfused_context_auto_route_matches_jax(jax_nonfused):
     assert ilqr.route(tspecs, entry.BENCH_CONFIG, device_type="cpu") == ilqr.Route(
         fused=False, backward="pallas", lane_forward=True)
     k2.CTX_STATS.reset()
+    k2.ROLLOUT_STATS.reset()
     got = _port("context_auto", tspecs)
     _assert_matches(got, want, dict(rtol=1e-5), 2e-4)
-    assert k2.CTX_STATS.plain_calls == 1 + int(got.iterations[0])
+    assert k2.CTX_STATS.plain_calls == int(got.iterations[0])
+    assert k2.ROLLOUT_STATS.plain_calls == 1
 
 
 def test_nonfused_boxqp_scan_matches_jax(jax_nonfused):

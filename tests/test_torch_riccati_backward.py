@@ -255,7 +255,7 @@ def jax_solves():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_branch_solve_matches_jax(jax_solves, case):
     want, t_specs, jconfig = jax_solves(case)
-    stats = (k1.STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS)
+    stats = (k1.STATS, k1.BACKWARD_STATS, k2.STATS, k3.STATS, k2.ROLLOUT_STATS, k3.HOIST_STATS)
     for s in stats:
         s.reset()
     got = solve_ilqr_batched(t_specs, config_from_dict(dataclasses.asdict(jconfig)), device="cpu")
@@ -274,12 +274,12 @@ def test_branch_solve_matches_jax(jax_solves, case):
     lo, hi = t_specs.input_lower_bounds[:, None], t_specs.input_upper_bounds[:, None]
     assert ((got.controls >= lo - 1e-6) & (got.controls <= hi + 1e-6)).all()
     # The plain versions the branch runs, as the JAX router launches its
-    # kernels: K1 (stationary, boxqp here) or K4 once an iteration; K3 once
-    # to hoist the Hessians (not in the general branch) and once an
-    # iteration off the K1 route; K2 once plus once an iteration.
+    # kernels: K1 (stationary, boxqp here) or K4 once an iteration; K3's
+    # hoist once (not in the general branch) and K3 once an iteration off
+    # the K1 route; K2's rollout once and its select once an iteration.
     fusedlin = case == "boxqp"
     hoist = case not in ("general", "circular_track")
-    want_calls = [it if fusedlin else 0, 0 if fusedlin else it, 1 + it,
-                  int(hoist) + (0 if fusedlin else it)]
+    want_calls = [it if fusedlin else 0, 0 if fusedlin else it, it, 0 if fusedlin else it, 1,
+                  int(hoist)]
     assert [s.plain_calls for s in stats] == want_calls
-    assert [s.launches for s in stats] == [0, 0, 0, 0]
+    assert [s.launches for s in stats] == [0] * 6
