@@ -24,7 +24,11 @@ Three groups of rows:
   rows' with a context, ``K6_rollout_N``) and K3's hoist (one stage and the
   horizon), with the digests of their outputs on zero and on drawn
   controls from partly non-finite starts (``chip_smoke.py``'s
-  ``rollout_hoist_calls``), and K1 clamp at 524,288 problems;
+  ``rollout_hoist_calls``), and K1 clamp at 524,288 problems; and the
+  kernels on no solve path (``emit_pass_calls``): K9 at the bench and the
+  reference ladder (``K9_A3``, ``K9_A10``), K8 in both Jacobian modes (``K8``,
+  ``K8_continuous``) and K10, each with the digests of every output on two
+  inputs;
 * K4 at T = 10 on 64 to 65,536 problems (``K4_SWEEP``), on the 1,024-car
   game's stacks, tiled, and in the explicit-terminal mode at each
   instantiated (nx, nu), clamp and boxqp, on seeded random stacks: where
@@ -32,12 +36,15 @@ Three groups of rows:
 
 Each row is timed two ways: CUDA events around 20 back-to-back wrapper
 calls (the host's cost of each call included), and a CUDA graph of 20
-launches (the kernels alone).  The inputs and the timing are this
+wrapper calls (the kernels alone), so a tree is timed only where a graph
+can capture its wrappers (a K9 wrapper that copies its candidates to the
+card before the launch cannot be).  The inputs and the timing are this
 checkout's ``chip_smoke.py``; ``--tree DIR`` takes the package from another
 checkout instead (an earlier commit unpacked with ``git archive``), which
 builds its kernels into its own ``DIR/build/``.  ``--trial NAME`` times a
-copy of that tree's package under ``build/trial_NAME_TREE/`` whose K1 is
-cut to one of its parts (``TRIALS``).  Prints the card's name and
+copy of that tree's package under ``build/trial_NAME_TREE/`` patched by one
+of ``TRIALS`` (K1 cut to one of its parts, the rollout bounded to one
+wave).  Prints the card's name and
 power limit, then one JSON line ``{"tree": ..., "card": ..., "ms": {cars:
 {kernel: [wrapper-call ms, device ms(, digest)]}}, "main": {row: [wrapper-call
 ms, device ms, digests, {kernel: device ms}]}, "k4_sweep": {instantiation:
@@ -69,7 +76,8 @@ HERE = Path(__file__).resolve().parent
 MAIN_ROWS = ("K2_A3", "K2_A10", "K7", "K7_continuous", "K6AL_A3", "K6AL_A10", "K4_per_stage",
              "K4_explicit", "K1", "K1_boxqp", "K1_continuous", "K2_rollout", "K2_rollout_524288",
              "K2_rollout_sweep", "K6_rollout_64", "K6_rollout_256", "K6_rollout_1024",
-             "K3_hoist_stage", "K3_hoist_horizon", "K1_524288")
+             "K3_hoist_stage", "K3_hoist_horizon", "K1_524288", "K9_A3", "K9_A10", "K8",
+             "K8_continuous", "K10")
 K4_SWEEP = (64, 256, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 PARTS = ("games", "main", "sweep")
 # Trial copies of a tree, as text patches of one of its csrc files (file,
@@ -130,6 +138,15 @@ PTXAS = {
                                   r"forward_select_kernel\w*?_13CircularTrackE\w*Li1ELb1ELb0E",
     "K3 hoist, lane follow": r"linearize_hessians_kernel\w*DiagQuadratic",
     "K3 with Hessians, lane follow": r"linearize_kernel\w*DiagQuadratic\w*Lb1ELb1E",
+    "K3 with Hessians, continuous, lane follow": r"linearize_kernel\w*DiagQuadratic\w*Lb1ELb0E",
+    "K9": r"forward_pass_kernel",
+    "K8 re-roll": r"forward_emit_reroll_kernel\w*SingleTrack",
+    "K8 in one kernel, A <= 4, discrete": r"forward_emit_one_thread_kernel\w*Li4ELb1EEEv",
+    "K8 in one kernel, A <= 4, continuous": r"forward_emit_one_thread_kernel\w*Li4ELb0EEEv",
+    "K2 lane select, lane follow": r"forward_select_lanes_kernel\w*DiagQuadratic\w*"
+                               r"NoConstraintES\w*_EEv",
+    "K8 one-thread, A <= 4, discrete": r"forward_select_kernel\w*DiagQuadratic\w*Li4ELb1E",
+    "K8 one-thread, A <= 4, continuous": r"forward_select_kernel\w*DiagQuadratic\w*Li4ELb0E",
 }
 
 

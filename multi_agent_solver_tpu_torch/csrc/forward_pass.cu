@@ -1,5 +1,5 @@
-// K9: the first-generation all-alpha forward pass, one thread per
-// (problem, alpha).
+// K9: the all-alpha forward pass, a block of 32 neighbouring problems x
+// the candidates.
 //
 // Replaces multi_agent_solver_tpu/ops/forward_pallas.py :: _forward_lanes
 // (kernel _make_kernel), behind forward_pass_pallas and rollout_pallas.
@@ -14,38 +14,73 @@
 //
 // Layout: the reference batch innermost, xs [T, NX, B] (x_0..x_{T-1}),
 // us [T, NU, B], k [T, NU, B], K [T, NU, NX, B], lb / ub [NU, B] (or null),
-// alphas [A] in; xs_out [T, NX, A, B] (x_1..x_T), us_out [T, NU, A, B],
-// cost [A, B] out.  Thread l = a B + b.
+// the A candidates (host floats, passed to the kernel by value) in;
+// xs_out [T, NX, A, B] (x_1..x_T), us_out [T, NU, A, B], cost [A, B] out.
 //
-// What bounds it on the H100: the bytes of its outputs, A (T (NX + NU) + 1)
-// 4 bytes a problem against T (NX + 2 NU + NU NX) 4 bytes of reference read;
-// A RK4 rollouts a problem of arithmetic.  Design: the TPU kernel
-// replicated the reference of every problem A times in device memory
-// before the launch; here the A threads of one problem read the same
-// reference (through the L2 cache) and index their alpha, and a warp's
-// threads are 32 neighbouring problems of one candidate, so every load and
-// store of a stage coalesces.
+// What bounds it on the H100: the bytes, T (NX + 2 NU + NU NX) 4 bytes of
+// reference read once a problem and A (T (NX + NU) + 1) 4 bytes written
+// (1.907 ms at A = 10, 0.854 at A = 3, 262,144 problems, T = 80), and the
+// candidates' RK4 arithmetic: a candidate is a serial chain of T steps as
+// a rollout's, whose latency sets its time.  Design: threadIdx.x is the
+// problem, 32 neighbouring ones a block, and threadIdx.y a candidate, or
+// two where A is even (CHAINS: two independent chains a thread, which read
+// the stage's reference once), up to FP_CANDIDATES candidates a block (more
+// go in chunks of FP_CANDIDATES, a launch each).  Registers: 40 with one
+// chain (more resident warps: 3-4% faster at A = 3 than the 48 the
+// compiler picks), 72 with two (no spills, five blocks of 160 threads an
+// SM: 7% faster at A = 10 than 64, which spilled; 48 or 56 spilled more, 80
+// was 5% slower).
+// A warp's stores of a stage are 128-byte rows (32 problems of one
+// candidate); the warps of a block read the same reference rows within a
+// few hundred cycles of each other, so device memory serves each row once
+// and L1 the other warps.  The first design,
+// thread l = a B + b, put a problem's candidates B threads apart, in blocks
+// that ran waves apart, and read the reference from device memory once a
+// candidate.  Each chain runs that design's arithmetic in its order
+// (feedback_control, the cost, rk4_step with the held control: tan(delta)
+// once a step, the same floats), so the outputs are its floats.
 #include <cuda_runtime.h>
 
 #include "forward_select.cuh"
 
 namespace mas {
 
-template <typename Dyn, typename Cost, typename Term>
-__global__ void __launch_bounds__(128) forward_pass_kernel(
+constexpr int FP_PROBLEMS = 32;    // problems a block (threadIdx.x)
+constexpr int FP_CANDIDATES = 32;  // candidates a block at most
+
+// One launch's chunk of candidates, passed by value: no copy to the card
+// precedes the launch, so a CUDA graph can capture it.
+struct FpAlphas {
+  float v[FP_CANDIDATES];
+};
+
+template <typename Dyn, typename Cost, typename Term, int CHAINS>
+__global__ void __maxnreg__(CHAINS == 1 ? 40 : 72) forward_pass_kernel(
     const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
     const float* __restrict__ K, const float* __restrict__ lb_in,
-    const float* __restrict__ ub_in, const float* __restrict__ alphas,
-    float* __restrict__ xs_out, float* __restrict__ us_out, float* __restrict__ cost_out,
-    Dyn dyn, Cost cost, Term term, Step h, int T, int B, int A) {
+    const float* __restrict__ ub_in, FpAlphas alphas, int a_base, float* __restrict__ xs_out,
+    float* __restrict__ us_out, float* __restrict__ cost_out, Dyn dyn, Cost cost, Term term,
+    Step h, int T, int B, int A) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   static_assert(!takes_context<Cost>::value, "the forward pass takes no context");
+  const int b = blockIdx.x * FP_PROBLEMS + threadIdx.x;
+  const int c0 = threadIdx.y * CHAINS;   // the thread's first candidate in the chunk
+  const int a0 = a_base + c0;
+  // The launch takes two chains only where A is even, so a thread's chains
+  // are all candidates: a0 + CHAINS - 1 < A.
+  if (b >= B || a0 >= A) return;
   const size_t sB = static_cast<size_t>(B);
   const size_t sAB = static_cast<size_t>(A) * sB;
-  const size_t l = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l >= sAB) return;
-  const size_t b = l % sB;
-  const float alpha = alphas[l / sB];
+  const size_t l0 = static_cast<size_t>(a0) * sB + b;   // (a0, b) in the outputs' [A, B]
+  // Picked by an unrolled loop, so that every index into the parameter is a
+  // constant.
+  float alpha[CHAINS];
+#pragma unroll
+  for (int i = 0; i < FP_CANDIDATES; ++i) {
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c)
+      if (i == c0 + c) alpha[c] = alphas.v[i];
+  }
 
   const bool bounded = lb_in != nullptr;
   float lb[NU], ub[NU];
@@ -56,35 +91,47 @@ __global__ void __launch_bounds__(128) forward_pass_kernel(
       ub[i] = ub_in[i * sB + b];
     }
   }
-  float x[NX];
+  float x[CHAINS][NX], cst[CHAINS];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
-  float c = 0.0f;
+  for (int c = 0; c < CHAINS; ++c) {
+    cst[c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[c][i] = xs[i * sB + b];
+  }
+  // With two chains, stage t + 1's reference is loaded in the registers the
+  // feedback control has freed, while stage t's RK4 steps compute (3%
+  // faster at A = 10); under one chain's 40-register bound that spilled.
+  constexpr bool PREFETCH = CHAINS == 2;
+  StageRef<NX, NU> s;
+  if constexpr (PREFETCH) load_stage<NX, NU>(xs, us, k, K, 0, sB, b, s);
   for (int t = 0; t < T; ++t) {
     const size_t st = static_cast<size_t>(t);
-    float xr[NX], ur[NU], kt[NU], Kt[NU][NX];
+    if constexpr (!PREFETCH) load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    float u[CHAINS][NU];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xr[i] = xs[(st * NX + i) * sB + b];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      ur[i] = us[(st * NU + i) * sB + b];
-      kt[i] = k[(st * NU + i) * sB + b];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Kt[i][j] = K[((st * NU + i) * NX + j) * sB + b];
-    }
-    float u[NU], xn[NX];
-    feedback_control<NX, NU>(x, xr, ur, kt, Kt, alpha, bounded ? lb : nullptr, ub, u);
-    c = c + cost(x, u);
-    rk4_step(dyn, x, u, h, xn);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      xs_out[(st * NX + i) * sAB + l] = xn[i];
-      x[i] = xn[i];
+    for (int c = 0; c < CHAINS; ++c)
+      feedback_control<NX, NU>(x[c], s.xr, s.ur, s.kt, s.Kt, alpha[c], bounded ? lb : nullptr,
+                               ub, u[c]);
+    if constexpr (PREFETCH) {
+      if (t + 1 < T) load_stage<NX, NU>(xs, us, k, K, t + 1, sB, b, s);
     }
 #pragma unroll
-    for (int i = 0; i < NU; ++i) us_out[(st * NU + i) * sAB + l] = u[i];
+    for (int c = 0; c < CHAINS; ++c) {
+      float xn[NX];
+      cst[c] = cst[c] + cost(x[c], u[c]);
+      rk4_step(dyn, x[c], control_hold(dyn, static_cast<const float*>(u[c])), h, xn);
+      const size_t l = l0 + c * sB;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        xs_out[(st * NX + i) * sAB + l] = xn[i];
+        x[c][i] = xn[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) us_out[(st * NU + i) * sAB + l] = u[c][i];
+    }
   }
-  cost_out[l] = c + term(x);
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c) cost_out[l0 + c * sB] = cst[c] + term(x[c]);
 }
 
 template <typename Dyn, typename Cost, typename Term>
@@ -95,20 +142,36 @@ int launch_forward_pass(const float* xs, const float* us, const float* k, const 
                         cudaStream_t stream) {
   if (A < 1 || B < 1 || T < 1 || (lb == nullptr) != (ub == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(A) * static_cast<size_t>(B);
-  const int block = 128;
-  const int grid = static_cast<int>((n + block - 1) / block);
-  forward_pass_kernel<Dyn, Cost, Term><<<grid, block, 0, stream>>>(
-      xs, us, k, K, lb, ub, alphas, xs_out, us_out, cost_out, Dyn::from(dyn_p),
-      Cost::from(cost_p), Term::from(term_p), Step::from(step_p), T, B, A);
+  const Dyn dyn = Dyn::from(dyn_p);
+  const Cost cost = Cost::from(cost_p);
+  const Term term = Term::from(term_p);
+  const Step h = Step::from(step_p);
+  // Two chains a thread where A is even, so that no chain idles (every
+  // chunk but the last holds FP_CANDIDATES, an even count).
+  const int chains = A % 2 == 0 ? 2 : 1;
+  const dim3 grid((B + FP_PROBLEMS - 1) / FP_PROBLEMS);
+  for (int a_base = 0; a_base < A; a_base += FP_CANDIDATES) {
+    const int n = A - a_base < FP_CANDIDATES ? A - a_base : FP_CANDIDATES;
+    FpAlphas al;
+    for (int i = 0; i < FP_CANDIDATES; ++i) al.v[i] = i < n ? alphas[a_base + i] : 0.0f;
+    const dim3 block(FP_PROBLEMS, n / chains);
+    if (chains == 2)
+      forward_pass_kernel<Dyn, Cost, Term, 2><<<grid, block, 0, stream>>>(
+          xs, us, k, K, lb, ub, al, a_base, xs_out, us_out, cost_out, dyn, cost, term, h, T, B,
+          A);
+    else
+      forward_pass_kernel<Dyn, Cost, Term, 1><<<grid, block, 0, stream>>>(
+          xs, us, k, K, lb, ub, al, a_base, xs_out, us_out, cost_out, dyn, cost, term, h, T, B,
+          A);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mas
 
-// One C entry point per (dynamics, stage cost, terminal cost).  alphas is a
-// device array of A floats; the device-function parameters and the step
-// constants are host arrays, read at launch.
+// One C entry point per (dynamics, stage cost, terminal cost).  alphas (A
+// floats), the device-function parameters and the step constants are host
+// arrays, read at launch.
 #define MAS_FORWARD_PASS(NAME, DYN, COST, TERM)                                             \
   extern "C" int mas_forward_pass__##NAME(                                                  \
       const float* xs, const float* us, const float* k, const float* K, const float* lb,    \
@@ -121,6 +184,5 @@ int launch_forward_pass(const float* xs, const float* us, const float* k, const 
                                                      static_cast<cudaStream_t>(stream));    \
   }
 
-using LaneFollowCost = mas::DiagQuadratic<4, 2>;
 MAS_FORWARD_PASS(single_track__diag_quadratic__zero, mas::SingleTrack, LaneFollowCost,
                  mas::ZeroTerminal)

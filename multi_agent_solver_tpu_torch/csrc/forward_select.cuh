@@ -68,21 +68,36 @@
 //
 // Emit mode (K8; the TPU kernel's emit_lin, forward_select_pallas.py:
 // 229-283, instantiated in forward_select_emit*.cu): a select mode without
-// AL and without the stage-out contract.  Every problem is live (no active
-// mask), and phase 2 re-rolls every problem at its selected alpha (0 where
-// none improved, which reproduces a reference that is itself a clamped
-// rollout): it writes the new trajectory x_1..x_T and the controls into
-// fresh buffers and, at each accepted (x_t, u_t), the linearization in K3's
-// layout -- A and B through the RK4 step (LIN_DISCRETE) or of the
-// continuous dynamics, lx and lu, and lxx, luu, lux by second-order duals,
-// from the same device functions as K3 (the context a constant).  The
-// emitted stage cost is the un-augmented one; the TPU kernel passes it the
-// integer phase-2 step, K3 a float t, and the device costs read neither.
-// Its bound is the bytes of the stacks it writes, 4 (NX + NU + NX NX + NX NU
-// + NX + NU + NX NX + NU NU + NU NX) bytes a stage; each thread runs its
-// problem's T stages of dual arithmetic one after the other, where K3
-// spreads them over T threads, so at the main path's shapes the emit mode
-// is bound by that serial chain and its occupancy instead.
+// the stage-out contract, with or without a context, with or without AL
+// (forward_select_emit_al.cu: the rows of forward_select_al.cu).  Every
+// problem is live (no active mask), and every problem is re-rolled at its
+// selected alpha (0 where none improved, which reproduces a reference that
+// is itself a clamped rollout), writing the new trajectory x_1..x_T and the
+// controls into fresh buffers and, at each accepted (x_t, u_t), the
+// linearization in K3's layout -- A and B through the RK4 step or of the
+// continuous dynamics, lx and lu, and lxx, luu, lux by second-order duals
+// -- from K3's device code, so the stacks are K3's floats (the context a
+// constant).  The emitted stage cost is the un-augmented one; the TPU
+// kernel passes it the integer phase-2 step, K3 a float t, and the device
+// costs read neither.  Its bound is its bytes: the reference read once, the
+// trajectory and the stacks, 4 (NX + NU + NX NX + NX NU + NX + NU + NX NX +
+// NU NU + NU NX) bytes a stage written (2.005 ms at 262,144 problems, T =
+// 80).  Without a context K8 is one kernel, forward_emit_one_thread_kernel:
+// a thread a problem runs the select with the A <= 16 candidates' states
+// and costs in registers (candidate_step, with the AL terms), then re-rolls
+// its problem at the kept alpha and linearizes each stage as the re-roll
+// reaches it (emit_problem), so the candidates' arithmetic of some warps
+// overlaps the stacks' stores of others; with a context it is three
+// launches, the group kernel's select keeping each problem's alpha,
+// forward_emit_reroll_kernel, and K3's context mode on the emitted
+// trajectory (its neighbour sum spread over lanes, so the stacks are that
+// launch's floats).  Measured on the H100 and not kept, without a
+// context: the lane select and one kernel for the re-roll and the
+// linearization, or three launches as with a context, both 3.55 ms at
+// 262,144 problems, T = 80 and A = 3, against this kernel's 3.50
+// (discrete) and 3.28 (continuous): apart, the select's arithmetic no
+// longer overlaps the stores.  The reference is read twice, by the select
+// and by the re-roll.
 //
 // What bounds it on the H100: the arithmetic of A + 1 sequential RK4
 // rollouts per problem (12 sin/cos/tan a step) and the reads of the
@@ -100,10 +115,8 @@
 //   again and writes the trajectory.  The one-thread kernel it replaced
 //   kept A <= 16 candidates in registers and spilled at A > 4;
 // * the context select (above): forward_select_group_kernel;
-// * the emit mode: forward_select_kernel, one thread per problem with the
-//   A <= 16 candidate states and costs in registers (the TPU kernel's VMEM
-//   scratch), the t loop inside the thread, coalesced batch-innermost
-//   loads; its phase 2 re-rolls every problem;
+// * the emit mode: forward_emit_one_thread_kernel, or with a context the
+//   group select, forward_emit_reroll_kernel and K3 (above);
 // * the rollout mode: forward_rollout_kernel, one thread a problem, the t
 //   loop inside it.  Its bound at the main path's 262,144 problems and T =
 //   80 is its bytes, 4 (NX + T (NU + NX) + 1) a problem (0.152 ms), and
@@ -130,6 +143,7 @@
 
 #include <cuda_runtime.h>
 
+#include "linearize.cuh"
 #include "problems.cuh"
 
 namespace mas {
@@ -247,8 +261,9 @@ __device__ __forceinline__ void load_multipliers(const float* eq_mult, const flo
 // candidate: its feedback control at x and alpha, its step cost at (x, u)
 // -- the stage cost (a context cost: base + ps, the pair costs that the
 // caller sums over the neighbours in its own layout) plus, in the AL mode,
-// the AL terms, stage first -- and x advanced in place by one RK4 step.
-// Returns the step cost.
+// the AL terms, stage first -- and x advanced in place by one RK4 step,
+// its control held (control_hold: tan(delta) once a step, the floats of f
+// at the control).  Returns the step cost.
 template <typename Dyn, typename Cost, typename Eq, typename In>
 __device__ __forceinline__ float candidate_step(
     const Dyn& dyn, const Cost& cost, const Eq& eq, const In& in, const Step& h,
@@ -265,7 +280,7 @@ __device__ __forceinline__ float candidate_step(
   if constexpr (Eq::M + In::M > 0)
     step = step + al_terms<NX, NU>(eq, in, x, u, al.lam_eq, al.lam_in, al.half_rho, al.act_tol);
   float xn[NX];
-  rk4_step(dyn, x, u, h, xn);
+  rk4_step(dyn, x, control_hold(dyn, static_cast<const float*>(u)), h, xn);
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = xn[i];
   return step;
@@ -289,7 +304,7 @@ __device__ __forceinline__ void reroll_in_place(const Dyn& dyn, const Step& h, f
     load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
     float u[NU], xn[NX];
     feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, lb, ub, u);
-    rk4_step(dyn, x, u, h, xn);
+    rk4_step(dyn, x, control_hold(dyn, static_cast<const float*>(u)), h, xn);
 #pragma unroll
     for (int i = 0; i < NX; ++i) xs[(static_cast<size_t>(t) * NX + i) * sB + b] = x[i];
 #pragma unroll
@@ -299,160 +314,6 @@ __device__ __forceinline__ void reroll_in_place(const Dyn& dyn, const Step& h, f
   }
 #pragma unroll
   for (int i = 0; i < NX; ++i) xT[i * sB + b] = x[i];
-}
-
-// The emit mode's outputs: the new trajectory x_1..x_T [T, NX, B], the
-// controls [T, NU, B] and the linearization stacks in K3's layout.
-struct EmitOut {
-  float *xs = nullptr, *us = nullptr, *A = nullptr, *Bm = nullptr, *lx = nullptr,
-        *lu = nullptr, *lxx = nullptr, *luu = nullptr, *lux = nullptr;
-};
-
-// One stage's linearization at (x, u) into the EmitOut stacks, written as K3
-// writes them (linearize.cu).
-template <bool LIN_DISCRETE, typename Dyn, typename Cost>
-__device__ __forceinline__ void emit_linearization(const EmitOut& e, const Dyn& dyn,
-                                                   const Cost& cost, const Step& h,
-                                                   const float* x, const float* u,
-                                                   const CtxView& cv, size_t t, size_t sB,
-                                                   int b) {
-  constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<LIN_DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu, cv);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) e.A[((t * NX + i) * NX + j) * sB + b] = A[i][j];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) e.Bm[((t * NX + i) * NU + j) * sB + b] = Bm[i][j];
-    e.lx[(t * NX + i) * sB + b] = lx[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NU; ++i) e.lu[(t * NU + i) * sB + b] = lu[i];
-  float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-  stage_hessians<NX, NU>(cost, x, u, cv, lxx, luu, lux);
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) e.lxx[((t * NX + i) * NX + j) * sB + b] = lxx[i][j];
-#pragma unroll
-  for (int i = 0; i < NU; ++i)
-#pragma unroll
-    for (int j = 0; j < NU; ++j) e.luu[((t * NU + i) * NU + j) * sB + b] = luu[i][j];
-#pragma unroll
-  for (int i = 0; i < NU; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) e.lux[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
-}
-
-// The emit mode (K8): every candidate at once, from x_0, every problem
-// live; then every problem re-rolled at its selected alpha (0 where none
-// improved), writing x_1..x_T, the controls and the linearization into the
-// fresh EmitOut buffers.  xs and us are only read.
-template <typename Dyn, typename Cost, typename Term, int MAXA, bool LIN_DISCRETE>
-__global__ void __launch_bounds__(128) forward_select_kernel(
-    const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
-    const float* __restrict__ K, const float* __restrict__ merit,
-    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
-    float* __restrict__ cost_out, bool* __restrict__ accept_out,
-    const float* __restrict__ ctx, Dyn dyn, Cost cost, Term term, Step h, Alphas alphas, int T,
-    int B, int n_ctx, int c_ctx, EmitOut emit) {
-  constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = static_cast<size_t>(B);
-  const int A = alphas.n;
-  const NoConstraint nc{};
-  const AlStage<0, 0> al{};
-
-  float lb[NU], ub[NU];
-  const bool bounded = lb_in != nullptr;
-  if (bounded) {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      lb[i] = lb_in[i * sB + b];
-      ub[i] = ub_in[i * sB + b];
-    }
-  }
-
-  float xstart[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xstart[i] = xs[i * sB + b];
-
-  // Phase 1: all candidates at once.
-  float xa[MAXA][NX], ca[MAXA];
-#pragma unroll
-  for (int a = 0; a < MAXA; ++a) {
-    ca[a] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xa[a][i] = xstart[i];
-  }
-  for (int t = 0; t < T; ++t) {
-    StageRef<NX, NU> s;
-    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
-    // A context cost's pair sums, neighbour by neighbour (one read of each
-    // for all the candidates).
-    float ps[MAXA];
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) ps[a] = 0.0f;
-    if constexpr (takes_context<Cost>::value) {
-      const CtxView cv = ctx_view(ctx, t, n_ctx, c_ctx, sB, b);
-#pragma unroll 1
-      for (int j = 0; j < cv.K; ++j) {
-        float xj[Cost::PairT::NCTX];
-        cost.other(cv, j, xj);
-#pragma unroll
-        for (int a = 0; a < MAXA; ++a) {
-          if (a >= A) break;
-          ps[a] = ps[a] + cost.pair(xa[a], xj);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (a >= A) break;
-      ca[a] = ca[a] + candidate_step(dyn, cost, nc, nc, h, s, al, alphas.v[a],
-                                     bounded ? lb : nullptr, ub, ps[a], xa[a]);
-    }
-  }
-
-  // Selection: smallest alpha first, so the largest improving one wins.
-  const float m = merit[b];
-  float best = m, sel = 0.0f;
-  bool found = false;
-#pragma unroll
-  for (int a = MAXA - 1; a >= 0; --a) {
-    if (a >= A) continue;
-    const float total = ca[a] + term(xa[a]);
-    if (total < m) {
-      sel = alphas.v[a];
-      best = total;
-      found = true;
-    }
-  }
-  cost_out[b] = best;
-  accept_out[b] = found;
-
-  // Phase 2: re-roll every problem, writing x_1..x_T, the controls and the
-  // linearization into fresh buffers.
-  float x[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xstart[i];
-  for (int t = 0; t < T; ++t) {
-    StageRef<NX, NU> s;
-    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
-    float u[NU], xn[NX];
-    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, bounded ? lb : nullptr, ub, u);
-    rk4_step(dyn, x, u, h, xn);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) emit.xs[(static_cast<size_t>(t) * NX + i) * sB + b] = xn[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) emit.us[(static_cast<size_t>(t) * NU + i) * sB + b] = u[i];
-    emit_linearization<LIN_DISCRETE>(emit, dyn, cost, h, x, u,
-                                     ctx_view(ctx, t, n_ctx, c_ctx, sB, b), t, sB, b);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = xn[i];
-  }
 }
 
 // K2's rollout mode (design in the header): thread b rolls problem b out
@@ -560,10 +421,11 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
     float* xs, float* us, float* xT, const float* __restrict__ k, const float* __restrict__ K,
     const float* __restrict__ merit, const bool* __restrict__ active,
     const float* __restrict__ lb_in, const float* __restrict__ ub_in,
-    float* __restrict__ cost_out, bool* __restrict__ accept_out, const float* __restrict__ ctx,
-    const float* __restrict__ eq_mult, const float* __restrict__ ineq_mult,
-    const float* __restrict__ rho, float act_tol, Dyn dyn, Cost cost, Term term, Eq eq, In in,
-    Step h, Alphas alphas, int T, int B, int n_ctx, int c_ctx) {
+    float* __restrict__ cost_out, bool* __restrict__ accept_out, float* __restrict__ alpha_out,
+    const float* __restrict__ ctx, const float* __restrict__ eq_mult,
+    const float* __restrict__ ineq_mult, const float* __restrict__ rho, float act_tol, Dyn dyn,
+    Cost cost, Term term, Eq eq, In in, Step h, Alphas alphas, int T, int B, int n_ctx,
+    int c_ctx) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU, NCTX = Cost::PairT::NCTX;
   constexpr int PER_LANE = SELECT_CTX_TILE * NCTX / G;   // a lane's share of a tile
   constexpr bool AL = Eq::M + In::M > 0;
@@ -636,12 +498,19 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
   const float total = c + term(x);
   const int base = (threadIdx.x & 31) & ~(G - 1);
   const unsigned wins =
-      (__ballot_sync(mask, mine && active[b] && total < m) >> base) & (mask >> base);
+      (__ballot_sync(mask, mine && (active == nullptr || active[b]) && total < m) >> base) &
+      (mask >> base);
   const int win = wins != 0u ? __ffs(wins) - 1 : 0;
   const float best = __shfl_sync(mask, total, win, G);
   if (a == 0) {
     cost_out[b] = wins != 0u ? best : m;
     accept_out[b] = wins != 0u;
+  }
+  if (alpha_out != nullptr) {
+    // K8's select: the kept alpha (0 where none improved) for its re-roll
+    // launch, and nothing written in place.
+    if (a == 0) alpha_out[b] = wins != 0u ? alphas.v[win] : 0.0f;
+    return;
   }
   if (wins == 0u || a != win) return;
 
@@ -757,6 +626,151 @@ __global__ void __launch_bounds__(128) forward_select_reroll_kernel(
   reroll_in_place(dyn, h, xs, us, xT, k, K, bounded ? lb : nullptr, ub, alpha_sel[b], T, sB, b);
 }
 
+// K8's outputs: the new trajectory x_1..x_T [T, NX, B], the controls
+// [T, NU, B] and the linearization stacks in K3's layout.
+struct EmitOut {
+  float *xs = nullptr, *us = nullptr;
+  LinOut lin;
+};
+
+// K8's re-roll of problem b at its kept alpha sel (0 where none improved)
+// from x_0, as reroll_in_place's chain, writing x_1..x_T and the controls
+// to the fresh EmitOut buffers; with LINEARIZE (no context), each stage's
+// (x_t, u_t) linearized as soon as the re-roll reaches it, by K3's device
+// code (linearize_stage), so the stacks are K3's floats.  A warp writes one
+// stage of 32 neighbouring problems, coalesced; the reference is only read.
+template <bool LINEARIZE, bool DISCRETE, typename Dyn, typename Cost>
+__device__ __forceinline__ void emit_problem(const float* __restrict__ xs,
+                                             const float* __restrict__ us,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ K, const float* lb,
+                                             const float* ub, float sel, const EmitOut& emit,
+                                             const Dyn& dyn, const Cost& cost, const Step& h,
+                                             int T, size_t sB, int b) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  float x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xs[i * sB + b];
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    StageRef<NX, NU> s;
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    float u[NU], xn[NX];
+    feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, sel, lb, ub, u);
+    rk4_step(dyn, x, control_hold(dyn, static_cast<const float*>(u)), h, xn);
+    const size_t st = static_cast<size_t>(t);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) emit.xs[(st * NX + i) * sB + b] = xn[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) emit.us[(st * NU + i) * sB + b] = u[i];
+    if constexpr (LINEARIZE)
+      linearize_stage<true, DISCRETE>(dyn, cost, h, x, u, st, sB, static_cast<size_t>(b),
+                                      emit.lin);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+}
+
+// K8's re-roll with a context, one thread a problem, at the group select's
+// kept alphas (emit_problem without the linearization, which K3's context
+// mode does next).
+template <typename Dyn, typename Cost>
+__global__ void __launch_bounds__(128) forward_emit_reroll_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
+    const float* __restrict__ K, const float* __restrict__ lb_in,
+    const float* __restrict__ ub_in, const float* __restrict__ alpha_sel, EmitOut emit,
+    Dyn dyn, Cost cost, Step h, int T, int B) {
+  constexpr int NU = Dyn::NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = static_cast<size_t>(B);
+  float lb[NU], ub[NU];
+  const bool bounded = lb_in != nullptr;
+  if (bounded) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      lb[i] = lb_in[i * sB + b];
+      ub[i] = ub_in[i * sB + b];
+    }
+  }
+  emit_problem<false, true>(xs, us, k, K, bounded ? lb : nullptr, ub, alpha_sel[b], emit, dyn,
+                            cost, h, T, sB, b);
+}
+
+// K8 in one kernel without a context, one thread a problem: phase 1 with
+// the A <= MAXA candidates' states and costs in registers (candidate_step,
+// the AL terms where the instantiation has rows), the selection, then
+// emit_problem at the kept alpha (0 where none improved).  Five blocks an
+// SM (at most 102 registers; the discrete mode takes 115 unbounded): 3%
+// faster in the discrete mode; six (85) spilled and were slower.
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA,
+          bool DISCRETE>
+__global__ void __launch_bounds__(128, 5) forward_emit_one_thread_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us, const float* __restrict__ k,
+    const float* __restrict__ K, const float* __restrict__ merit,
+    const float* __restrict__ lb_in, const float* __restrict__ ub_in,
+    float* __restrict__ cost_out, bool* __restrict__ accept_out,
+    const float* __restrict__ eq_mult, const float* __restrict__ ineq_mult,
+    const float* __restrict__ rho, float act_tol, EmitOut emit, Dyn dyn, Cost cost, Term term,
+    Eq eq, In in, Step h, Alphas alphas, int T, int B) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  static_assert(!takes_context<Cost>::value, "with a context K8 launches K3's context mode");
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = static_cast<size_t>(B);
+  const int A = alphas.n;
+  float lb[NU], ub[NU];
+  const bool bounded = lb_in != nullptr;
+  if (bounded) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      lb[i] = lb_in[i * sB + b];
+      ub[i] = ub_in[i * sB + b];
+    }
+  }
+  AlStage<Eq::M, In::M> al;
+  if constexpr (Eq::M + In::M > 0) {
+    al.half_rho = 0.5f * rho[b];
+    al.act_tol = act_tol;
+  }
+  float xa[MAXA][NX], ca[MAXA];
+#pragma unroll
+  for (int a = 0; a < MAXA; ++a) {
+    ca[a] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xa[a][i] = xs[i * sB + b];
+  }
+  for (int t = 0; t < T; ++t) {
+    StageRef<NX, NU> s;
+    load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
+    load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
+#pragma unroll
+    for (int a = 0; a < MAXA; ++a) {
+      if (a >= A) break;
+      ca[a] = ca[a] + candidate_step(dyn, cost, eq, in, h, s, al, alphas.v[a],
+                                     bounded ? lb : nullptr, ub, 0.0f, xa[a]);
+    }
+  }
+  // Smallest alpha first, so the largest improving one wins.
+  const float m = merit[b];
+  float best = m, sel = 0.0f;
+  bool found = false;
+#pragma unroll
+  for (int a = MAXA - 1; a >= 0; --a) {
+    if (a >= A) continue;
+    const float total = ca[a] + term(xa[a]);
+    if (total < m) {
+      sel = alphas.v[a];
+      best = total;
+      found = true;
+    }
+  }
+  cost_out[b] = best;
+  accept_out[b] = found;
+  emit_problem<true, DISCRETE>(xs, us, k, K, bounded ? lb : nullptr, ub, sel, emit, dyn, cost,
+                               h, T, sB, b);
+}
+
 // The pointers and scalars of one launch.
 struct Args {
   const float* x0;
@@ -771,16 +785,6 @@ struct Args {
   float act_tol;
   int T, B, n_ctx, c_ctx;
 };
-
-template <typename Dyn, typename Cost, typename Term, int MAXA, bool LIN_DISCRETE>
-void launch_emit(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term, const Step& h,
-                 const Alphas& al, cudaStream_t stream, const EmitOut& emit) {
-  const int block = 128;
-  const int grid = (a.B + block - 1) / block;
-  forward_select_kernel<Dyn, Cost, Term, MAXA, LIN_DISCRETE><<<grid, block, 0, stream>>>(
-      a.xs, a.us, a.k, a.K, a.merit, a.lb, a.ub, a.cost_out, a.accept_out, a.ctx, dyn, cost, term,
-      h, al, a.T, a.B, a.n_ctx, a.c_ctx, emit);
-}
 
 template <typename Dyn, typename Cost, typename Term>
 void launch_rollout(const Args& a, const Dyn& dyn, const Cost& cost, const Term& term,
@@ -797,9 +801,9 @@ void launch_group(const Args& a, const Dyn& dyn, const Cost& cost, const Term& t
   constexpr int per_block = SELECT_GROUP_BLOCK / G;
   const int grid = (a.B + per_block - 1) / per_block;
   forward_select_group_kernel<Dyn, Cost, Term, Eq, In, G><<<grid, SELECT_GROUP_BLOCK, 0, stream>>>(
-      a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out, a.accept_out, a.ctx,
-      a.eq_mult, a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h, al, a.T, a.B,
-      a.n_ctx, a.c_ctx);
+      a.xs, a.us, a.xT, a.k, a.K, a.merit, a.active, a.lb, a.ub, a.cost_out, a.accept_out,
+      a.alpha_out, a.ctx, a.eq_mult, a.ineq_mult, a.rho, a.act_tol, dyn, cost, term, eq, in, h, al,
+      a.T, a.B, a.n_ctx, a.c_ctx);
 }
 
 // The lane select, then the re-roll of its accepted problems.
@@ -816,6 +820,20 @@ void launch_lanes(const Args& a, const Dyn& dyn, const Cost& cost, const Term& t
   const int block = 128;
   forward_select_reroll_kernel<Dyn><<<(a.B + block - 1) / block, block, 0, stream>>>(
       a.xs, a.us, a.xT, a.k, a.K, a.lb, a.ub, a.accept_out, a.alpha_out, dyn, h, a.T, a.B);
+}
+
+// Do the context and the AL inputs fit the instantiation?  A context
+// exactly with a Coupled stage cost; multipliers and rho exactly with
+// constraint rows, m_eq = Eq::M and m_in = In::M.
+template <typename Dyn, typename Cost, typename Eq, typename In>
+bool args_fit(const Args& args, int m_eq, int m_in, const Eq& eq, const In& in) {
+  constexpr bool AL = Eq::M + In::M > 0;
+  if (takes_context<Cost>::value != (args.ctx != nullptr) || args.n_ctx < 0 ||
+      (args.ctx != nullptr && args.c_ctx < Dyn::NX))
+    return false;
+  return m_eq == Eq::M && m_in == In::M && (Eq::M > 0) == (args.eq_mult != nullptr) &&
+         (In::M > 0) == (args.ineq_mult != nullptr) && AL == (args.rho != nullptr) &&
+         eq.ok(Dyn::NX, Dyn::NU) && in.ok(Dyn::NX, Dyn::NU);
 }
 
 // init != 0: rollout mode (x0, us -> xs = x_1..x_T, cost) on the rollout
@@ -842,13 +860,7 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
   al.n = init ? 1 : n_alphas;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (al.n < 1 || al.n > MAX_ALPHAS) return bad;
-  if (takes_context<Cost>::value != (args.ctx != nullptr) || args.n_ctx < 0 ||
-      (args.ctx != nullptr && args.c_ctx < Dyn::NX))
-    return bad;
-  if (m_eq != Eq::M || m_in != In::M || (Eq::M > 0) != (args.eq_mult != nullptr) ||
-      (In::M > 0) != (args.ineq_mult != nullptr) || AL != (args.rho != nullptr) ||
-      !eq.ok(Dyn::NX, Dyn::NU) || !in.ok(Dyn::NX, Dyn::NU))
-    return bad;
+  if (!args_fit<Dyn, Cost>(args, m_eq, m_in, eq, in)) return bad;
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = (!init && a < al.n) ? alphas[a] : 0.0f;
   if constexpr (takes_context<Cost>::value) {
     // The context select, with or without AL, runs on the group kernel.
@@ -879,41 +891,81 @@ int launch_forward_select(int init, const Args& args, int m_eq, int m_in, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The emit mode (K8): select mode without AL, every problem live, the new
-// trajectory and the linearization (discrete != 0: through the RK4 step)
-// written to `emit`; candidate registers sized 4 or 16 by n_alphas.
-template <typename Dyn, typename Cost, typename Term>
-int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discrete,
-                               const float* dyn_p, const float* cost_p, const float* term_p,
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In, int MAXA>
+void launch_emit_one_thread(const Args& a, const EmitOut& emit, int discrete, const Dyn& dyn,
+                            const Cost& cost, const Term& term, const Eq& eq, const In& in,
+                            const Step& h, const Alphas& al, cudaStream_t stream) {
+  const int block = 128, grid = (a.B + block - 1) / block;
+  if (discrete)
+    forward_emit_one_thread_kernel<Dyn, Cost, Term, Eq, In, MAXA, true>
+        <<<grid, block, 0, stream>>>(a.xs, a.us, a.k, a.K, a.merit, a.lb, a.ub, a.cost_out,
+                                     a.accept_out, a.eq_mult, a.ineq_mult, a.rho, a.act_tol,
+                                     emit, dyn, cost, term, eq, in, h, al, a.T, a.B);
+  else
+    forward_emit_one_thread_kernel<Dyn, Cost, Term, Eq, In, MAXA, false>
+        <<<grid, block, 0, stream>>>(a.xs, a.us, a.k, a.K, a.merit, a.lb, a.ub, a.cost_out,
+                                     a.accept_out, a.eq_mult, a.ineq_mult, a.rho, a.act_tol,
+                                     emit, dyn, cost, term, eq, in, h, al, a.T, a.B);
+}
+
+// The emit mode (K8), every problem live.  Without a context one kernel,
+// forward_emit_one_thread_kernel (candidate registers sized 4 or 16 by
+// n_alphas), with AL where the instantiation has rows.  With a context
+// three launches on one stream: the group kernel's select (active null),
+// which keeps each problem's alpha in alpha_out [B] (the caller's scratch);
+// forward_emit_reroll_kernel into emit.xs / emit.us; K3's context mode
+// with Hessians (discrete != 0: through the RK4 step) at x_0 = xs[0],
+// x_1..x_{T-1} = emit.xs[0..T-2] and emit.us into the stacks.
+template <typename Dyn, typename Cost, typename Term, typename Eq, typename In>
+int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discrete, int m_eq,
+                               int m_in, const float* dyn_p, const float* cost_p,
+                               const float* term_p, const float* eq_p, const float* in_p,
                                const float* step_p, const float* alphas, int n_alphas,
                                cudaStream_t stream) {
   const Dyn dyn = Dyn::from(dyn_p);
   const Cost cost = Cost::from(cost_p);
   const Term term = Term::from(term_p);
+  const Eq eq = Eq::from(eq_p);
+  const In in = In::from(in_p);
   const Step h = Step::from(step_p);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (n_alphas < 1 || n_alphas > MAX_ALPHAS) return bad;
-  if (takes_context<Cost>::value != (args.ctx != nullptr) || args.n_ctx < 0 ||
-      (args.ctx != nullptr && args.c_ctx < Dyn::NX))
-    return bad;
-  if (args.eq_mult != nullptr || args.ineq_mult != nullptr || args.rho != nullptr ||
-      emit.xs == nullptr || emit.us == nullptr || emit.A == nullptr || emit.Bm == nullptr ||
-      emit.lx == nullptr || emit.lu == nullptr || emit.lxx == nullptr || emit.luu == nullptr ||
-      emit.lux == nullptr)
+  if (n_alphas < 1 || n_alphas > MAX_ALPHAS || args.T < 1 || args.B < 1) return bad;
+  if (!args_fit<Dyn, Cost>(args, m_eq, m_in, eq, in)) return bad;
+  const LinOut& o = emit.lin;
+  if (args.active != nullptr || emit.xs == nullptr || emit.us == nullptr || o.A == nullptr ||
+      o.Bm == nullptr || o.lx == nullptr || o.lu == nullptr || o.lxx == nullptr ||
+      o.luu == nullptr || o.lux == nullptr)
     return bad;
   Alphas al;
   al.n = n_alphas;
   for (int a = 0; a < MAX_ALPHAS; ++a) al.v[a] = a < al.n ? alphas[a] : 0.0f;
-  if (discrete) {
+  if constexpr (!takes_context<Cost>::value) {
     if (al.n <= 4)
-      launch_emit<Dyn, Cost, Term, 4, true>(args, dyn, cost, term, h, al, stream, emit);
+      launch_emit_one_thread<Dyn, Cost, Term, Eq, In, 4>(args, emit, discrete, dyn, cost, term,
+                                                         eq, in, h, al, stream);
     else
-      launch_emit<Dyn, Cost, Term, MAX_ALPHAS, true>(args, dyn, cost, term, h, al, stream, emit);
+      launch_emit_one_thread<Dyn, Cost, Term, Eq, In, MAX_ALPHAS>(args, emit, discrete, dyn,
+                                                                  cost, term, eq, in, h, al,
+                                                                  stream);
   } else {
+    if (args.alpha_out == nullptr) return bad;
     if (al.n <= 4)
-      launch_emit<Dyn, Cost, Term, 4, false>(args, dyn, cost, term, h, al, stream, emit);
+      launch_group<Dyn, Cost, Term, Eq, In, 4>(args, dyn, cost, term, eq, in, h, al, stream);
     else
-      launch_emit<Dyn, Cost, Term, MAX_ALPHAS, false>(args, dyn, cost, term, h, al, stream, emit);
+      launch_group<Dyn, Cost, Term, Eq, In, MAX_ALPHAS>(args, dyn, cost, term, eq, in, h, al,
+                                                        stream);
+    const int block = 128;
+    forward_emit_reroll_kernel<Dyn, Cost><<<(args.B + block - 1) / block, block, 0, stream>>>(
+        args.xs, args.us, args.k, args.K, args.lb, args.ub, args.alpha_out, emit, dyn, cost, h,
+        args.T, args.B);
+    if (discrete)
+      launch_linearize_mode<Dyn, Cost, true>(args.xs, emit.xs, emit.us, o.A, o.Bm, o.lx, o.lu,
+                                             o.lxx, o.luu, o.lux, args.ctx, args.T, args.B,
+                                             args.n_ctx, args.c_ctx, 1, dyn, cost, h, stream);
+    else
+      launch_linearize_mode<Dyn, Cost, false>(args.xs, emit.xs, emit.us, o.A, o.Bm, o.lx, o.lu,
+                                              o.lxx, o.luu, o.lux, args.ctx, args.T, args.B,
+                                              args.n_ctx, args.c_ctx, 1, dyn, cost, h, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -944,32 +996,30 @@ int launch_forward_select_emit(const Args& args, const EmitOut& emit, int discre
 using LaneFollowCost = mas::DiagQuadratic<4, 2>;
 using mas::NoConstraint;
 
-// The emit mode's C entry point per (dynamics, stage cost, terminal cost):
-// xs [T, NX, B] (x_0..x_{T-1}), us, k, K, merit, the bounds and the
-// context in; merit and accept out, and x_1..x_T, the controls and the
-// seven linearization stacks into the given buffers.
-#define MAS_FORWARD_SELECT_EMIT(NAME, DYN, COST, TERM)                                      \
+// The emit mode's C entry point per (dynamics, stage cost, terminal cost,
+// equality, inequality constraints): xs [T, NX, B] (x_0..x_{T-1}), us, k,
+// K, merit, the bounds, the context and the AL inputs in, alpha_out [B]
+// scratch; merit and accept out, and x_1..x_T, the controls and the seven
+// linearization stacks into the given buffers.
+#define MAS_FORWARD_SELECT_EMIT(NAME, DYN, COST, TERM, EQ, IN)                              \
   extern "C" int mas_forward_select_emit__##NAME(                                           \
       const float* xs, const float* us, const float* k, const float* K, const float* merit, \
-      const float* lb, const float* ub, float* cost_out, bool* accept_out, const float* ctx, \
-      int T, int B, int n_ctx, int c_ctx, int discrete, const float* dyn_p,                 \
-      const float* cost_p, const float* term_p, const float* step_p, const float* alphas,   \
-      int n_alphas, float* xs_new, float* us_new, float* A, float* Bm, float* lx,           \
-      float* lu, float* lxx, float* luu, float* lux, void* stream) {                        \
+      const float* lb, const float* ub, float* cost_out, bool* accept_out, float* alpha_out, \
+      const float* ctx, const float* eq_mult, const float* ineq_mult, const float* rho,     \
+      float act_tol, int T, int B, int n_ctx, int c_ctx, int m_eq, int m_in, int discrete,  \
+      const float* dyn_p, const float* cost_p, const float* term_p, const float* eq_p,      \
+      const float* in_p, const float* step_p, const float* alphas, int n_alphas,            \
+      float* xs_new, float* us_new, float* A, float* Bm, float* lx, float* lu, float* lxx,  \
+      float* luu, float* lux, void* stream) {                                               \
     const mas::Args args{nullptr, const_cast<float*>(xs), const_cast<float*>(us), nullptr,  \
-                         k, K, merit, nullptr, lb, ub, cost_out, accept_out, nullptr, ctx,  \
-                         nullptr, nullptr, nullptr, 0.0f, T, B, n_ctx, c_ctx};               \
+                         k,       K,         merit,   nullptr, lb,       ub,               \
+                         cost_out, accept_out, alpha_out, ctx, eq_mult,  ineq_mult,        \
+                         rho,     act_tol,   T,       B,       n_ctx,    c_ctx};           \
     mas::EmitOut emit;                                                                       \
     emit.xs = xs_new;                                                                        \
     emit.us = us_new;                                                                        \
-    emit.A = A;                                                                              \
-    emit.Bm = Bm;                                                                            \
-    emit.lx = lx;                                                                            \
-    emit.lu = lu;                                                                            \
-    emit.lxx = lxx;                                                                          \
-    emit.luu = luu;                                                                          \
-    emit.lux = lux;                                                                          \
-    return mas::launch_forward_select_emit<DYN, COST, TERM>(                                \
-        args, emit, discrete, dyn_p, cost_p, term_p, step_p, alphas, n_alphas,              \
-        static_cast<cudaStream_t>(stream));                                                  \
+    emit.lin = mas::LinOut{A, Bm, lx, lu, lxx, luu, lux};                                    \
+    return mas::launch_forward_select_emit<DYN, COST, TERM, EQ, IN>(                        \
+        args, emit, discrete, m_eq, m_in, dyn_p, cost_p, term_p, eq_p, in_p, step_p, alphas, \
+        n_alphas, static_cast<cudaStream_t>(stream));                                        \
   }

@@ -3,6 +3,9 @@
 // the same derivatives on a flat grid of problem-stages with batch-first
 // I/O.
 //
+// K3's kernels and their launch are in linearize.cuh (K8 runs them too);
+// this file holds K3's entry points, its hoist mode and K7.
+//
 // K3 replaces multi_agent_solver_tpu/ops/linearize_pallas.py ::
 // linearize_pallas_tiled (kernel _make_kernel), K7 linearize_pallas (the
 // same kernel on a flat B T lane grid).
@@ -71,59 +74,9 @@
 // K3's batch-innermost stores (linearize_flat_kernel).
 #include <cuda_runtime.h>
 
-#include "problems.cuh"
+#include "linearize.cuh"
 
 namespace mas {
-
-template <typename Dyn, typename Cost, bool HESSIANS, bool DISCRETE>
-__global__ void __launch_bounds__(128) linearize_kernel(
-    const float* __restrict__ xs, const float* __restrict__ us,
-    float* __restrict__ A_out, float* __restrict__ B_out, float* __restrict__ lx_out,
-    float* __restrict__ lu_out, float* __restrict__ lxx_out, float* __restrict__ luu_out,
-    float* __restrict__ lux_out, Dyn dyn, Cost cost, Step h, int T, int B) {
-  constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  static_assert(!takes_context<Cost>::value, "the context mode is linearize_group_kernel");
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t sB = static_cast<size_t>(B);
-  if (idx >= static_cast<size_t>(T) * sB) return;
-  const size_t t = idx / sB, b = idx % sB;
-
-  float x[NX], u[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xs[(t * NX + i) * sB + b];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) u[i] = us[(t * NU + i) * sB + b];
-
-  float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) A_out[((t * NX + i) * NX + j) * sB + b] = A[i][j];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) B_out[((t * NX + i) * NU + j) * sB + b] = Bm[i][j];
-    lx_out[(t * NX + i) * sB + b] = lx[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NU; ++i) lu_out[(t * NU + i) * sB + b] = lu[i];
-
-  if constexpr (HESSIANS) {
-    float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-    stage_hessians<NX, NU>(cost, x, u, CtxView(), lxx, luu, lux);
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) lxx_out[((t * NX + i) * NX + j) * sB + b] = lxx[i][j];
-#pragma unroll
-    for (int i = 0; i < NU; ++i)
-#pragma unroll
-      for (int j = 0; j < NU; ++j) luu_out[((t * NU + i) * NU + j) * sB + b] = luu[i][j];
-#pragma unroll
-    for (int i = 0; i < NU; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) lux_out[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
-  }
-}
 
 // K3's hoist mode: lxx [T, NX, NX, B], luu [T, NU, NU, B], lux [T, NU, NX,
 // B] of the stage cost at xs [T, NX, B], us [T, NU, B].
@@ -157,106 +110,6 @@ __global__ void __launch_bounds__(128) linearize_hessians_kernel(
     for (int j = 0; j < NX; ++j) lux_out[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
 }
 
-// K3's context mode: a Coupled stage cost whose neighbour sum is spread
-// over a group of G lanes.  Lane `lane` sums the pair costs of neighbours
-// lane, lane + G, ... in index order from 0, a fixed xor tree sums the
-// group's partial sums, and base + sum is the cost -- in whatever scalar
-// type (float, Dual, Dual<Dual>) stage_derivatives and stage_hessians
-// evaluate it, so every lane of the group ends with the same duals.
-template <typename Cost, int G>
-struct GroupCoupled {
-  Cost c;
-  int lane;
-  unsigned mask;
-
-  template <typename S>
-  __device__ __forceinline__ S operator()(const S* x, const S* u, const CtxView& cv) const {
-    S s(0.0f);
-#pragma unroll 1
-    for (int k = lane; k < cv.K; k += G) {
-      float xj[Cost::PairT::NCTX];
-      c.other(cv, k, xj);
-      s = s + c.pair(x, xj);
-    }
-    return c.base(x, u) + group_sum<G>(s, mask);
-  }
-};
-template <typename Cost, int G>
-struct takes_context<GroupCoupled<Cost, G>> {
-  static constexpr bool value = true;
-};
-
-// K3's context mode: a group of G lanes per (problem, stage), at the flat
-// index (t B + b) G + lane.  Each lane evaluates the stage's derivatives with
-// its share of the neighbours (GroupCoupled) and writes the outputs o of
-// the 58 (at NX = 4, NU = 2) with o % G == lane.
-constexpr int LIN_GROUP_BLOCK = 64;
-
-template <typename Dyn, typename Cost, bool HESSIANS, bool DISCRETE, int G>
-__global__ void __launch_bounds__(LIN_GROUP_BLOCK) linearize_group_kernel(
-    const float* __restrict__ xs, const float* __restrict__ us,
-    float* __restrict__ A_out, float* __restrict__ B_out, float* __restrict__ lx_out,
-    float* __restrict__ lu_out, float* __restrict__ lxx_out, float* __restrict__ luu_out,
-    float* __restrict__ lux_out, const float* __restrict__ ctx, Dyn dyn, Cost cost, Step h,
-    int T, int B, int n_ctx, int c_ctx) {
-  constexpr int NX = Dyn::NX, NU = Dyn::NU;
-  constexpr int O_B = NX * NX, O_LX = O_B + NX * NU, O_LU = O_LX + NX, O_LXX = O_LU + NU,
-                O_LUU = O_LXX + NX * NX, O_LUX = O_LUU + NU * NU;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t sB = static_cast<size_t>(B);
-  const size_t g = idx / G;
-  if (g >= static_cast<size_t>(T) * sB) return;  // the whole group leaves
-  const int lane = static_cast<int>(idx % G);
-  const size_t t = g / sB, b = g % sB;
-  const auto mine = [lane](int o) { return o % G == lane; };
-
-  float x[NX], u[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xs[(t * NX + i) * sB + b];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) u[i] = us[(t * NU + i) * sB + b];
-
-  const CtxView cv = ctx_view(ctx, static_cast<int>(t), n_ctx, c_ctx, sB, b);
-  const GroupCoupled<Cost, G> gc{cost, lane, group_mask<G>()};
-  float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<DISCRETE>(dyn, gc, h, x, u, A, Bm, lx, lu, cv);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      if (mine(i * NX + j)) A_out[((t * NX + i) * NX + j) * sB + b] = A[i][j];
-#pragma unroll
-    for (int j = 0; j < NU; ++j)
-      if (mine(O_B + i * NU + j)) B_out[((t * NX + i) * NU + j) * sB + b] = Bm[i][j];
-    if (mine(O_LX + i)) lx_out[(t * NX + i) * sB + b] = lx[i];
-  }
-#pragma unroll
-  for (int i = 0; i < NU; ++i)
-    if (mine(O_LU + i)) lu_out[(t * NU + i) * sB + b] = lu[i];
-
-  if constexpr (HESSIANS) {
-    float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-    stage_hessians<NX, NU>(gc, x, u, cv, lxx, luu, lux);
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-        if (mine(O_LXX + i * NX + j)) lxx_out[((t * NX + i) * NX + j) * sB + b] = lxx[i][j];
-#pragma unroll
-    for (int i = 0; i < NU; ++i)
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        if (mine(O_LUU + i * NU + j)) luu_out[((t * NU + i) * NU + j) * sB + b] = luu[i][j];
-#pragma unroll
-    for (int i = 0; i < NU; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-        if (mine(O_LUX + i * NX + j)) lux_out[((t * NU + i) * NX + j) * sB + b] = lux[i][j];
-  }
-}
-
-constexpr int LIN_BLOCK = 128;
-constexpr int LIN_WARPS = LIN_BLOCK / 32;
 
 // K7's staging: a warp's lanes' values of one output array, N floats a
 // lane, in shared memory at a lane stride of N | 1 floats (odd: the warp's
@@ -359,68 +212,6 @@ __global__ void __launch_bounds__(LIN_BLOCK) linearize_flat_kernel(
   span_out<NU * NX>(lux_out, staged + O_LUX, l0, lanes, lane);
 }
 
-// Lanes per problem-stage of the context mode.  Every lane of a group
-// repeats the base cost and the dynamics, and only the neighbour sum is
-// split, so the group pays where the launch is small (latency-bound: the
-// 64-car game's 640 problem-stages, the 256-car game's 2,560) and costs
-// where it is large: past LIN_GROUP_LANES lanes the launch turns
-// throughput-bound on the repeated work, and one lane a problem-stage is
-// faster (the 1,024-car game's 10,240 at K = 8).  Within the bound: 32
-// lanes for more than 8 neighbours where they fit, else 8.
-constexpr size_t LIN_GROUP_LANES = 32768;
-
-inline int group_lanes(size_t stages, int n_ctx) {
-  if (stages * 8 > LIN_GROUP_LANES) return 1;
-  return n_ctx > 8 && stages * 32 <= LIN_GROUP_LANES ? 32 : 8;
-}
-
-template <typename Dyn, typename Cost, bool DISCRETE, int G>
-void launch_linearize_group(const float* xs, const float* us, float* A, float* Bm, float* lx,
-                            float* lu, float* lxx, float* luu, float* lux, const float* ctx,
-                            int T, int B, int n_ctx, int c_ctx, int hessians, const Dyn& dyn,
-                            const Cost& cost, const Step& h, cudaStream_t stream) {
-  const size_t n = static_cast<size_t>(T) * static_cast<size_t>(B) * G;
-  const int grid = static_cast<int>((n + LIN_GROUP_BLOCK - 1) / LIN_GROUP_BLOCK);
-  if (hessians)
-    linearize_group_kernel<Dyn, Cost, true, DISCRETE, G><<<grid, LIN_GROUP_BLOCK, 0, stream>>>(
-        xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx, dyn, cost, h, T, B, n_ctx, c_ctx);
-  else
-    linearize_group_kernel<Dyn, Cost, false, DISCRETE, G><<<grid, LIN_GROUP_BLOCK, 0, stream>>>(
-        xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx, dyn, cost, h, T, B, n_ctx, c_ctx);
-}
-
-template <typename Dyn, typename Cost, bool DISCRETE>
-void launch_linearize_mode(const float* xs, const float* us, float* A, float* Bm, float* lx,
-                           float* lu, float* lxx, float* luu, float* lux, const float* ctx,
-                           int T, int B, int n_ctx, int c_ctx, int hessians, const Dyn& dyn,
-                           const Cost& cost, const Step& h, cudaStream_t stream) {
-  if constexpr (takes_context<Cost>::value) {
-    // The context mode runs on the group kernel, at G = group_lanes(...).
-    const int G = group_lanes(static_cast<size_t>(T) * static_cast<size_t>(B), n_ctx);
-    if (G == 32)
-      launch_linearize_group<Dyn, Cost, DISCRETE, 32>(xs, us, A, Bm, lx, lu, lxx, luu, lux,
-                                                      ctx, T, B, n_ctx, c_ctx, hessians, dyn,
-                                                      cost, h, stream);
-    else if (G == 8)
-      launch_linearize_group<Dyn, Cost, DISCRETE, 8>(xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx,
-                                                     T, B, n_ctx, c_ctx, hessians, dyn, cost,
-                                                     h, stream);
-    else
-      launch_linearize_group<Dyn, Cost, DISCRETE, 1>(xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx,
-                                                     T, B, n_ctx, c_ctx, hessians, dyn, cost,
-                                                     h, stream);
-  } else {
-    const size_t n = static_cast<size_t>(T) * static_cast<size_t>(B);
-    const int grid = static_cast<int>((n + LIN_BLOCK - 1) / LIN_BLOCK);
-    if (hessians)
-      linearize_kernel<Dyn, Cost, true, DISCRETE><<<grid, LIN_BLOCK, 0, stream>>>(
-          xs, us, A, Bm, lx, lu, lxx, luu, lux, dyn, cost, h, T, B);
-    else
-      linearize_kernel<Dyn, Cost, false, DISCRETE><<<grid, LIN_BLOCK, 0, stream>>>(
-          xs, us, A, Bm, lx, lu, lxx, luu, lux, dyn, cost, h, T, B);
-  }
-}
-
 template <typename Dyn, typename Cost>
 int launch_linearize(const float* xs, const float* us, float* A, float* Bm, float* lx,
                      float* lu, float* lxx, float* luu, float* lux, const float* ctx, int T,
@@ -433,12 +224,13 @@ int launch_linearize(const float* xs, const float* us, float* A, float* Bm, floa
   const Dyn dyn = Dyn::from(dyn_p);
   const Cost cost = Cost::from(cost_p);
   const Step h = Step::from(step_p);
+  const float* xs1 = xs + static_cast<size_t>(Dyn::NX) * static_cast<size_t>(B);
   if (discrete)
-    launch_linearize_mode<Dyn, Cost, true>(xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx, T, B,
-                                           n_ctx, c_ctx, hessians, dyn, cost, h, stream);
+    launch_linearize_mode<Dyn, Cost, true>(xs, xs1, us, A, Bm, lx, lu, lxx, luu, lux, ctx, T,
+                                           B, n_ctx, c_ctx, hessians, dyn, cost, h, stream);
   else
-    launch_linearize_mode<Dyn, Cost, false>(xs, us, A, Bm, lx, lu, lxx, luu, lux, ctx, T, B,
-                                            n_ctx, c_ctx, hessians, dyn, cost, h, stream);
+    launch_linearize_mode<Dyn, Cost, false>(xs, xs1, us, A, Bm, lx, lu, lxx, luu, lux, ctx, T,
+                                            B, n_ctx, c_ctx, hessians, dyn, cost, h, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -452,7 +452,9 @@ __device__ __forceinline__ void cost_gradient(const Cost& cost, const float* x, 
 // A = d step / dx, B = d step / du through the RK4 step (the
 // jacobian_mode "discrete"); otherwise the Jacobians of the continuous
 // dynamics f(x, u) (the reference's "continuous" mode, as the TPU kernels'
-// step_map with discrete=False).  The context is a constant.
+// step_map with discrete=False).  The control's hold (control_hold) is
+// taken once, which gives f's duals at the control.  The context is a
+// constant.
 template <bool DISCRETE = true, typename Dyn, typename Cost>
 __device__ __forceinline__ void stage_derivatives(
     const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
@@ -465,10 +467,11 @@ __device__ __forceinline__ void stage_derivatives(
   for (int i = 0; i < NX; ++i) xd[i] = seed<NZ>(x[i], i);
 #pragma unroll
   for (int i = 0; i < NU; ++i) ud[i] = seed<NZ>(u[i], NX + i);
+  const auto held = control_hold(dyn, static_cast<const D*>(ud));
   if constexpr (DISCRETE)
-    rk4_step(dyn, xd, ud, h, nxt);
+    rk4_step(dyn, xd, held, h, nxt);
   else
-    dyn(xd, ud, nxt);
+    dyn(xd, held, nxt);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll

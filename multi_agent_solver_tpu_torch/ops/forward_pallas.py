@@ -18,9 +18,11 @@ Port of ``multi_agent_solver_tpu/ops/forward_pallas.py``:
   the same kernel, alpha 0, zero gains, no clamp: ``xs [B, T+1, nx]``,
   ``costs [B]``.
 
-The CUDA kernel (``csrc/forward_pass.cu``) runs one thread per (problem,
-alpha).  It reads the reference once per problem and indexes alpha, where
-the TPU kernel replicated every per-problem array across the candidates.
+The CUDA kernel (``csrc/forward_pass.cu``) runs a block of 32 neighbouring
+problems by the candidates (up to 32 a block; a thread runs one candidate,
+or two where their count is even), so the candidates of a problem read its
+reference together and device memory serves it once, where the TPU kernel
+replicated every per-problem array across the candidates.
 No solve path calls it, as in the JAX package (the select kernel, K2,
 replaced it); its launches are counted on ``STATS``.  For CPU tensors the
 functions run the plain version, for CUDA tensors the kernel, whose
@@ -155,10 +157,10 @@ def launch_forward_pass(spec, xs: Tensor, us: Tensor, k: Tensor, K: Tensor, alph
     xs_out = torch.empty((T, nx, A, B), dtype=torch.float32, device=dev)
     us_out = torch.empty((T, nu, A, B), dtype=torch.float32, device=dev)
     cost = torch.empty((A, B), dtype=torch.float32, device=dev)
-    # The kernel indexes the candidates by thread: they go to the card.
-    alpha_dev = torch.tensor(alphas, dtype=torch.float32, device=dev)
+    # The candidates go to the kernel by value: nothing is copied to the card
+    # before the launch, so a CUDA graph can capture the call.
     with torch.cuda.device(dev):
-        launch(symbol, xs, us, k, K, lb, ub, alpha_dev, xs_out, us_out, cost, T, B, *params,
+        launch(symbol, xs, us, k, K, lb, ub, tuple(alphas), xs_out, us_out, cost, T, B, *params,
                step_constants(spec.dt), A)
     STATS.launches += 1
     return xs_out, us_out, cost

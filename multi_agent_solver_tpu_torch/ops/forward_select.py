@@ -55,10 +55,14 @@ TPU kernel's ``emit_lin``): the select without the stage-out contract --
 every problem live, every problem re-rolled at its selected alpha (0 where
 none improved) into fresh buffers -- that also returns the linearization
 at the accepted ``(x_t, u_t)`` in K3's layout, through the RK4 step or the
-continuous dynamics, with or without a context.  No solve path calls it;
-its launches are counted on ``EMIT_STATS``.  With AL multipliers it runs
-only as the plain version (the card raises ``NotImplementedError``; the
-JAX package never reaches that combination).
+continuous dynamics, with or without a context, and with or without AL
+multipliers (they enter the select's merit; the stacks are the
+un-augmented cost's).  The card runs it as one kernel, a thread a problem
+that scores the candidates, re-rolls at the kept alpha and linearizes each
+stage with K3's device code; with a context as three (the group select, a
+re-roll of every problem, K3's context mode at the emitted trajectory).
+Its stacks are K3's floats.  No solve path calls it; its calls are
+counted on ``EMIT_STATS``.
 
 The non-fused path calls the kernel through two batch-first wrappers,
 the JAX package's ``forward_select_pallas`` and ``rollout_select``
@@ -316,27 +320,14 @@ def launch_forward_select(spec, xs, us, xT, k, K, merit, active, lb, ub, alphas,
                            (xT, "xT", (nx, B)), (k, "k", (T, nu, B)),
                            (K, "K", (T, nu, nx, B)), (merit, "merit", (B,))):
         check_tensor(t, name, shape, dev)
-    m_eq = m_in = 0
-    if has_al:
-        check_tensor(rho, "rho", (B,), dev)
-        if eq_mult is not None:
-            m_eq = spec.eq_dim
-            check_tensor(eq_mult, "eq_mult", (T, m_eq, B), dev)
-        if ineq_mult is not None:
-            m_in = spec.ineq_dim
-            check_tensor(ineq_mult, "ineq_mult", (T, m_in, B), dev)
+    m_eq, m_in, constraints = _al_inputs(spec, T, B, dev, eq_mult, ineq_mult, rho)
     if lb is not None:
         check_tensor(lb, "lb", (nu, B), dev)
         check_tensor(ub, "ub", (nu, B), dev)
     if active.dtype != torch.bool or tuple(active.shape) != (B,) or active.device != dev \
             or not active.is_contiguous():
         raise ValueError("active: expected a contiguous bool tensor of shape (B,) on the card")
-    if has_al:
-        eq_fn = spec.equality_constraints if eq_mult is not None else no_constraint
-        in_fn = spec.inequality_constraints if ineq_mult is not None else no_constraint
-        symbol, params = _symbol(spec, nx, nu, eq_fn, in_fn)
-    else:
-        symbol, params = _symbol(spec, nx, nu)
+    symbol, params = _symbol(spec, nx, nu, *constraints)
     n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
     merit_new = torch.empty(B, dtype=torch.float32, device=dev)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
@@ -357,9 +348,10 @@ def forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None,
     ``xs [T, nx, B]`` (x_0..x_{T-1}), ``us [T, nu, B]``, ``k``, ``K``,
     ``merit [B]``, ``lb``/``ub [nu, B]`` or both None, the candidates and an
     optional context ``ctx [T, K, C, B]``; the inputs are only read.
-    Returns :func:`forward_select_emit_lin_plain`'s eleven outputs.  AL
-    multipliers (``rho`` with ``eq_mult`` and/or ``ineq_mult``) are taken by
-    the plain version only."""
+    Returns :func:`forward_select_emit_lin_plain`'s eleven outputs.  With
+    AL multipliers (``rho`` with ``eq_mult`` and/or ``ineq_mult``) the
+    select scores the AL merit, as the select mode's AL mode does; the
+    emitted stacks stay the un-augmented cost's."""
     alphas = tuple(float(a) for a in alphas)
     if not 1 <= len(alphas) <= MAX_ALPHAS:
         raise ValueError(f"{len(alphas)} alphas; the kernel takes 1..{MAX_ALPHAS}")
@@ -367,19 +359,22 @@ def forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None,
         raise ValueError("pass both bounds or neither")
     if (rho is None) != (eq_mult is None and ineq_mult is None):
         raise ValueError("the AL mode takes rho with eq_mult and/or ineq_mult")
-    args = (spec, xs, us, k, K, merit, lb, ub, alphas, ctx, bool(discrete))
+    args = (spec, xs, us, k, K, merit, lb, ub, alphas, ctx, bool(discrete), eq_mult, ineq_mult,
+            rho, float(act_tol))
     if xs.device.type == "cpu":
-        return forward_select_emit_lin_plain(*args, eq_mult, ineq_mult, rho, float(act_tol))
-    if rho is not None:
-        raise NotImplementedError(
-            "the select kernel's emit mode with AL multipliers has no CUDA instantiation (the "
-            "JAX package never runs it; ROADMAP queue 2): use CPU tensors for the plain version")
+        return forward_select_emit_lin_plain(*args)
     return launch_forward_select_emit_lin(*args)
 
 
 def launch_forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ctx=None,
-                                   discrete=True):
-    """The CUDA launch of K8 (without AL)."""
+                                   discrete=True, eq_mult=None, ineq_mult=None, rho=None,
+                                   act_tol=1e-6):
+    """The CUDA launch of K8, with or without AL: one kernel a thread a
+    problem, or with a context three on one stream (the group select, the
+    re-roll of every problem, K3's context mode at the emitted
+    trajectory); the instantiation is named by the spec's device functions
+    and, with AL, its constraints' (``NotImplementedError`` names a missing
+    one)."""
     T, nx, B = xs.shape
     nu = us.shape[1]
     dev = xs.device
@@ -389,33 +384,52 @@ def launch_forward_select_emit_lin(spec, xs, us, k, K, merit, lb, ub, alphas, ct
     if lb is not None:
         check_tensor(lb, "lb", (nu, B), dev)
         check_tensor(ub, "ub", (nu, B), dev)
-    symbol, params = problem_symbol("forward_select_emit", nx, nu, spec.dynamics,
-                                    spec.stage_cost, spec.terminal_cost)
+    m_eq, m_in, constraints = _al_inputs(spec, T, B, dev, eq_mult, ineq_mult, rho)
+    symbol, params = _symbol(spec, nx, nu, *constraints, kernel="forward_select_emit")
     n_ctx = check_context(ctx, spec.stage_cost, T, nx, B, dev)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     xs_new, us_new = empty(T, nx, B), empty(T, nu, B)
     merit_new = empty(B)
+    # The group select's kept alphas, read by the re-roll launch (with a context).
+    kept = empty(B) if ctx is not None else None
     accept = torch.empty(B, dtype=torch.bool, device=dev)
     lin = (empty(T, nx, nx, B), empty(T, nx, nu, B), empty(T, nx, B), empty(T, nu, B),
            empty(T, nx, nx, B), empty(T, nu, nu, B), empty(T, nu, nx, B))
     with torch.cuda.device(dev):
-        launch(symbol, xs, us, k, K, merit, lb, ub, merit_new, accept, ctx, T, B, n_ctx, nx,
-               int(discrete), *params, step_constants(spec.dt), alphas, len(alphas), xs_new,
-               us_new, *lin)
+        launch(symbol, xs, us, k, K, merit, lb, ub, merit_new, accept, kept, ctx, eq_mult,
+               ineq_mult, rho, act_tol, T, B, n_ctx, nx, m_eq, m_in, int(discrete), *params,
+               step_constants(spec.dt), alphas, len(alphas), xs_new, us_new, *lin)
     EMIT_STATS.launches += 1
     return (xs_new, us_new, merit_new, accept) + lin
 
 
-def _symbol(spec, nx, nu, *constraints):
-    """Symbol and parameters of the instantiation for the spec's device
-    functions; the non-AL instantiations carry ``no_constraint`` on both
-    sides without naming them."""
-    symbol, params = problem_symbol("forward_select", nx, nu, spec.dynamics, spec.stage_cost,
+def _al_inputs(spec, T, B, dev, eq_mult, ineq_mult, rho):
+    """``(m_eq, m_in, constraints)`` of a launch: the checked multipliers'
+    row counts, and with ``rho`` the two constraint sides' callables for
+    :func:`_symbol` (``no_constraint`` for an absent side), else ``()``."""
+    if rho is None:
+        return 0, 0, ()
+    check_tensor(rho, "rho", (B,), dev)
+    m_eq = m_in = 0
+    if eq_mult is not None:
+        m_eq = spec.eq_dim
+        check_tensor(eq_mult, "eq_mult", (T, m_eq, B), dev)
+    if ineq_mult is not None:
+        m_in = spec.ineq_dim
+        check_tensor(ineq_mult, "ineq_mult", (T, m_in, B), dev)
+    return m_eq, m_in, (spec.equality_constraints if eq_mult is not None else no_constraint,
+                        spec.inequality_constraints if ineq_mult is not None else no_constraint)
+
+
+def _symbol(spec, nx, nu, *constraints, kernel="forward_select"):
+    """Symbol and parameters of ``kernel``'s instantiation for the spec's
+    device functions; the non-AL instantiations carry ``no_constraint`` on
+    both sides without naming them."""
+    symbol, params = problem_symbol(kernel, nx, nu, spec.dynamics, spec.stage_cost,
                                     spec.terminal_cost, *constraints)
     if not constraints:
         params = params + [(), ()]
     return symbol, params
-
 
 
 def _bounds(spec, B: int):

@@ -20,15 +20,17 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __maxnreg__(...)
 #define __shared__ static
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
 
-struct mas_idx {
-  unsigned x = 0, y = 0, z = 0;
+struct dim3 {
+  unsigned x, y, z;
+  constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-inline thread_local mas_idx threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 // One warp: its live lanes' barrier and the slots they exchange through.
 struct mas_warp {
@@ -41,7 +43,9 @@ struct mas_warp {
 };
 inline thread_local mas_warp* mas_cur_warp = nullptr;
 
-inline unsigned mas_lane() { return threadIdx.x & 31u; }
+// The calling thread's index in its block, x fastest.
+inline thread_local unsigned mas_tid = 0;
+inline unsigned mas_lane() { return mas_tid & 31u; }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { mas_cur_warp->bar.arrive_and_wait(); }
 
@@ -81,24 +85,32 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 
-// Run `fn` on grid x block threads, one block at a time; a thread that
-// returns leaves its warp's barrier.
-inline void mas_launch(long long grid, long long block, const std::function<void()>& fn) {
-  for (long long g = 0; g < grid; ++g) {
-    std::vector<std::unique_ptr<mas_warp>> warps;
-    for (long long w = 0; w * 32 < block; ++w)
-      warps.emplace_back(new mas_warp(static_cast<int>(std::min<long long>(32, block - w * 32))));
-    std::vector<std::thread> threads;
-    for (long long t = 0; t < block; ++t)
-      threads.emplace_back([&, g, t] {
-        threadIdx.x = static_cast<unsigned>(t);
-        blockIdx.x = static_cast<unsigned>(g);
-        blockDim.x = static_cast<unsigned>(block);
-        mas_cur_warp = warps[t / 32].get();
-        fn();
-        mas_cur_warp->alive[t & 31] = false;
-        mas_cur_warp->bar.arrive_and_drop();
-      });
-    for (auto& t : threads) t.join();
-  }
+// Run `fn` on the grid's blocks, one block at a time, each on its block's
+// threads (x fastest; warps of 32 consecutive threads in that order); a
+// thread that returns leaves its warp's barrier.
+inline void mas_launch(dim3 grid, dim3 block, const std::function<void()>& fn) {
+  const long long n = static_cast<long long>(block.x) * block.y * block.z;
+  for (unsigned gz = 0; gz < grid.z; ++gz)
+    for (unsigned gy = 0; gy < grid.y; ++gy)
+      for (unsigned gx = 0; gx < grid.x; ++gx) {
+        std::vector<std::unique_ptr<mas_warp>> warps;
+        for (long long w = 0; w * 32 < n; ++w)
+          warps.emplace_back(new mas_warp(static_cast<int>(std::min<long long>(32, n - w * 32))));
+        std::vector<std::thread> threads;
+        for (long long t = 0; t < n; ++t)
+          threads.emplace_back([&, gx, gy, gz, t] {
+            threadIdx = dim3(static_cast<unsigned>(t % block.x),
+                             static_cast<unsigned>(t / block.x % block.y),
+                             static_cast<unsigned>(t / (static_cast<long long>(block.x) * block.y)));
+            mas_tid = static_cast<unsigned>(t);
+            blockIdx = dim3(gx, gy, gz);
+            blockDim = block;
+            gridDim = grid;
+            mas_cur_warp = warps[t / 32].get();
+            fn();
+            mas_cur_warp->alive[t & 31] = false;
+            mas_cur_warp->bar.arrive_and_drop();
+          });
+        for (auto& t : threads) t.join();
+      }
 }

@@ -184,14 +184,15 @@ def test_unported_branches_raise(case):
     elif case == "assoc":
         kwargs = {"backward": "assoc"}
     else:
-        # AL with a context solves now (tests/test_torch_al_coupled.py);
-        # what stays unported of it is the select kernel's emit mode (K8)
-        # with AL multipliers off the CPU.
+        # AL with a context solves now (tests/test_torch_al_coupled.py), and
+        # the select kernel's emit mode (K8) takes AL multipliers on the
+        # card; off the CPU it still raises, before any launch, for a cost
+        # that has no device function, naming what is missing.
         specs = _context_specs().replace(ineq_dim=1, inequality_constraints=entry.SPEED_CAP)
         T, B = specs.horizon_steps, 2
         args = [torch.zeros(shape, device="meta") for shape in
                 ((T, 4, B), (T, 2, B), (T, 2, B), (T, 2, 4, B), (B,))]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=r"\['cost'\] carry no device-function tag"):
             k2.forward_select_emit_lin(specs, *args, None, None, (1.0,),
                                        torch.zeros((T, 1, 1, B), device="meta"),
                                        ineq_mult=torch.zeros((T, 1, B), device="meta"),

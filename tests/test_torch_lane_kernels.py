@@ -108,12 +108,16 @@ def _ring_inputs(seed):
     return tuple(a.astype(np.float32) for a in (x, u, k, Kg, ctx))
 
 
-@pytest.mark.parametrize("case", ["lane discrete", "lane continuous", "context discrete"])
+@pytest.mark.parametrize("case", ["lane discrete", "lane continuous", "context discrete",
+                                  "lane AL discrete"])
 def test_emit_lin_plain_matches_pallas(lane_specs, case):
     """K8: the select outputs and the seven linearization stacks at the
     accepted trajectory agree with the Pallas kernel's ``emit_lin`` mode,
-    in both Jacobian modes and with a context."""
+    in both Jacobian modes, with a context, and with AL multipliers on the
+    speed cap (``entry.SPEED_CAP``, speeds about the cap) -- which the
+    select's merit takes and the stacks do not."""
     discrete = case.endswith("discrete")
+    al = {}
     if case.startswith("context"):
         jspec, tspec = _coupled_specs()
         x, u, k, Kg, ctx = _ring_inputs(31)
@@ -122,21 +126,34 @@ def test_emit_lin_plain_matches_pallas(lane_specs, case):
         jspec, tspec = lane_specs
         (x, u, k, Kg), ctx = _lane_inputs(30), None
         bound, tol = 1.0, TOL
+    if "AL" in case:
+        jspec = jspec.replace(inequality_constraints=lambda x, u: jnp.array([x[3] - 4.5]),
+                              ineq_dim=1)
+        tspec = tspec.replace(inequality_constraints=entry.SPEED_CAP, ineq_dim=1)
+        x = x.copy()
+        x[:, 3] += 3.0
+        arng = np.random.RandomState(35)
+        mult = (arng.uniform(0, 3, (T, 1, B)) * (arng.uniform(size=(T, 1, B)) < 0.7))
+        al = dict(ineq_mult=mult.astype(np.float32),
+                  rho=(10.0 ** arng.uniform(0, 3, B)).astype(np.float32))
     tctx = None if ctx is None else torch.as_tensor(ctx)
     _, cost0 = k2.rollout_cost_plain(tspec, torch.as_tensor(x[0]), torch.as_tensor(u), tctx)
     rng = np.random.RandomState(32)
-    merit = (cost0.numpy() * rng.uniform(0.8, 1.2, B)).astype(np.float32)
+    merit = (cost0.numpy() * rng.uniform(*((0.9, 1.4) if al else (0.8, 1.2)), B)).astype(np.float32)
     lb = np.stack([np.full(B, -0.5 if ctx is not None else -0.7, np.float32),
                    np.full(B, -bound, np.float32)])
     ub = -lb
     want = forward_select_pallas_tiled(
         jspec, _lanes(x), _lanes(u), _lanes(k), _lanes(Kg), _lanes(merit), _lanes(lb),
-        _lanes(ub), LADDER, True, ctx_l=None if ctx is None else _lanes(ctx), emit_lin=True,
+        _lanes(ub), LADDER, True, ctx_l=None if ctx is None else _lanes(ctx),
+        ineq_mult_l=_lanes(al["ineq_mult"]) if al else None,
+        rho_l=_lanes(al["rho"]) if al else None, act_tol=1e-3, emit_lin=True,
         lin_discrete=discrete)
     k2.EMIT_STATS.reset()
     got = k2.forward_select_emit_lin(tspec, *(torch.as_tensor(a) for a in (x, u, k, Kg, merit)),
                                      torch.as_tensor(lb), torch.as_tensor(ub), LADDER, tctx,
-                                     discrete)
+                                     discrete, act_tol=1e-3,
+                                     **{n: torch.as_tensor(a) for n, a in al.items()})
     assert (k2.EMIT_STATS.plain_calls, k2.EMIT_STATS.launches) == (1, 0)
     assert len(got) == len(want) == 11
     accept = _unlanes(want[3]) > 0.5
@@ -155,9 +172,8 @@ def test_emit_lin_plain_matches_pallas(lane_specs, case):
 
 
 def test_emit_lin_takes_al_only_as_the_plain_version(lane_specs):
-    """K8 with AL multipliers: the plain version adds the AL terms to the
-    merit (the emitted stacks stay the un-augmented cost's); off the CPU it
-    raises NotImplementedError before any launch."""
+    """K8 with AL multipliers, the plain version: the AL terms enter the
+    merit, and the emitted stacks stay the un-augmented cost's."""
     _, tspec = lane_specs
     spec = tspec.replace(inequality_constraints=entry.SPEED_CAP, ineq_dim=1)
     x, u, k, Kg = (torch.as_tensor(a) for a in _lane_inputs(33))
@@ -169,10 +185,6 @@ def test_emit_lin_takes_al_only_as_the_plain_version(lane_specs):
     assert bool(plain[3].all()) and torch.equal(plain[0], free[0])
     for g, w in zip(plain[4:], free[4:]):
         assert torch.equal(g, w)
-    meta = [a.to("meta") for a in (x, u, k, Kg, merit, mult, rho)]
-    with pytest.raises(NotImplementedError, match="emit mode with AL"):
-        k2.forward_select_emit_lin(spec, *meta[:5], None, None, LADDER, ineq_mult=meta[5],
-                                   rho=meta[6])
 
 
 @pytest.mark.parametrize("bounded", [True, False])
