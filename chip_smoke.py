@@ -18,7 +18,9 @@ explicit-terminal mode and K7, the continuous Jacobian modes of K1 and
 K3, the single-problem ``solve(ocp)``, the coupled game of constrained
 agents (K6 in AL and context mode at once), and the kernels that no
 solve path runs: K8 (the select kernel's emit mode), K9 (the all-alpha
-forward pass) and K10 (the terminal derivatives).
+forward pass) and K10 (the terminal derivatives); then the closed-loop
+fleet (``mpc.run_mpc_batched``), the cart-pole on the kernels and the
+coupled game in closed loop (``mpc.run_mpc_nash``).
 
 Phases, each reported on its own lines:
 
@@ -99,7 +101,8 @@ and, run after phase 5 and before 6 and 7, in this order:
    versions at 4,096; the equality configuration (``entry.equality_specs``)
    at 4,096, kernels against plain versions, with its equality violation;
    launch counts per solve;
-18. solves/s of the state-bound configuration at 262,144 (median of 5),
+18. solves/s of the state-bound configuration at 262,144 (median of 3:
+   a call slower than SLOW_CALL_S is timed SLOW_TIMED times, others 5),
    K6-AL's ms per launch at 3 and 10 candidates with its plain ms and
    bound, the redesigned K6-AL on both yardsticks, and its digests (both side sets, al_inputs' and rung_inputs'), which must be
    the parent's; the per-iteration time of the AL torch glue beside the
@@ -125,7 +128,8 @@ and, run after phase 5 and before 6 and 7, in this order:
    through ``make_solver("ilqr", ...).solve(ocp)`` in float64 on the
    reference's costs and in float32 on the JAX package's; launch counts
    per solve;
-21. solves/s of each of those routes (median of 5), K4 explicit, K7, K3
+21. solves/s of each of those routes (median of 5, or 3 for a route
+   slower than SLOW_CALL_S a call), K4 explicit, K7, K3
    and K1 continuous per launch with their plain ms and bounds, the
    non-fused glue per iteration by part, and the single solve's wall ms
    in float32 and float64; the redesigned K7 in both modes and K1 in the
@@ -157,6 +161,27 @@ and, run after phase 5 and before 6 and 7, in this order:
    K8, K9 (A = 3 and 10) and
    K10 per launch at B = 262,144, T = 80 (phase 22's rows), with plain ms
    and bounds;
+25. the closed-loop fleet of ``examples/single_track_mpc.py``:
+   ``run_mpc_batched`` on 262,144 lane-follow controllers (T = 80, 20
+   steps, 5 iterations a step), controller-steps/s, the median ms of a
+   step, the largest final |lateral error|, the launch counts (K1 = K2 =
+   the steps' iterations, K2r = K3h = the steps) and at most one
+   cost-structure probe in the loop; its first 2,048 lanes against the same
+   loop through the plain versions over 5 steps; ``run_mpc`` through the
+   single solve for 3 steps;
+26. the cart-pole: its instantiations (K2's rollout and select, K3 with
+   and without Hessians in both Jacobian modes, its hoist, K7, K4 with the
+   cart-pole's terminal cost, clamp and boxqp; K4 explicit at (4, 1) in
+   phase 19) against their plain versions at 1,024 problems; the fused
+   general branch at 262,144 (T = 60, 30 iterations), its launch counts,
+   solves/s of 3 warm calls (no probe) and each kernel's ms per launch
+   with its bound; ``multistart_solve`` of the swing-up with 1,024 starts
+   at the example's 300 iterations; the non-fused route (K4 explicit at
+   (4, 1)) at 4,096; an untagged stage cost down the router's untagged
+   route;
+27. the coupled game in closed loop (``run_mpc_nash``, 64 cars, 10 steps of
+   10 sweeps): agent-steps/s, launch counts, at most one probe; an 8-car
+   ring (3 nearest) over 3 steps of 3 sweeps against the plain versions;
 6. one JSON line listing every ported kernel (K1-K10, K2's rollout
    kernel, K3's hoist mode, K6's AL mode and its AL and context mode, K4's
    explicit-terminal mode and the continuous modes of K1 and K3; K6's
@@ -190,6 +215,9 @@ ANCHORS = {"median": (157.19426, 1e-4), "p99": (436.50748, 1e-3), "max": (499.59
 MAIN_BATCH, BENCH_BATCH = 262_144, 524_288
 CHECK_BATCH, E2E_BATCH, T = 8192, 4096, 80
 TIMED_SOLVES = 5
+# A route whose warm-up call takes SLOW_CALL_S or more (host-bound, its
+# spread small against its length) is timed over SLOW_TIMED calls.
+SLOW_CALL_S, SLOW_TIMED = 1.0, 3
 # Circular-track sweep: (agents, scenarios) of scripts/bench_multi_agent.py's
 # largest row, and the scenario count that fills the card.
 SWEEP_SMALL, SWEEP_BIG = (256, 16), (256, 1024)
@@ -323,13 +351,14 @@ REDESIGNED_KERNELS = {"forward_select_group_kernel": REDESIGNED,
 # one-thread kernel on the batch tiled to ONE_THREAD_CHECK_B problems
 # (the plain versions solve problem by problem, so tiled gains are theirs).
 GROUP_CHECK_B, ONE_THREAD_CHECK_B = (61, 1001), 5 * CHECK_BATCH
-# Phase 19 checks K4's explicit mode at T = 80, clamp and boxqp, at the
-# (nx, nu) that the non-fused routes run, EXPLICIT_PATH_DIMS, and at the
-# other instantiated (nx, nu) over EXPLICIT_CHECK_T stages: the plain
-# version walks the stages in torch calls (under boxqp K5's 3^nu
-# configurations a stage), and at T = 80 the wider ones made the phase
-# 321 s on an H100 machine, against 51 s over 20 stages.
-EXPLICIT_CHECK_T, EXPLICIT_PATH_DIMS = 20, (4, 2)
+# Phase 19 checks K4's explicit mode, clamp and boxqp, at every
+# instantiated (nx, nu) over EXPLICIT_CHECK_T stages: the plain version
+# walks the stages in torch calls (under boxqp K5's 3^nu configurations a
+# stage), and at T = 80 the wider ones made the phase 321 s on an H100
+# machine, against 51 s over 20 stages; (4, 2) at T = 80 cost 68 s more,
+# which the script's time limit no longer leaves (the non-fused routes of
+# phase 20 run it at T = 80 against the fused solve).
+EXPLICIT_CHECK_T = 20
 # The digests of the outputs of the kernels that the redesigned ones
 # replaced, on redesigned_calls' inputs (K2: the timed inputs, then
 # rung_inputs'; K6-AL: al_inputs' and rung_inputs', each with the
@@ -462,7 +491,14 @@ LANE_ROWS = ("K8", "K8_continuous", "K9_A3", "K9_A10", "K10")
 QUAD_TERMINAL = ((2.0, 3.0, 0.5, 1.5), (1.0, -0.5, 0.2, 1.0))
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str = "") -> None:
+    """Print and keep ``msg``; a phase's header (``[n] ...``) gains the
+    seconds since the script started, so the log shows each phase's time."""
+    if msg.startswith("["):
+        msg = f"{msg}  (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
     with open(LOG_PATH, "a") as f:
         f.write(msg + "\n")
@@ -553,7 +589,7 @@ def digest(tensors):
     for t in tensors:
         flat = t.detach().contiguous().view(-1)
         for i in range(0, flat.numel(), 1 << 26):
-            h.update(flat[i:i + (1 << 26)].cpu().numpy().tobytes())
+            h.update(flat[i:i + (1 << 26)].cpu().numpy())
     return h.hexdigest()[:16]
 
 
@@ -2362,7 +2398,9 @@ def random_riccati_stacks(nx, nu, B, seed, horizon=T):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     n = lambda *s: torch.randn(s, generator=g, device=DEVICE)
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=g, device=DEVICE)
-    R = torch.linalg.qr(n(B, T, nu, nu))[0]
+    # The QR on the host: the card's batched QR loops over the B T
+    # matrices, ~8 s a call here.
+    R = torch.linalg.qr(n(B, T, nu, nu).cpu())[0].to(DEVICE)
     lam = u(0.5, 2.0, B, T, nu)
     lam[..., 0] = torch.where(u(0.0, 1.0, B, T) < 0.5, u(-0.8, -0.3, B, T), lam[..., 0])
     Lx, V = n(B, T, nx, nx), n(B, nx, nx)
@@ -2375,8 +2413,7 @@ def random_riccati_stacks(nx, nu, B, seed, horizon=T):
 
 def check_nonfused_kernels(spec):
     """Phase 19: K4's explicit-terminal mode (each instantiated (nx, nu),
-    clamp and boxqp, at T = T at EXPLICIT_PATH_DIMS, over EXPLICIT_CHECK_T
-    stages at the others), K7 in both Jacobian
+    clamp and boxqp, over EXPLICIT_CHECK_T stages), K7 in both Jacobian
     modes, and K3 (with and without Hessians) and K1 in the continuous mode,
     against their plain versions at B = CHECK_BATCH, T = T."""
     import torch
@@ -2393,11 +2430,12 @@ def check_nonfused_kernels(spec):
             a, r = errs.get(kernel, (0.0, 0.0))
             errs[kernel] = (max(a, max_abs), max(r, max_rel))
 
-    log(f"[19] K4 explicit (T={T} at {EXPLICIT_PATH_DIMS}, T={EXPLICIT_CHECK_T} at the other "
-        f"(nx, nu)), K7, K3 / K1 continuous against their plain versions, B={B}, T={T}")
+    log(f"[19] K4 explicit (T={EXPLICIT_CHECK_T} at each (nx, nu)), K7, K3 / K1 continuous "
+        f"against their plain versions, B={B}, T={T}")
     for nx, nu in k1.EXPLICIT_DIMS:
         for boxqp in (False, True):
-            horizon = T if (nx, nu) == EXPLICIT_PATH_DIMS else EXPLICIT_CHECK_T
+            horizon = EXPLICIT_CHECK_T
+            t_case = time.perf_counter()
             stacks, box, indefinite = random_riccati_stacks(nx, nu, B, seed=19 * nx + nu,
                                                             horizon=horizon)
             bounds = box if boxqp else (None, None)
@@ -2417,7 +2455,9 @@ def check_nonfused_kernels(spec):
                 results += [compare(f"{tag} B={n} k", k_g, k_w, 1e-4, 1e-5),
                             compare(f"{tag} B={n} K", K_g, K_w, 1e-4, 1e-5)]
             record("K4x", results)
+            log(f"  {tag}: {time.perf_counter() - t_case:.1f} s")
             del stacks, box
+    t_rest = time.perf_counter()
     x0, us, _, _, _ = main_path_inputs(spec, B, seed=20)
     xs_tail, _ = k2.rollout_cost_plain(spec, x0, us)
     xs = torch.cat([x0[None], xs_tail[:-1]], 0).contiguous()
@@ -2451,6 +2491,7 @@ def check_nonfused_kernels(spec):
         log(f"  K7 {mode} against K3 transposed: {'bit for bit' if same else 'DIFFERENT'}")
         record("K7", [(same, 0.0, 0.0)])
     torch.cuda.synchronize()
+    log(f"  K3 / K1 continuous and K7: {time.perf_counter() - t_rest:.1f} s")
     if not ok:
         fail("a kernel disagrees with its plain version (phase 19)")
     return errs
@@ -2594,17 +2635,26 @@ def nonfused_routes(ilqr, entry, stats):
     return paths
 
 
-def time_route(ilqr, specs, config, kwargs, label):
-    """Median of TIMED_SOLVES warm solves (CUDA events) and the iterations."""
+def warm_up(fn):
+    """Run ``fn()`` once, synchronized; the number of calls to time after it:
+    TIMED_SOLVES, or SLOW_TIMED when it took SLOW_CALL_S or more."""
     import torch
-    ilqr.solve_ilqr_batched(specs, config, device=DEVICE, **kwargs)
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
+    return TIMED_SOLVES if time.perf_counter() - t0 < SLOW_CALL_S else SLOW_TIMED
+
+
+def time_route(ilqr, specs, config, kwargs, label):
+    """Median of the warm solves (CUDA events; warm_up's count) and the
+    iterations."""
     out = {}
 
     def solve():
         out["r"] = ilqr.solve_ilqr_batched(specs, config, device=DEVICE, **kwargs)
 
-    times = [t / 1e3 for t in event_times(solve, TIMED_SOLVES)]
+    reps = warm_up(solve)
+    times = [t / 1e3 for t in event_times(solve, reps)]
     med = float(np.median(times))
     B = specs.initial_state.shape[0]
     it = int(out["r"].iterations[0])
@@ -3531,33 +3581,40 @@ def solve_and_check(ilqr, entry, stats, config=None, want_of=None, what="main pa
 
 
 def time_solves(ilqr, entry, B, config=None, specs=None, label="solves"):
-    """Phase 5b: median wall time of TIMED_SOLVES warm solves (CUDA events)."""
+    """Phase 5b: median wall time of the warm solves (CUDA events;
+    warm_up's count)."""
     import torch
     config = config or entry.BENCH_CONFIG
     specs = specs if specs is not None else entry.bench_specs(B, device=DEVICE)
-    ilqr.solve_ilqr_batched(specs, config, device=DEVICE)   # warm-up
-    torch.cuda.synchronize()
     result = {}
 
     def solve():
         result["r"] = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
 
-    times = [t / 1e3 for t in event_times(solve, TIMED_SOLVES)]
+    reps = warm_up(solve)
+    # The warm calls find the cost structure in the probe cache: none probes.
+    ilqr.PROBE_STATS.reset()
+    times = [t / 1e3 for t in event_times(solve, reps)]
+    probes, hits = ilqr.PROBE_STATS.probes, ilqr.PROBE_STATS.hits
     r = result["r"]
     med = float(np.median(times))
     log(f"  B={B}: solve times {[round(t, 6) for t in times]} s, median {med:.6f} s, "
-        f"{B / med:.1f} {label}/s, iterations {int(r.iterations[0])}")
-    # Host time of the solver's per-call cost-structure probe (tiny
-    # torch.func evaluations and device-to-host copies), one part of the
-    # solve time spent outside the kernels.
+        f"{B / med:.1f} {label}/s, iterations {int(r.iterations[0])}; cost-structure probes "
+        f"{probes}, cache hits {hits} in the timed calls")
+    if probes:
+        fail(f"B={B}: the warm calls probed the cost structure {probes} times")
+    # Host time of the probe that the cache saves a warm call (tiny
+    # torch.func evaluations and device-to-host copies), and of the cached
+    # lookup that replaces it.
     one = specs.replace(initial_state=specs.initial_state[0],
                         initial_controls=specs.initial_controls[0])
-    t0 = time.perf_counter()
-    for _ in range(TIMED_SOLVES):
-        ilqr.resolve_cost_structure(one, config)
-    torch.cuda.synchronize()
-    log(f"  B={B}: cost-structure probe {(time.perf_counter() - t0) / TIMED_SOLVES * 1e3:.3f} ms "
-        f"host time per solve")
+    for name, fn in (("cost-structure probe", ilqr.probe_cost_structure),
+                     ("cached lookup", lambda s: ilqr.resolve_cost_structure(s, config))):
+        t0 = time.perf_counter()
+        for _ in range(TIMED_SOLVES):
+            fn(one)
+        torch.cuda.synchronize()
+        log(f"  B={B}: {name} {(time.perf_counter() - t0) / TIMED_SOLVES * 1e3:.3f} ms host time")
     return B / med
 
 
@@ -3640,6 +3697,473 @@ def time_kernels(spec, B, with_plain, hoist_ops):
     return ms, plain, bound
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-27: the closed-loop fleet (mpc.run_mpc_batched), the cart-pole on
+# the kernels, and the closed-loop Nash game (mpc.run_mpc_nash).
+# ---------------------------------------------------------------------------
+
+# Phase 25: the fleet's steps; its first FLEET_CHECK_B lanes (closed-loop
+# lanes are independent) held to the same loop through the plain versions
+# on those lanes alone over FLEET_CHECK_STEPS steps, states and controls to
+# FLEET_ATOL, the solver costs to FLEET_COST_RTOL; the single problem's
+# loop through the single solve over SINGLE_MPC_STEPS steps.
+FLEET_STEPS, FLEET_CHECK_B, FLEET_CHECK_STEPS, SINGLE_MPC_STEPS = 20, 2048, 5, 3
+FLEET_ATOL, FLEET_COST_RTOL = 1e-3, 1e-4
+# Phase 26: the cart-pole's horizon, its warm timed calls, the batch of its
+# kernel checks, the multi-start's starts and the non-fused route's batch.
+CART_T, CART_TIMED, CART_CHECK_B, MULTISTART_N, CART_NONFUSED_B = 60, 3, 1024, 1024, 4096
+# The cart-pole's float32 operations, counted from its device functions
+# (csrc/problems.cuh; sin and cos one operation each): f 24, an RK4 step
+# 4 f + 52, the stage cost 16, a control with its clamp 16; K3 with
+# Hessians the RK4 step and the cost in Dual<float, 5> (about 11 operations
+# a value operation) and the cost in Dual<Dual<float, 5>, 5> (about 121);
+# without Hessians the first-order pass alone.  K4's stage is counted as
+# the (4, 2) stage core, OPS_STAGE_CORE, more than (4, 1) needs: its bytes
+# bind at either count.
+OPS_CP_RK4, OPS_CP_COST, OPS_CP_CONTROL = 148, 16, 16
+OPS_CP_K3_NOHESS = (OPS_CP_RK4 + OPS_CP_COST) * 11
+OPS_CP_K3 = OPS_CP_K3_NOHESS + OPS_CP_COST * 121
+# Phase 27: the closed-loop game (cars, steps) and its check against the
+# plain versions (cars, nearest neighbours, steps, sweeps a step: the plain
+# versions take ~8 s a step of 10 sweeps), states and controls to
+# GAME_MPC_ATOL, the per-step costs to GAME_MPC_RTOL.
+GAME_MPC, GAME_MPC_CHECK, GAME_MPC_ATOL, GAME_MPC_RTOL = (64, 10), (8, 3, 3, 3), 1e-3, 1e-4
+
+
+def first_lanes(specs, n):
+    """The first ``n`` problems of batched ``specs``: every tensor leaf with
+    the batch axis cut."""
+    import dataclasses
+    import torch
+    B = specs.initial_state.shape[0]
+    leaves = {f.name: getattr(specs, f.name) for f in dataclasses.fields(specs)}
+    return specs.replace(**{k: v[:n] for k, v in leaves.items()
+                            if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == B})
+
+
+def check_trace(got, want, what, atol, cost_rtol):
+    """Kernel-run trace ``got`` against plain-run trace ``want`` (the same
+    steps and lanes): states and controls to ``atol``, costs to
+    ``cost_rtol``."""
+    results = [compare(f"{what} states", got.states, want.states, 0.0, atol),
+               compare(f"{what} controls", got.controls, want.controls, 0.0, atol),
+               compare(f"{what} costs", got.costs, want.costs, cost_rtol, 0.0)]
+    if not all(r[0] for r in results):
+        fail(f"{what}: the loop through the kernels disagrees with the plain versions")
+    return max(r[1] for r in results), max(r[2] for r in results)
+
+
+def cartpole_keys(cart, key):
+    """A kernel row's cart-pole keys: its launches in the fused general
+    branch at MAIN_BATCH, its ms per launch and bound there, and its error
+    against the plain version (phase 26)."""
+    out = {"launches_cartpole": cart["launches"][key],
+           "max_abs_err_cartpole": cart["errs"][key][0],
+           "max_rel_err_cartpole": cart["errs"][key][1], "ms_cartpole": cart["ms"][key],
+           **bound_keys(cart["bound"][key], "_cartpole")}
+    return out
+
+
+def fleet_mpc(entry, ilqr, stats, card):
+    """Phase 25: the fleet of ``examples/single_track_mpc.py`` in closed loop
+    at the main path's width, its launch counts and probes, its first lanes
+    against the plain versions, and the single problem's loop."""
+    import torch
+    from multi_agent_solver_tpu_torch.examples import single_track_mpc
+    from multi_agent_solver_tpu_torch.mpc import run_mpc_batched
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    t_phase = time.perf_counter()
+    B, N = MAIN_BATCH, FLEET_STEPS
+    log(f"[25] fleet MPC: run_mpc_batched, {B} lane-follow controllers (y0 linspace(0.5, 1.5)), "
+        f"T={T}, {N} steps, {entry.FLEET_PARAMS}, card {card}")
+    specs = entry.fleet_specs(B, device=DEVICE)
+    solver = make_solver("ilqr", entry.FLEET_PARAMS, device=DEVICE)
+    events = []
+
+    def solve(s):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = solver._solve_batched_fn(s, solver.config)
+        end.record()
+        events.append((start, end))
+        return result
+
+    reset_counts(stats)
+    ilqr.PROBE_STATS.reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    trace = run_mpc_batched(specs, solve, N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = read_counts(stats)
+    probes, hits = ilqr.PROBE_STATS.probes, ilqr.PROBE_STATS.hits
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    its = [int(i) for i in trace.iterations[:, 0].cpu()]
+    if (trace.states.shape != (N + 1, B, 4) or trace.controls.shape != (N, B, 2)
+            or trace.costs.shape != (N, B)):
+        fail(f"fleet MPC: trace shapes {tuple(trace.states.shape)} {tuple(trace.controls.shape)}")
+    if not (torch.isfinite(trace.states).all() and torch.isfinite(trace.costs).all()):
+        fail("fleet MPC: non-finite states or costs")
+    lateral = float(trace.states[-1, :, 1].abs().max())
+    log(f"  {B * N / wall:.1f} controller-steps/s ({wall:.3f} s for {N} steps); solve ms a step "
+        f"median {float(np.median(step_ms)):.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
+        f"iterations a step {its}; largest |lateral error| {float(trace.states[0, :, 1].abs().max())} "
+        f"-> {lateral} after {N} steps; card {card}")
+    log(f"  cost-structure probes {probes}, cache hits {hits} in the {N} steps")
+    if probes > 1:
+        fail(f"fleet MPC: {probes} cost-structure probes in one closed loop")
+    check_counts(launches, {"K1": sum(its), "K2": sum(its), "K2r": N, "K3h": N}, "fleet MPC")
+
+    n, M = FLEET_CHECK_B, FLEET_CHECK_STEPS
+    log(f"[25] the first {n} lanes over {M} steps: kernels (the run above) vs plain versions")
+    plain = make_solver("ilqr", entry.FLEET_PARAMS, device=DEVICE)
+    plain.ops = ilqr.PLAIN_OPS
+    p0 = time.perf_counter()
+    ref = run_mpc_batched(first_lanes(specs, n),
+                          lambda s: plain._solve_batched_fn(s, plain.config), M)
+    cut = trace._replace(states=trace.states[:M + 1, :n], controls=trace.controls[:M, :n],
+                         costs=trace.costs[:M, :n])
+    err = check_trace(cut, ref, "fleet", FLEET_ATOL, FLEET_COST_RTOL)
+    log(f"  plain loop {time.perf_counter() - p0:.1f} s")
+
+    log(f"[25] the single problem's loop: run_mpc through the single solve, {SINGLE_MPC_STEPS} steps")
+    s0 = time.perf_counter()
+    one = single_track_mpc.run_fleet(1, SINGLE_MPC_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    if one.states.shape != (SINGLE_MPC_STEPS + 1, 4) or not torch.isfinite(one.states).all():
+        fail(f"run_mpc: states {tuple(one.states.shape)}, finite {bool(torch.isfinite(one.states).all())}")
+    log(f"  {time.perf_counter() - s0:.3f} s; costs {one.costs.cpu().tolist()}, iterations "
+        f"{one.iterations.cpu().tolist()}, y {one.states[:, 1].cpu().tolist()}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 25: {seconds:.1f} s, card {card}")
+    return {"launches": launches, "steps_per_s": B * N / wall, "step_ms": float(np.median(step_ms)),
+            "lateral": lateral, "probes": probes, "hits": hits, "err": err, "seconds": seconds}
+
+
+def cartpole_inputs(spec, B, seed):
+    """Seeded cart-pole inputs batch innermost: x0 [4, B] (the pole at any
+    angle), controls [CART_T, 1, B] in the force box, the rollout
+    x_0..x_{T-1} [T, 4, B] and x_T through the plain rollout, its cost."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    rng = np.random.RandomState(seed)
+    x0 = np.stack([rng.uniform(-1, 1, B), rng.uniform(0, 2 * np.pi, B), rng.uniform(-1, 1, B),
+                   rng.uniform(-2, 2, B)]).astype(np.float32)
+    x0 = torch.as_tensor(x0, device=DEVICE)
+    us = torch.as_tensor(rng.uniform(-12, 12, (CART_T, 1, B)).astype(np.float32), device=DEVICE)
+    tail, cost = k2.rollout_cost_plain(spec, x0, us)
+    return x0, us, torch.cat([x0[None], tail[:-1]], 0).contiguous(), tail[-1].contiguous(), cost
+
+
+def check_cartpole_kernels(spec, stats):
+    """Phase 26a: the cart-pole's instantiations against their plain versions
+    at CART_CHECK_B problems, T = CART_T: K2's rollout (rtol 1e-5) and its
+    select at the reference ladder (phase 3's tolerances); K3 with and
+    without Hessians in both Jacobian modes, its hoist (also K3's Hessians
+    bit for bit) and K7 (rtol 1e-5 with a floor of 1e-5 of each output's
+    scale, as phase 13); K4 with the cart-pole's terminal cost in the
+    kernel, clamp and boxqp, on regularized stages (phase 8's tolerances).
+    K4's explicit mode at (4, 1) is checked with the other (nx, nu) in
+    phase 19."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B = CART_CHECK_B
+    x0, us, xs, xT, cost = cartpole_inputs(spec, B, seed=26)
+    errs, ok = {}, True
+    reset_counts(stats)
+
+    def record(kernel, results):
+        nonlocal ok
+        for good, max_abs, max_rel in results:
+            ok = ok and good
+            a, r = errs.get(kernel, (0.0, 0.0))
+            errs[kernel] = (max(a, max_abs), max(r, max_rel))
+
+    scaled = lambda name, a, b: compare(name, a, b, 1e-5, 1e-5 * max(float(b.abs().max()), 1.0))
+    log(f"[26] cart-pole instantiations against their plain versions, B={B}, T={CART_T}")
+    tail_k, cost_k = k2.rollout_cost(spec, x0, us)
+    tail_p, cost_p = k2.rollout_cost_plain(spec, x0, us)
+    record("K2r", [compare("cart-pole K2 rollout xs", tail_k, tail_p, 1e-5, 1e-5),
+                   compare("cart-pole K2 rollout cost", cost_k, cost_p, 1e-5, 0.0)])
+    names = ("A", "B", "lx", "lu", "lxx", "luu", "lux")
+    for disc in (True, False):
+        mode = "discrete" if disc else "continuous"
+        want = k3.linearize_plain(spec, xs, us, True, None, disc)
+        for hess in (True, False):
+            got = k3.linearize(spec, xs, us, hess, None, disc)
+            record("K3", [scaled(f"cart-pole K3 {mode} hessians={hess} {n}", a, b)
+                          for n, a, b in zip(names, got, want)])
+        xs_bf = torch.cat([xs, xT[None]], 0).permute(2, 0, 1).contiguous()
+        us_bf = us.permute(2, 0, 1).contiguous()
+        record("K7", [scaled(f"cart-pole K7 {mode} {n}", a, b) for n, a, b in zip(
+            names, k3.linearize_pallas(spec, xs_bf, us_bf, disc),
+            k3.linearize_pallas_plain(spec, xs_bf, us_bf, disc))])
+    full = k3.linearize(spec, xs, us, True)
+    hoist = k3.linearize_hessians(spec, xs, us)
+    same = all(torch.equal(a, b) for a, b in zip(hoist, full[4:]))
+    log(f"  cart-pole K3 hoist against K3's lxx, luu, lux: {'equal' if same else 'NOT EQUAL'}")
+    record("K3h", [scaled(f"cart-pole K3 hoist {n}", a, b) for n, a, b in zip(
+        ("lxx", "luu", "lux"), hoist, k3.linearize_hessians_plain(spec, xs, us))] + [(same, 0.0, 0.0)])
+    # K4 on the cart-pole's stacks with luu + 1, so that every stage's q_uu
+    # stays clear of the regularization ladder's steps (the swing-up's own
+    # q_uu crosses them, where one ulp picks another level).
+    lin = list(k3.linearize_plain(spec, xs, us, True))
+    lin[5] = (lin[5] + 1.0).contiguous()
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    box = ((-12.0 - us).contiguous(), (12.0 - us).contiguous())
+    for tag, bounds, atol in (("clamp", (None, None), 1e-5), ("boxqp", box, 1e-4)):
+        k_k, K_k = k1.riccati_backward(spec, *lin, xT, levels, *bounds)
+        k_p, K_p = k1.riccati_backward_plain(spec, *lin, xT, levels, *bounds)
+        record("K4", [compare(f"cart-pole K4 {tag} k", k_k, k_p, 1e-4, atol),
+                      compare(f"cart-pole K4 {tag} K", K_k, K_p, 1e-4, atol)])
+    k, K = k1.riccati_backward_plain(spec, *lin, xT, levels)
+    ladder = _alpha_ladder_floats(1e-3)
+    lb = torch.full((1, B), -12.0, device=DEVICE)
+    ub = torch.full((1, B), 12.0, device=DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    outs = {}
+    for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
+        bufs = [xs.clone(), us.clone(), xT.clone()]
+        merit, accept = fn(spec, *bufs, k, K, cost, active, lb, ub, ladder)
+        outs[name] = bufs + [merit, accept]
+    (kx, ku, kT, km, ka), (px, pu, pT, pm, pa) = outs["kernel"], outs["plain"]
+    n_diff = int((ka != pa).sum())
+    log(f"  cart-pole K2 select A={len(ladder)}: {int(ka.sum())} of {B} accepted, {n_diff} differ")
+    launched = read_counts(stats)
+    log(f"  launches {launched}")
+    missing = [k_ for k_ in ("K2r", "K2", "K3", "K3cont", "K3h", "K7", "K4", "K5") if not launched[k_]]
+    if missing:
+        fail(f"cart-pole checks: {missing} were not launched")
+    record("K2", [compare("cart-pole K2 select xs", kx, px, 1e-4, 1e-4),
+                  compare("cart-pole K2 select us", ku, pu, 1e-4, 1e-4),
+                  compare("cart-pole K2 select xT", kT, pT, 1e-4, 1e-4),
+                  compare("cart-pole K2 select merit", km, pm, 1e-5, 0.0), (n_diff == 0, 0.0, 0.0)])
+    torch.cuda.synchronize()
+    if not ok:
+        fail("a cart-pole instantiation disagrees with its plain version (phase 26)")
+    return errs
+
+
+def time_cartpole_kernels(spec, specs, B):
+    """Phase 26c: each kernel of the cart-pole's general branch per launch
+    (a wrapper call, CUDA events around 5) at B problems, T = CART_T, on the
+    swing-up's own first-iteration inputs, with its bound."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    x0 = specs.initial_state.T.contiguous()
+    us = specs.initial_controls.permute(1, 2, 0).contiguous()
+    tail, cost = k2.rollout_cost(spec, x0, us)
+    xs = torch.cat([x0[None], tail[:-1]], 0).contiguous()
+    xT = tail[-1].contiguous()
+    lin = k3.linearize(spec, xs, us, True)
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    k, K = k1.riccati_backward(spec, *lin, xT, levels)
+    ladder = _alpha_ladder_floats(1e-3)
+    lb = torch.full((1, B), -12.0, device=DEVICE)
+    ub = torch.full((1, B), 12.0, device=DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
+    _, accept = k2.forward_select(spec, *fresh(), k, K, cost, active, lb, ub, ladder)
+    n_acc = int(accept.sum())
+    reps = 5
+    sel_bufs = [fresh() for _ in range(reps)]
+    ms = {"K2r": event_ms([lambda: k2.rollout_cost(spec, x0, us)] * reps),
+          "K3": event_ms([lambda: k3.linearize(spec, xs, us, True)] * reps),
+          "K4": event_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
+          "K2": event_ms([lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, lb, ub, ladder)
+                          for b in sel_bufs])}
+    del sel_bufs
+    nx, nu, f, Tc, A = 4, 1, 4, CART_T, len(ladder)
+    per_stage_in = nx * nx + nx * nu + nx + nu
+    hess_in = nx * nx + nu * nu + nu * nx
+    bytes_ = {"K2r": B * f * (nx + Tc * nu + Tc * nx + 1),
+              "K3": B * f * Tc * ((nx + nu) + per_stage_in + hess_in),
+              "K4": B * f * (Tc * (per_stage_in + hess_in + nu * (1 + nx)) + nx),
+              "K2": B * f * (Tc * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
+                    + n_acc * f * (Tc * (nx + nu) + nx)}
+    ops = {"K2r": B * Tc * (OPS_CP_RK4 + OPS_CP_COST),
+           "K3": B * Tc * OPS_CP_K3,
+           "K4": B * Tc * OPS_STAGE_CORE,
+           "K2": B * Tc * A * (OPS_CP_CONTROL + OPS_CP_COST + OPS_CP_RK4)
+                 + n_acc * Tc * (OPS_CP_CONTROL + OPS_CP_RK4)}
+    bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
+    log(f"  cart-pole kernels ms/launch at B={B}, T={Tc}: "
+        f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; bound ms "
+        f"{json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}; K2 (A={A}) "
+        f"accepted {n_acc} of {B}")
+    return ms, bound
+
+
+def cartpole_phase(entry, ilqr, stats, card):
+    """Phase 26: the cart-pole swing-up on the kernels."""
+    import torch
+    from multi_agent_solver_tpu_torch.examples import cartpole_swing_up
+    from multi_agent_solver_tpu_torch.parallel import multistart_solve, random_control_starts
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    t_phase = time.perf_counter()
+    spec = cartpole_swing_up.create_cartpole_swingup_ocp(device=DEVICE).spec()
+    errs = check_cartpole_kernels(spec, stats)
+    out = {"errs": errs}
+
+    # (b) The fused general branch at the main path's width.
+    B, config = MAIN_BATCH, entry.CARTPOLE_CONFIG
+    log(f"[26] cart-pole swing-up, fused general branch, B={B}, T={CART_T}, "
+        f"{config.max_iterations} iterations, tolerance {config.tolerance}")
+    specs = entry.cartpole_specs(B, device=DEVICE)
+    cost0 = specs.cost(specs.rollout(specs.initial_controls), specs.initial_controls)
+    reset_counts(stats)
+    ilqr.PROBE_STATS.reset()
+    result = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    launches = read_counts(stats)
+    it = int(result.iterations[0])
+    if result.states.shape != (B, CART_T + 1, 4) or result.controls.shape != (B, CART_T, 1):
+        fail(f"cart-pole: result shapes {tuple(result.states.shape)} {tuple(result.controls.shape)}")
+    if not (torch.isfinite(result.cost).all() and torch.isfinite(result.controls).all()):
+        fail("cart-pole: non-finite costs or controls")
+    # A problem that accepted no step keeps the kernels' rollout cost, which
+    # may sit an ulp from the torch rollout's.
+    above = int((result.cost > cost0 * (1 + 1e-6)).sum())
+    if above:
+        fail(f"cart-pole: {above} solves ended above their warm start's cost")
+    costs = result.cost.double().cpu().numpy()
+    log(f"  iterations {it}, converged {int(result.converged.sum())} of {B}; cost median "
+        f"{float(np.median(costs))!r} min {float(costs.min())!r} max {float(costs.max())!r} (warm "
+        f"start median {float(cost0.double().median())!r}); probes {ilqr.PROBE_STATS.probes}")
+    check_counts(launches, {"K2r": 1, "K3": it, "K4": it, "K2": it}, "cart-pole fused")
+    out["launches"] = launches
+
+    def solve():
+        out["r"] = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+
+    ilqr.PROBE_STATS.reset()
+    times = [t / 1e3 for t in event_times(solve, CART_TIMED)]
+    med = float(np.median(times))
+    log(f"  {CART_TIMED} warm calls {[round(t, 6) for t in times]} s, median {med:.6f} s, "
+        f"{B / med:.1f} solves/s; probes {ilqr.PROBE_STATS.probes}, cache hits "
+        f"{ilqr.PROBE_STATS.hits}; card {card}")
+    if ilqr.PROBE_STATS.probes:
+        fail("cart-pole: the warm calls probed the cost structure")
+    ms, bound = time_cartpole_kernels(spec, specs, B)
+    in_kernels = ms["K2r"] + it * (ms["K3"] + ms["K4"] + ms["K2"])
+    log(f"  kernel time per solve {in_kernels:.3f} ms (launch counts x ms per launch) of "
+        f"{med * 1e3:.3f} ms median solve, {100 * in_kernels / (med * 1e3):.1f}%")
+    out.update(solves_per_s=B / med, ms=ms, bound=bound, iterations=it)
+    del specs, result, cost0
+    out.pop("r", None)
+
+    # (c) Multi-start on the swing-up example.
+    params = cartpole_swing_up.PARAMS
+    log(f"[26] multistart_solve, cart-pole swing-up, {MULTISTART_N} starts, {params}")
+    solver = make_solver("ilqr", params, device=DEVICE)
+    starts = random_control_starts(torch.Generator().manual_seed(0), spec, MULTISTART_N)
+    reset_counts(stats)
+    m0 = time.perf_counter()
+    best = multistart_solve(lambda s: solver._solve_batched_fn(s, solver.config), spec, starts)
+    torch.cuda.synchronize()
+    m_wall = time.perf_counter() - m0
+    m_launches = read_counts(stats)
+    upright = 1.0 + float(torch.cos(best.states[-1, 1]))
+    if not (torch.isfinite(best.states).all() and np.isfinite(float(best.cost))):
+        fail("multistart: non-finite best solution")
+    log(f"  best cost {float(best.cost)!r}, 1 + cos(theta_T) {upright!r}, iterations "
+        f"{int(best.iterations)}, {m_wall:.3f} s; launches {m_launches}")
+    check_counts(m_launches, {"K2r": 1, "K3": int(best.iterations), "K4": int(best.iterations),
+                              "K2": int(best.iterations)}, "cart-pole multistart")
+    out["multistart"] = {"launches": m_launches, "best": float(best.cost), "upright": upright,
+                         "seconds": m_wall}
+
+    # (d) The non-fused route (K4 explicit at (4, 1)), and an untagged
+    # stage cost, which the router sends down it without the lane kernels.
+    nb = CART_NONFUSED_B
+    log(f"[26] cart-pole, non-fused route (fused=False), B={nb}")
+    nspecs = entry.cartpole_specs(nb, device=DEVICE)
+    ncost0 = nspecs.cost(nspecs.rollout(nspecs.initial_controls), nspecs.initial_controls)
+    reset_counts(stats)
+    n0 = time.perf_counter()
+    nres = ilqr.solve_ilqr_batched(nspecs, config, fused=False, device=DEVICE)
+    n_launches = read_counts(stats)
+    nit = int(nres.iterations[0])
+    if not (torch.isfinite(nres.cost).all() and bool((nres.cost <= ncost0 * (1 + 1e-6)).all())):
+        fail("cart-pole non-fused: non-finite costs or a cost above the warm start's")
+    log(f"  iterations {nit}, cost median {float(nres.cost.double().median())!r}, "
+        f"{time.perf_counter() - n0:.3f} s")
+    check_counts(n_launches, {"K2r": 1, "K4x": nit, "K2": nit}, "cart-pole non-fused")
+    out["nonfused"] = {"launches": n_launches}
+    untagged = nspecs.replace(stage_cost=lambda x, u, t: spec.stage_cost(x, u, t))
+    decision = ilqr.route(untagged, config)
+    tiny = first_lanes(untagged, 64)
+    tiny_config = ilqr.ILQRConfig(max_iterations=2, tolerance=1e-7)
+    reset_counts(stats)
+    ures = ilqr.solve_ilqr_batched(tiny, tiny_config, device=DEVICE)
+    u_launches = read_counts(stats)
+    uit = int(ures.iterations[0])
+    log(f"  untagged stage cost: route {decision}; 64 problems, {uit} iterations, launches "
+        f"{u_launches}")
+    if decision.fused or decision.lane_forward:
+        fail(f"cart-pole untagged: the router took {decision}")
+    check_counts(u_launches, {"K4x": uit}, "cart-pole untagged")
+    out["untagged"] = {"launches": u_launches}
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 26: {seconds:.1f} s, card {card}")
+    out["seconds"] = seconds
+    return out
+
+
+def game_mpc(entry, ilqr, stats, card):
+    """Phase 27: the coupled game in closed loop (``run_mpc_nash``, the
+    ``sequential`` strategy), and a small ring against the plain versions."""
+    import torch
+    from multi_agent_solver_tpu_torch.mpc import run_mpc_nash
+    t_phase = time.perf_counter()
+    agents, steps = GAME_MPC
+    log(f"[27] closed-loop game: run_mpc_nash, entry.coupled_game({agents}) (all pairs), "
+        f"{steps} steps of {entry.MAX_OUTER} sweeps, card {card}")
+    problem, strategy = entry.coupled_game(agents, device=DEVICE)
+    reset_counts(stats)
+    ilqr.PROBE_STATS.reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    trace = run_mpc_nash(problem, strategy, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = read_counts(stats)
+    if trace.states.shape != (steps + 1, agents, 4) or not torch.isfinite(trace.states).all():
+        fail(f"closed-loop game: states {tuple(trace.states.shape)}")
+    pos = trace.states[..., :2]
+    d = torch.cdist(pos, pos) + 1e9 * torch.eye(agents, device=pos.device)
+    solves = steps * entry.MAX_OUTER
+    log(f"  {agents * steps / wall:.1f} agent-steps/s ({wall:.3f} s); launches {launches}; "
+        f"probes {ilqr.PROBE_STATS.probes}, cache hits {ilqr.PROBE_STATS.hits}; closest pair "
+        f"{float(d.min()):.4f}; step costs (mean) {trace.costs.mean(1).cpu().tolist()}")
+    if ilqr.PROBE_STATS.probes > 1:
+        fail(f"closed-loop game: {ilqr.PROBE_STATS.probes} cost-structure probes")
+    n_iter = launches["K6"]
+    if not (launches["K2r"] == solves and n_iter > 0 and launches["K3ctx"] == n_iter
+            == launches["K4"]):
+        fail(f"closed-loop game: launch counts {launches}")
+    check_counts(launches, {"K2r": solves, "K6": n_iter, "K3ctx": n_iter, "K4": n_iter},
+                 "closed-loop game", quiet=True)
+
+    cars, nearest, csteps, sweeps = GAME_MPC_CHECK
+    log(f"[27] {cars} cars x {nearest} nearest, {csteps} steps of {sweeps} sweeps: kernels vs "
+        f"plain versions")
+    traces = {}
+    for name, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+        problem, strategy = entry.coupled_game(cars, nearest, sweeps, device=DEVICE)
+        strategy.solver_proto.ops = ops
+        c0 = time.perf_counter()
+        traces[name] = run_mpc_nash(problem, strategy, csteps)
+        log(f"  {name}: {time.perf_counter() - c0:.3f} s")
+    err = check_trace(traces["kernels"], traces["plain"], "closed-loop game", GAME_MPC_ATOL,
+                      GAME_MPC_RTOL)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 27: {seconds:.1f} s, card {card}")
+    return {"launches": launches, "agent_steps_per_s": agents * steps / wall, "wall_s": wall,
+            "err": err, "seconds": seconds}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3693,6 +4217,8 @@ def main() -> None:
              "K4x": k1.EXPLICIT_STATS, "K7": k3.FLAT_STATS, "K3cont": k3.CONT_STATS,
              "K1cont": k1.CONT_STATS, "K6alctx": k2.AL_CTX_STATS, "K8": k2.EMIT_STATS,
              "K9": k9.STATS, "K10": k3.TERMINAL_STATS}
+    stamp = lambda label: log(f"  [{time.perf_counter() - t_start:.1f} s since the start] {label}")
+    stamp("phases 1-2 done")
     errs = check_kernels(spec)
     check_end_to_end(ilqr, entry)
 
@@ -3718,6 +4244,7 @@ def main() -> None:
         log(f"  B={B}: kernel time per solve {in_kernels:.3f} ms (launch counts x ms per "
             f"launch) of {solve_ms:.3f} ms median solve, {100 * in_kernels / solve_ms:.1f}%")
 
+    stamp("phases 3-5 done")
     # Phases 8-12: the other fused-loop branches and the circular sweep.
     circ_spec = entry.circular_sweep_specs(1, 1, device=DEVICE)
     for key, (a, r) in check_backward_kernels(spec, circ_spec).items():
@@ -3757,6 +4284,7 @@ def main() -> None:
         + "; " + "; ".join(f"sweep {v['agents']}x{v['scenarios']} {v['agent_solves_per_s']:.1f} "
                            f"agent-solves/s" for v in sweep.values()))
 
+    stamp("phases 8-12 done")
     # Phases 13-15: the coupled Nash game.
     for key, (a, r) in check_coupled_kernels(coupled_spec()).items():
         a0, r0 = errs.get(key, (0.0, 0.0))
@@ -3768,12 +4296,14 @@ def main() -> None:
         f"{v['agent_solves_per_s']:.1f} agent-solves/s ({v['wall_ms']:.3f} ms a call)"
         for (n, k), v in game_rows.items()))
 
+    stamp("phases 13-15 done")
     # Phases 16-18: the AL-constrained solves.
     errs.update(check_al_kernels())
     al_paths = al_solves(ilqr, entry, stats)
     al_time = time_al(ilqr, entry, card, timing[MAIN_BATCH][0], new_timing[MAIN_BATCH][0])
     log(f"  card {card}: state-bound AL {al_time['solves_per_s']:.1f} solves/s at {MAIN_BATCH}")
 
+    stamp("phases 16-18 done")
     # Phases 19-21: the non-fused path, the continuous Jacobian mode and the
     # single-problem solve.
     t19 = time.perf_counter()
@@ -3794,7 +4324,15 @@ def main() -> None:
 
     # Phases 22-24: constrained agents in the coupled game (K6 in AL and
     # context mode) and K8, K9, K10.
+    stamp("phases 19-21 done")
     cgames, crows, lane_timing = phases_22_to_24(entry, ilqr, spec, card, stats, errs)
+    stamp("phases 22-24 done")
+
+    # Phases 25-27: the closed-loop fleet, the cart-pole on the kernels, the
+    # closed-loop game.
+    fleet = fleet_mpc(entry, ilqr, stats, card)
+    cart = cartpole_phase(entry, ilqr, stats, card)
+    gmpc = game_mpc(entry, ilqr, stats, card)
 
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
@@ -3808,7 +4346,13 @@ def main() -> None:
              **{n: v["launches"] for n, v in al_paths.items()},
              **{n: v["launches"] for n, v in nf_paths.items()},
              **{f"constrained game {n} cars {'all pairs' if k is None else f'{k}-NN'}, "
-                f"{len(v['iterations'])} solves": v["launches"] for (n, k), v in cgames.items()}}
+                f"{len(v['iterations'])} solves": v["launches"] for (n, k), v in cgames.items()},
+             f"fleet MPC {MAIN_BATCH}, {FLEET_STEPS} steps": fleet["launches"],
+             f"cart-pole fused {MAIN_BATCH}": cart["launches"],
+             f"cart-pole multistart {MULTISTART_N}": cart["multistart"]["launches"],
+             f"cart-pole non-fused {CART_NONFUSED_B}": cart["nonfused"]["launches"],
+             "cart-pole untagged cost 64": cart["untagged"]["launches"],
+             f"closed-loop game {GAME_MPC[0]} cars, {GAME_MPC[1]} steps": gmpc["launches"]}
     by_path = lambda key: {n: c[key] for n, c in paths.items()}
     general = branches["quadratic_cost=False"]["launches"]
     boxqp = branches["bound_mode=boxqp"]["launches"]
@@ -3850,6 +4394,8 @@ def main() -> None:
             entry_.update(ms_select_A10=nms["K2_A10"], plain_ms_select_A10=nplain["K2_A10"],
                           bound_ms_select_A10=nbound["K2_A10"][0],
                           ms_select_A10_at_524288=nms_big["K2_A10"])
+        if key in ("K2", "K3"):
+            entry_.update(cartpole_keys(cart, key))
         if key == "K3":
             entry_["ms_of"] = "the whole horizon with Hessians"
             entry_.update(ms_full_T=nms["K3_full"], plain_ms_full_T=nplain["K3_full"],
@@ -3907,6 +4453,9 @@ def main() -> None:
         "sass_issue_floor_ms_horizon": sass["K3_hoist"]["issue_floor_ms"],
         **redesigned_entry(redesigned, "K3_hoist_stage", "K3_hoist_horizon", REDESIGNED_K3H),
     }
+    rollout.update(cartpole_keys(cart, "K2r"))
+    hoist_e.update(max_abs_err_cartpole=cart["errs"]["K3h"][0],
+                   max_rel_err_cartpole=cart["errs"]["K3h"][1])
     kernels += [rollout, hoist_e]
     k4 = {
         "name": "K4 riccati_backward", "route": "cuda",
@@ -3982,6 +4531,7 @@ def main() -> None:
         "al_glue_ms_per_iteration": al_time["glue_ms"], "al_glue_ms_by_part": al_time["glue_parts"],
     }
     k6al.update(redesigned_entry(al_time["redesigned"], "K6AL_A3", "K6AL_A10", REDESIGNED_K6AL))
+    k4.update(cartpole_keys(cart, "K4"))
     kernels += [k4, k5, k6, k6al]
     for (n, kk), row in crows.items():
         tag = f"{n}_cars_{'all_pairs' if kk is None else f'{kk}nn'}"
@@ -3989,12 +4539,19 @@ def main() -> None:
                    f"device_ms_constrained_{tag}": row["K4"][1]})
     kernels += nonfused_kernel_entries(errs, nf_paths, nf_timing, by_path)
     next(e for e in kernels if e["name"].startswith("K7")).update(
+        max_abs_err_cartpole=cart["errs"]["K7"][0], max_rel_err_cartpole=cart["errs"]["K7"][1])
+    next(e for e in kernels if e["name"].startswith("K7")).update(
         redesigned_entry(redesigned, "K7", "K7_continuous", REDESIGNED_K7))
     k1c_ms, k1c_device, k1c_digests = redesigned["K1_continuous"]
     next(e for e in kernels if e["name"].startswith("K1 riccati_fusedlin, continuous")).update(
         status=REDESIGNED_K1, ms_20_calls=k1c_ms, device_ms=k1c_device,
         digests=list(k1c_digests))
     kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
+    log(f"  card {card}: fleet MPC {fleet['steps_per_s']:.1f} controller-steps/s at {MAIN_BATCH} "
+        f"({fleet['step_ms']:.3f} ms a step); cart-pole {cart['solves_per_s']:.1f} solves/s at "
+        f"{MAIN_BATCH}; closed-loop game {gmpc['agent_steps_per_s']:.1f} agent-steps/s at "
+        f"{GAME_MPC[0]} cars; phases 25 / 26 / 27: {fleet['seconds']:.1f} / "
+        f"{cart['seconds']:.1f} / {gmpc['seconds']:.1f} s")
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

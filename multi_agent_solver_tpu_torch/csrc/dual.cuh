@@ -9,7 +9,9 @@
 //   Dual<Dual<float, N>, M> -> second derivatives (jvp over jvp).
 // The tangent rules are JAX's: d(x y) = dx y + x dy, d sin = dx cos,
 // d cos = -(dx sin), d tan = dx (1 + tan^2), d(x / c) = dx / c,
-// d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x), d exp = dx exp.
+// d(c / x) = (-dx c) (1 / x^2), d sqrt = dx (0.5 / sqrt x), d exp = dx exp;
+// d(a / b) = (da - db (a / b)) / b, torch's forward rule for a quotient of
+// two variables.
 // Transcendentals are the accurate sincosf/tanf/expf and the IEEE sqrtf
 // (no fast-math).
 #pragma once
@@ -139,6 +141,18 @@ __device__ __forceinline__ Dual<S, N> operator/(float c, const Dual<S, N>& a) {
   const S inv_sq = 1.0f / (a.v * a.v);
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = (-a.d[k] * c) * inv_sq;
+  return r;
+}
+
+// a / b of two variables: the value one IEEE division a.v / b.v (not a
+// times 1 / b, which rounds apart from torch), the tangents torch's
+// forward rule (da - db r) / b with r = a / b.
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, const Dual<S, N>& b) {
+  Dual<S, N> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = (a.d[k] - b.d[k] * r.v) / b.v;
   return r;
 }
 

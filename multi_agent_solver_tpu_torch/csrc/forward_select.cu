@@ -11,3 +11,8 @@ MAS_FORWARD_SELECT(single_track__circular_track__zero, mas::SingleTrack, mas::Ci
 using CoupledTrack = mas::Coupled<mas::CircularTrack, mas::GaussianCollision>;
 MAS_FORWARD_SELECT(single_track__coupled_circular_track_gaussian_collision__zero,
                    mas::SingleTrack, CoupledTrack, mas::ZeroTerminal, NoConstraint, NoConstraint)
+// The cart-pole swing-up (models/cartpole.py): the general cost branch's
+// rollout and select, and the non-fused path's batch-first select.
+MAS_FORWARD_SELECT(cartpole__cartpole_swing_up__cartpole_swing_up_terminal, mas::Cartpole,
+                   mas::CartpoleSwingUp, mas::CartpoleSwingUpTerminal, NoConstraint,
+                   NoConstraint)

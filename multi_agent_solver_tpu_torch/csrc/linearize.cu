@@ -316,3 +316,6 @@ MAS_LINEARIZE_HESSIANS(single_track__diag_quadratic, mas::SingleTrack, LaneFollo
 MAS_LINEARIZE_HESSIANS(single_track__circular_track, mas::SingleTrack, mas::CircularTrack)
 MAS_LINEARIZE_FLAT(single_track__diag_quadratic, mas::SingleTrack, LaneFollowCost)
 MAS_LINEARIZE_FLAT(single_track__circular_track, mas::SingleTrack, mas::CircularTrack)
+MAS_LINEARIZE(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)
+MAS_LINEARIZE_HESSIANS(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)
+MAS_LINEARIZE_FLAT(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)

@@ -58,6 +58,37 @@ struct SingleTrack {
   }
 };
 
+// Frictionless cart-pole (models/cartpole.py):  x = (p, theta, p_dot,
+// theta_dot), u = (force,), theta = 0 hanging down,
+//   denom      = m_c + m_p sin^2 theta,
+//   p_ddot     = (f + m_p sin theta (l theta_dot^2 + g cos theta)) / denom,
+//   theta_ddot = (-f cos theta - m_p l theta_dot^2 cos theta sin theta
+//                 - (m_c + m_p) g sin theta) / (l denom),
+// each product and sum in the torch callable's order.  Parameters: m_c,
+// m_p, l, g, and the products m_p l and (m_c + m_p) g that Python folds
+// in double before torch rounds them.  f never reads the cart position
+// (READS); sin and cos of theta come from one dsincos.
+struct Cartpole {
+  static constexpr int NX = 4;
+  static constexpr int NU = 1;
+  static constexpr unsigned READS = (1u << 1) | (1u << 2) | (1u << 3);
+  float m_cart, m_pole, l_pole, g, m_l, m_g;
+
+  static Cartpole from(const float* p) { return Cartpole{p[0], p[1], p[2], p[3], p[4], p[5]}; }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    S s, c;
+    dsincos(x[1], s, c);
+    const S w = x[3];
+    const S denom = m_cart + (m_pole * s) * s;
+    f[0] = x[2];
+    f[1] = x[3];
+    f[2] = (u[0] + (m_pole * s) * ((l_pole * w) * w + g * c)) / denom;
+    f[3] = ((-u[0]) * c - (((m_l * w) * w) * c) * s - m_g * s) / (l_pole * denom);
+  }
+};
+
 // What K1's linearization asks of a dynamics device function beyond f:
 // READS, the bit set of the state components f reads (default: all), and
 // hold(u), what f needs of a control that the RK4 step holds, evaluated
@@ -171,6 +202,49 @@ struct CircularTrack {
     const S e = x[3] - v_ref;
     return ((w_track * (d * d) + w_speed * (e * e)) + w_delta * (u[0] * u[0])) +
            w_acc * (u[1] * u[1]);
+  }
+};
+
+// The cart-pole swing-up's stage cost (models/cartpole.py
+// cartpole_swing_up_stage_cost), terms summed in the torch callable's
+// order, e = 1 + cos theta:
+//   w_up e e + w_p p p + w_v p_dot p_dot + w_w theta_dot theta_dot + w_u f f.
+// Parameters: w_up, w_p, w_v, w_w, w_u.
+struct CartpoleSwingUp {
+  static constexpr int NPARAMS = 5;
+  float w_up, w_p, w_v, w_w, w_u;
+
+  static CartpoleSwingUp from(const float* p) {
+    return CartpoleSwingUp{p[0], p[1], p[2], p[3], p[4]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x, const S* u) const {
+    S s, c;
+    dsincos(x[1], s, c);
+    const S e = 1.0f + c;
+    return (((w_up * e) * e + (w_p * x[0]) * x[0]) + (w_v * x[2]) * x[2]) +
+           (w_w * x[3]) * x[3] + (w_u * u[0]) * u[0];
+  }
+};
+
+// Its terminal cost (cartpole_swing_up_terminal_cost), in the same form
+// without the control term:  w_up e e + w_p p p + w_v p_dot p_dot +
+// w_w theta_dot theta_dot.  Parameters: w_up, w_p, w_v, w_w.
+struct CartpoleSwingUpTerminal {
+  static constexpr int NPARAMS = 4;
+  float w_up, w_p, w_v, w_w;
+
+  static CartpoleSwingUpTerminal from(const float* p) {
+    return CartpoleSwingUpTerminal{p[0], p[1], p[2], p[3]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x) const {
+    S s, c;
+    dsincos(x[1], s, c);
+    const S e = 1.0f + c;
+    return (((w_up * e) * e + (w_p * x[0]) * x[0]) + (w_v * x[2]) * x[2]) + (w_w * x[3]) * x[3];
   }
 };
 

@@ -25,3 +25,16 @@ extern "C" int mas_riccati_backward__single_track__zero(
       A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT, k, K, T, B, hess_tconst, term_p, levels,
       n_levels, static_cast<cudaStream_t>(stream));
 }
+
+// The cart-pole swing-up's terminal cost, derived in the kernel (its
+// stage cost is not quadratic, so K1 never runs it).
+extern "C" int mas_riccati_backward__cartpole__cartpole_swing_up_terminal(
+    const float* A, const float* Bm, const float* lx, const float* lu, const float* lxx,
+    const float* luu, const float* lux, const float* lb, const float* ub, const float* xT,
+    float* k, float* K, int T, int B, int hess_tconst, const float* term_p,
+    const float* levels, int n_levels, void* stream) {
+  using namespace mas;
+  return launch_riccati_backward<Cartpole, CartpoleSwingUpTerminal>(
+      A, Bm, lx, lu, lxx, luu, lux, lb, ub, xT, k, K, T, B, hess_tconst, term_p, levels,
+      n_levels, static_cast<cudaStream_t>(stream));
+}

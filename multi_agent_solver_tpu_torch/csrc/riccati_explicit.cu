@@ -1,7 +1,8 @@
 // K4's explicit-terminal mode (riccati.cuh: riccati_backward_kernel with
 // GivenValue), the kernel of riccati_backward_pallas on the non-fused
-// path, instantiated per (NX, NU) -- here the main path's (4, 2) and the
-// dimension sweep's (2, 1) and (6, 3) -- in clamp and boxqp (K5) mode.  The
+// path, instantiated per (NX, NU) -- here the main path's (4, 2), the
+// dimension sweep's (2, 1) and (6, 3), and the cart-pole's (4, 1) -- in
+// clamp and boxqp (K5) mode.  The
 // mode evaluates no user function, so one entry point serves every problem
 // of those dimensions; a pair without one raises in ops/riccati.py.
 // Compiled beside riccati.cu so the build stays parallel.
@@ -21,3 +22,4 @@
 MAS_RICCATI_EXPLICIT(4, 2)
 MAS_RICCATI_EXPLICIT(2, 1)
 MAS_RICCATI_EXPLICIT(6, 3)
+MAS_RICCATI_EXPLICIT(4, 1)

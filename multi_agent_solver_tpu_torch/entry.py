@@ -14,6 +14,11 @@
   folded into four AL inequality rows (``state_bound_specs``,
   :data:`AL_CONFIG`), and the input-pinning equality problem of
   ``tests/test_constraints.py`` (``equality_specs``, :data:`EQ_CONFIG`).
+* The closed-loop fleet of ``examples/single_track_mpc.py``
+  (``fleet_specs``: lateral offsets ``linspace(0.5, 1.5, B)``, run by
+  ``run_mpc_batched`` with :data:`FLEET_PARAMS`) and the cart-pole swing-up batch
+  of ``examples/cartpole_swing_up.py`` (``cartpole_specs``,
+  :data:`CARTPOLE_CONFIG`).
 * The single problem of ``examples/single_track_ocp.py``
   (``single_track_ocp``, :data:`SINGLE_PARAMS`), solved through
   ``make_solver("ilqr", ...).solve(ocp)``, and the non-fused path's
@@ -31,7 +36,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .examples.cartpole_swing_up import create_cartpole_swingup_ocp
 from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
+from .examples.single_track_mpc import PARAMS as FLEET_PARAMS
+from .examples.single_track_mpc import fleet_specs
+from .examples.single_track_ocp import PARAMS as SINGLE_PARAMS
+from .examples.single_track_ocp import (DESIRED_VELOCITY, LANE_FOLLOW_COST, W_ACC, W_DELTA,
+                                        W_LANE, W_SPEED, create_single_track_lane_following_ocp)
 from .multi_agent import MultiAgentProblem
 from .derivatives import make_derivatives
 from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost, synthesized_objective,
@@ -44,13 +55,6 @@ from .models import (
 from .solvers import make_solver
 from .solvers.ilqr import ILQRConfig
 from .strategies import make_strategy
-
-# 10 y^2 + (v - 1)^2 + 0.1 delta^2 + 0.1 a^2 as a diagonal quadratic, so it
-# has a CUDA device function (csrc/problems.cuh DiagQuadratic).
-LANE_FOLLOW_COST = diagonal_quadratic_cost(
-    w_x=(0.0, 10.0, 0.0, 1.0), r_x=(0.0, 0.0, 0.0, 1.0),
-    w_u=(0.1, 0.1), r_u=(0.0, 0.0),
-)
 
 # bench.py's solver configuration (the 3-rung forward-pass ladder).
 BENCH_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-5, alpha_ladder=(1.0, 0.5, 0.125))
@@ -82,16 +86,17 @@ EQ_CONFIG = ILQRConfig(max_iterations=40, tolerance=1e-8, constraint_tolerance=1
 EQ_COST = diagonal_quadratic_cost(w_x=(0.0, 1.0, 0.0, 0.0), r_x=(0.0, 0.0, 0.0, 0.0),
                                   w_u=(0.1, 0.1), r_u=(0.0, 0.0))
 EQ_ROW = bound_rows(("u", 1, 0.3, "upper"))
-# examples/single_track_ocp.py's solver parameters, and the main path in
-# the continuous Jacobian mode (the reference's continuous_jacobians=1).
-SINGLE_PARAMS = {"max_iterations": 10, "tolerance": 1e-5, "max_ms": 100}
+# The main path in the continuous Jacobian mode (the reference's
+# continuous_jacobians=1).
 CONTINUOUS_CONFIG = dataclasses.replace(BENCH_CONFIG, jacobian_mode="continuous")
 # The non-fused routes of the main path: solve_ilqr_batched's keyword
 # arguments for the vmapped torch linearizer (per iteration K4 explicit and
 # K2 select) and for K7 in its place.
 NONFUSED_ROUTES = {"xla": dict(fused=False, linearize="xla"),
                    "pallas": dict(fused=False, linearize="pallas")}
-W_LANE, W_SPEED, W_DELTA, W_ACC, DESIRED_VELOCITY = 10.0, 1.0, 0.1, 0.1, 1.0
+# The cart-pole batch's configuration: the example's tolerance, 30
+# iterations.
+CARTPOLE_CONFIG = ILQRConfig(max_iterations=30, tolerance=1e-7)
 
 
 def single_track_spec(horizon: int = 80, dtype=torch.float32, device="cuda") -> OCPSpec:
@@ -222,41 +227,26 @@ def equality_specs(batch: int, device="cuda", horizon: int = 30) -> OCPSpec:
     return batch_specs(ocp.spec(), equality_x0(batch))
 
 
-def single_track_ocp(dtype=torch.float32, device="cuda") -> OCP:
-    """``examples/single_track_ocp.py``'s problem: x0 = (0, 1, 0, 0), T = 80,
-    dt = 0.1, inputs bounded to +-0.7 / +-1, the lane-follow cost with its
-    analytic gradients and Hessians and the model's analytic Jacobians (as
-    the example sets them), initialized on ``device``."""
+# examples/single_track_ocp.py's problem (x0 = (0, 1, 0, 0), T = 80, the
+# lane-follow cost with its analytic gradients and Hessians, the model's
+# analytic Jacobians), solved through make_solver("ilqr", ...).solve(ocp).
+single_track_ocp = create_single_track_lane_following_ocp
 
-    def cost_state_gradient(x, u, t):
-        z = torch.zeros_like(x[..., 0])
-        return torch.stack([z, 2.0 * W_LANE * x[..., 1], z,
-                            2.0 * W_SPEED * (x[..., 3] - DESIRED_VELOCITY)], -1)
 
-    def cost_control_gradient(x, u, t):
-        return torch.stack([2.0 * W_DELTA * u[..., 0], 2.0 * W_ACC * u[..., 1]], -1)
+def cartpole_x0(batch: int, seed: int = 0) -> np.ndarray:
+    """Cart-pole initial states ``(0, theta, 0, 0)``, ``theta`` drawn
+    U(0, 0.1) (around the example's 0.05) from ``RandomState(seed)``."""
+    x0 = np.zeros((batch, 4), np.float32)
+    x0[:, 1] = np.random.RandomState(seed).uniform(0.0, 0.1, batch)
+    return x0
 
-    def cost_state_hessian(x, u, t):
-        return torch.diag_embed(torch.zeros_like(x) + x.new_tensor(
-            [0.0, 2.0 * W_LANE, 0.0, 2.0 * W_SPEED]))
 
-    def cost_control_hessian(x, u, t):
-        return torch.diag_embed(torch.zeros_like(u) + u.new_tensor([2.0 * W_DELTA, 2.0 * W_ACC]))
-
-    ocp = OCP(
-        state_dim=4, control_dim=2, horizon_steps=80, dt=0.1,
-        initial_state=torch.tensor([0.0, 1.0, 0.0, 0.0], dtype=dtype),
-        dynamics=single_track_model, stage_cost=LANE_FOLLOW_COST,
-        cost_state_gradient=cost_state_gradient, cost_control_gradient=cost_control_gradient,
-        cost_state_hessian=cost_state_hessian, cost_control_hessian=cost_control_hessian,
-        dynamics_state_jacobian=single_track_state_jacobian,
-        dynamics_control_jacobian=single_track_control_jacobian,
-        input_lower_bounds=torch.tensor([-0.7, -1.0], dtype=dtype),
-        input_upper_bounds=torch.tensor([0.7, 1.0], dtype=dtype),
-        device=device,
-    )
-    ocp.initialize_problem()
-    return ocp
+def cartpole_specs(batch: int, device="cuda", seed: int = 0) -> OCPSpec:
+    """``batch`` cart-pole swing-ups of ``examples/cartpole_swing_up.py``
+    (its bounds and sinusoid seed) from :func:`cartpole_x0`; solved with
+    :data:`CARTPOLE_CONFIG`, they run the fused loop's general branch."""
+    return batch_specs(create_cartpole_swingup_ocp(device=device).spec(),
+                       cartpole_x0(batch, seed))
 
 
 def untagged_specs(batch: int, device="cuda", horizon: int = 80) -> OCPSpec:

@@ -1,5 +1,11 @@
 """Dynamics models (torch functions + analytic Jacobians)."""
 
+from .cartpole import (
+    cartpole_dynamics,
+    cartpole_swing_up_stage_cost,
+    cartpole_swing_up_terminal_cost,
+)
+from .pendulum import pendulum_control_jacobian, pendulum_dynamics, pendulum_state_jacobian
 from .single_track import (
     single_track_control_jacobian,
     single_track_model,
@@ -10,4 +16,10 @@ __all__ = [
     "single_track_model",
     "single_track_state_jacobian",
     "single_track_control_jacobian",
+    "pendulum_dynamics",
+    "pendulum_state_jacobian",
+    "pendulum_control_jacobian",
+    "cartpole_dynamics",
+    "cartpole_swing_up_stage_cost",
+    "cartpole_swing_up_terminal_cost",
 ]

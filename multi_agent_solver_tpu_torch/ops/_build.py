@@ -45,9 +45,12 @@ NVCC_FLAGS = (
 )
 # (nx, nu) of each dynamics device function, and the number of float
 # parameters each device function reads, given (nx, nu).
-DYNAMICS_DIMS = {"single_track": (4, 2)}
+DYNAMICS_DIMS = {"single_track": (4, 2), "cartpole": (4, 1)}
 PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
+    "cartpole": lambda nx, nu: 6,
+    "cartpole_swing_up": lambda nx, nu: 5,
+    "cartpole_swing_up_terminal": lambda nx, nu: 4,
     "diag_quadratic": lambda nx, nu: 2 * (nx + nu),
     "diag_quadratic_terminal": lambda nx, nu: 2 * nx,
     "circular_track": lambda nx, nu: 6,

@@ -55,7 +55,7 @@ EXPLICIT_STATS = KernelStats()   # K4 in the explicit-terminal mode
 BOXQP_STATS = KernelStats()
 # (nx, nu) with an instantiation of K4's explicit-terminal mode
 # (csrc/riccati_explicit*.cu).
-EXPLICIT_DIMS = ((4, 2), (2, 1), (6, 3), (8, 4))
+EXPLICIT_DIMS = ((4, 2), (2, 1), (6, 3), (8, 4), (4, 1))
 
 
 def reg_ladder(reg_init: float, reg_factor: float, reg_levels: int) -> tuple:

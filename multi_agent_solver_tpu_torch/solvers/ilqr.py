@@ -2,7 +2,8 @@
 (non-fused) path -- and the single-problem solve.
 
 PyTorch counterpart of ``multi_agent_solver_tpu/solvers/ilqr.py``
-(``ILQRConfig``, the cost-structure probe, ``_solve_ilqr_batched_fused``
+(``ILQRConfig``, the cost-structure probe -- run once per problem
+structure, as the JAX package's trace runs it --, ``_solve_ilqr_batched_fused``
 with its lane AL machinery, the scan functions ``compute_merit``,
 ``_linearize``, ``_cost_hessians``, ``_add_al_terms``, ``_backward_pass``,
 ``_forward_pass``, ``solve_ilqr``, the router and non-fused body of
@@ -78,6 +79,7 @@ raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import time
@@ -246,17 +248,69 @@ def probe_cost_structure(spec: OCPSpec) -> "tuple[bool, bool]":
     return quadratic, stationary
 
 
+# The probe's answers, one per problem structure: what the JAX package's
+# trace (and so its jit cache) is keyed by -- the derivative bundle and the
+# dynamics / stage / terminal callables, the derivative mode, nx, nu, T and
+# the context's per-stage shape (None without one).  The key holds the
+# callables themselves (strong references, never ``id()``, which a
+# collected callable may hand on), so a hit is never stale.  Oldest entry
+# out first beyond PROBE_CACHE_SIZE.
+PROBE_CACHE_SIZE = 64
+_PROBE_CACHE: "collections.OrderedDict[tuple, tuple[bool, bool]]" = collections.OrderedDict()
+
+
+@dataclasses.dataclass
+class ProbeStats:
+    """Counts of :func:`cached_cost_structure`: probes run, cache hits."""
+
+    probes: int = 0
+    hits: int = 0
+
+    def reset(self) -> None:
+        self.probes = 0
+        self.hits = 0
+
+
+PROBE_STATS = ProbeStats()
+
+
+def _structure_key(spec: OCPSpec) -> tuple:
+    ctx = None if spec.context is None else tuple(spec.context.shape[1:])
+    return (spec.derivs, spec.dynamics, spec.stage_cost, spec.terminal_cost,
+            spec.derivative_mode, spec.state_dim, spec.control_dim, spec.horizon_steps, ctx)
+
+
+def cached_cost_structure(spec: OCPSpec) -> "tuple[bool, bool]":
+    """:func:`probe_cost_structure` once per problem structure: later calls
+    with the same structure (a closed loop's steps, a benchmark's warm
+    calls) take the kept answer."""
+    key = _structure_key(spec)
+    found = _PROBE_CACHE.get(key)
+    if found is not None:
+        _PROBE_CACHE.move_to_end(key)
+        PROBE_STATS.hits += 1
+        return found
+    found = probe_cost_structure(spec)
+    PROBE_STATS.probes += 1
+    _PROBE_CACHE[key] = found
+    if len(_PROBE_CACHE) > PROBE_CACHE_SIZE:
+        _PROBE_CACHE.popitem(last=False)
+    return found
+
+
 def resolve_cost_structure(spec: OCPSpec, config: ILQRConfig) -> "tuple[bool, bool]":
     """Concrete ``(quadratic, stationary)`` from the tri-state config fields:
     None = probe, True = assertion verified against the probe (ValueError
-    on mismatch), False = off."""
+    on mismatch), False = off.  The probe runs once per problem structure
+    (:func:`cached_cost_structure`); the assertions are checked against its
+    answer on every call."""
     want_q, want_s = config.quadratic_cost, config.stationary_cost
     if want_q is False:
         return False, False
     if spec.derivative_mode != "ad":
         quad = bool(want_q)
         return quad, quad and bool(want_s)
-    probe_q, probe_s = probe_cost_structure(spec)
+    probe_q, probe_s = cached_cost_structure(spec)
     if want_q and not probe_q:
         raise ValueError(
             "quadratic_cost=1 was set but the stage/terminal cost Hessians "

@@ -64,7 +64,12 @@ class TestImportBoundary:
     def test_port_imports_without_jax(self):
         code = ("import sys, multi_agent_solver_tpu_torch, multi_agent_solver_tpu_torch.entry, "
                 "multi_agent_solver_tpu_torch.constraints, multi_agent_solver_tpu_torch.utils.carry, "
-                "multi_agent_solver_tpu_torch.ops.small, multi_agent_solver_tpu_torch.ops.boxqp; "
+                "multi_agent_solver_tpu_torch.ops.small, multi_agent_solver_tpu_torch.ops.boxqp, "
+                "multi_agent_solver_tpu_torch.mpc, multi_agent_solver_tpu_torch.parallel, "
+                "multi_agent_solver_tpu_torch.models, "
+                "multi_agent_solver_tpu_torch.examples.single_track_mpc, "
+                "multi_agent_solver_tpu_torch.examples.pendulum_swing_up, "
+                "multi_agent_solver_tpu_torch.examples.cartpole_swing_up; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m == 'multi_agent_solver_tpu' or m.startswith('multi_agent_solver_tpu.')]; "
                 "assert not bad, bad")
