@@ -20,7 +20,8 @@ agents (K6 in AL and context mode at once), and the kernels that no
 solve path runs: K8 (the select kernel's emit mode), K9 (the all-alpha
 forward pass) and K10 (the terminal derivatives); then the closed-loop
 fleet (``mpc.run_mpc_batched``), the cart-pole on the kernels and the
-coupled game in closed loop (``mpc.run_mpc_nash``).
+coupled game in closed loop (``mpc.run_mpc_nash``); then the other three
+strategies and the LQR model on the kernels.
 
 Phases, each reported on its own lines:
 
@@ -108,7 +109,8 @@ and, run after phase 5 and before 6 and 7, in this order:
    the parent's; the per-iteration time of the AL torch glue beside the
    kernels' share;
 19. K4's explicit-terminal mode (each instantiated (nx, nu), clamp and
-   boxqp, on seeded random stacks with regularized stages, over 20
+   boxqp -- (4, 4) clamp alone, its boxqp mode is not instantiated --,
+   on seeded random stacks with regularized stages, over 20
    stages; also on the
    first GROUP_CHECK_B problems and tiled to ONE_THREAD_CHECK_B, both of
    its kernels), K7 in both
@@ -182,6 +184,25 @@ and, run after phase 5 and before 6 and 7, in this order:
 27. the coupled game in closed loop (``run_mpc_nash``, 64 cars, 10 steps of
    10 sweeps): agent-steps/s, launch counts, at most one probe; an 8-car
    ring (3 nearest) over 3 steps of 3 sweeps against the plain versions;
+28. the other strategies and the LQR model: the LQR's instantiations (K1
+   in both Jacobian modes, K2's rollout and select, K3's hoist at (4, 4))
+   against their plain versions at 1,024 problems, T = 10, each timed
+   with its bound; the LQR fleet of ``examples/multi_agent_lqr.py``
+   (``entry.lqr_fleet``, 1,024 agents, 5 sweeps) under ``sequential``,
+   ``linesearch``, ``trustregion`` and ``centralized`` (its dispatch), the
+   sum over agents 0-3 on the reference's 72.523735 (rtol 1e-5), launch
+   counts, agent-solves/s, the centralized costs against sequential's;
+   the same fleet with ``fused=False`` (K4 explicit at (4, 4)); the
+   coupled game at 256 cars (8 nearest) under ``linesearch`` and
+   ``trustregion``, agent-solves/s with the strategy's own host time apart,
+   launch counts, and a 12-car ring through the kernels against the plain
+   versions under both; the literal joint solve of 4 LQR agents
+   (``structure_aware=False``) against the dispatch; the mixed fleet
+   (``entry.mixed_fleet``: cars and (2, 1) LQR agents padded to (6, 2)) at
+   3 and 1,024 agents, its padded controls exactly zero, K4 explicit at
+   (6, 2) counted, the LQR agent on its solo optimum; K4 explicit at (4,
+   4) and (6, 2) timed at those paths' shapes; ``run_mpc_nash`` under
+   ``trustregion``, 64 cars, 5 steps;
 6. one JSON line listing every ported kernel (K1-K10, K2's rollout
    kernel, K3's hoist mode, K6's AL mode and its AL and context mode, K4's
    explicit-terminal mode and the continuous modes of K1 and K3; K6's
@@ -369,32 +390,36 @@ EXPLICIT_CHECK_T = 20
 # (rollout_hoist_calls) and of K8, K9 and K10 (emit_pass_calls), from
 # kernel_times.py's runs of the trees of commit 0fb1bda (K2, K7), d50f335
 # (K6-AL, K4), d206199 (K1), 59adb5d (the rollout, the hoist) and dc66f3a
-# (K8, K9, K10): the redesigned kernels must give them bit for bit.
+# (K8, K9, K10): the redesigned kernels must give them bit for bit.  They
+# are digest's (computed on the card), taken in runs whose outputs' sha256
+# digests, taken beside them, were those commits' (PERF.md, Findings).
 # (Those runs' times are in PERF.md.)
-PARENT_DIGEST = {"K2_A3": ("44e13541c3755be7", "f67228483d3881f9"),
-                 "K2_A10": ("44e13541c3755be7", "7cf3af587ccf2b51"),
-                 "K7": ("3beca312f2baa603",), "K7_continuous": ("7a8570c6848fa32f",),
-                 "K6AL_A3": ("b82f575f2985d34d", "951a4b7a75cc5bc3", "6e9d20b3dc5119aa",
-                             "a2723a10942cbe9c"),
-                 "K6AL_A10": ("fb1292a03fbfe412", "21d4bda75f71e804", "42b2da8539c3181b",
-                              "f9bbb6d51a381b72"),
-                 "K4_64": ("a1026d2026998b10",), "K4_256": ("2a56e84fbbb65615",),
-                 "K4_1024": ("46b562a66d7fc77b",),
-                 "K1": ("a26be1e4d7094ac1", "3c17e05a1c93575f"),
-                 "K1_boxqp": ("2a487111de00afd3", "5a4dabaec345ff2a"),
-                 "K1_continuous": ("5e4c6069171b0607", "735dc8948107a58e"),
-                 "K2_rollout": ("232e801cd0ca7a6f", "9f8c12d01609214d"),
-                 "K2_rollout_sweep": ("43ce53a560687a23", "37020f641f4a1eaf"),
-                 "K6_rollout_64": ("119be0be2cc19f3e", "0b26788bb306fdfc"),
-                 "K6_rollout_256": ("6e1f4bad8febbef3", "2103e8f7ee4dd5d3"),
-                 "K6_rollout_1024": ("7f80a636b75b7600", "dca094b96d4a6f3f"),
-                 "K3_hoist_stage": ("324e9f7208492ef4", "1d64e3bda39fb277"),
-                 "K3_hoist_horizon": ("ea521397526814de", "3c9e45cdf7ff4a9e"),
-                 "K9_A3": ("e32c6ce09ad1194e", "5cc0f6da41ae709e"),
-                 "K9_A10": ("2899bcf8d88901be", "6a1140e12b6c9829"),
-                 "K8": ("b558070054f4bbcd", "2242326ace551bd0"),
-                 "K8_continuous": ("2688ba6bd9d83905", "8702b598ef6278c9"),
-                 "K10": ("cd52d81e25f372e6", "62ef1ca9d28618b3")}
+PARENT_DIGEST = {"K2_A3": ("80cf972c508bc9c7", "98aef087e73b7b92"),
+                 "K2_A10": ("80cf972c508bc9c7", "a92b496d623c97fd"),
+                 "K7": ("294a67d57c5ed2f6",),
+                 "K7_continuous": ("cd6ee8d6efaf286e",),
+                 "K6AL_A3": ("f24fbaf115c7f9ca", "bd1c0e8058898e12", "6e4d8e06cfdd61f7",
+                             "1f0b1a949d272fa6"),
+                 "K6AL_A10": ("6cded5aa1dd2a352", "75dfdc488e640cdf", "d78789da3461d723",
+                              "16b39877f7e84bdc"),
+                 "K4_64": ("2e12c89c1363d330",),
+                 "K4_256": ("8f78cffa9f79767e",),
+                 "K4_1024": ("a710178b1a669afa",),
+                 "K1": ("cbe0dedec5e5a6cd", "dda5e4c983ac579b"),
+                 "K1_boxqp": ("5083bfbd7bb1f947", "634068d1eed22528"),
+                 "K1_continuous": ("75e887a493d564fe", "463432cee77f1bcb"),
+                 "K2_rollout": ("ec2eb4024500277b", "bdfa02ddbf88bb90"),
+                 "K2_rollout_sweep": ("bd9df71ec4b16ccf", "325322ce67274977"),
+                 "K6_rollout_64": ("cde903eef8288504", "a28c538eea96ab5e"),
+                 "K6_rollout_256": ("23317eb632864c52", "34af0de4caa839a7"),
+                 "K6_rollout_1024": ("eb250a6acba759dd", "6339d50462bfd81f"),
+                 "K3_hoist_stage": ("4ec479d9d066ac6a", "a899145af395e015"),
+                 "K3_hoist_horizon": ("0369767a0d346ccb", "efa76e7f959a7fcb"),
+                 "K9_A3": ("eadc2b0dabb78650", "a6ac906eec129f5f"),
+                 "K9_A10": ("4dee2e36e98916d4", "5341be3575f8f967"),
+                 "K8": ("9fb23be596b56223", "6d4f604a9799b22d"),
+                 "K8_continuous": ("b424eb22701cd404", "b2ae463a2349ebb5"),
+                 "K10": ("ed5a83785cd98801", "1399100cf6fc6b77")}
 # Float32 operations of the coupled cost, counted from csrc/problems.cuh
 # with only the tangents that can be non-zero (the pair cost reads x0, x1:
 # 2 of 6 directions), a floor: the circular-track cost in floats, one pair
@@ -582,14 +607,34 @@ def graph_ms(fns, restore=lambda: None, reps=3):
     return float(np.median(times))
 
 
+# splitmix64's constants, as signed 64-bit integers (torch's int64 wraps).
+_MIX = tuple(c - (1 << 64) for c in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+
+
 def digest(tensors):
-    """sha256 of the tensors' bytes, in order (a bit-for-bit fingerprint)."""
+    """A bit-for-bit fingerprint of the tensors computed on the card: each
+    element's bits, offset by its index times a 64-bit constant, mixed by
+    splitmix64's finalizer and summed mod 2^64 (int64 arithmetic wraps);
+    the sums, dtypes and shapes then hashed by sha256 on the host.  It
+    reads the outputs where they lie, with no copy to the host."""
     import hashlib
+    import torch
+    lsr = lambda z, n: (z >> n) & ((1 << (64 - n)) - 1)      # logical shift right
     h = hashlib.sha256()
     for t in tensors:
         flat = t.detach().contiguous().view(-1)
+        bits = {1: lambda a: a.view(torch.uint8).to(torch.int64),
+                2: lambda a: a.view(torch.int16).to(torch.int64) & 0xFFFF,
+                4: lambda a: a.view(torch.int32).to(torch.int64) & 0xFFFFFFFF,
+                8: lambda a: a.view(torch.int64)}[flat.element_size()]
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
         for i in range(0, flat.numel(), 1 << 26):
-            h.update(flat[i:i + (1 << 26)].cpu().numpy())
+            z = bits(flat[i:i + (1 << 26)])
+            z = z + torch.arange(i, i + z.numel(), dtype=torch.int64, device=z.device) * _MIX[0]
+            z = (z ^ lsr(z, 30)) * _MIX[1]
+            z = (z ^ lsr(z, 27)) * _MIX[2]
+            acc += (z ^ lsr(z, 31)).sum()
+        h.update(f"{t.dtype} {tuple(t.shape)} {int(acc)};".encode())
     return h.hexdigest()[:16]
 
 
@@ -2433,7 +2478,7 @@ def check_nonfused_kernels(spec):
     log(f"[19] K4 explicit (T={EXPLICIT_CHECK_T} at each (nx, nu)), K7, K3 / K1 continuous "
         f"against their plain versions, B={B}, T={T}")
     for nx, nu in k1.EXPLICIT_DIMS:
-        for boxqp in (False, True):
+        for boxqp in (False,) if (nx, nu) in k1.EXPLICIT_CLAMP_ONLY else (False, True):
             horizon = EXPLICIT_CHECK_T
             t_case = time.perf_counter()
             stacks, box, indefinite = random_riccati_stacks(nx, nu, B, seed=19 * nx + nu,
@@ -4164,6 +4209,465 @@ def game_mpc(entry, ilqr, stats, card):
             "err": err, "seconds": seconds}
 
 
+# Phase 28: the other three strategies and the LQR model.  The LQR fleet of
+# examples/multi_agent_lqr.py at LQR_AGENTS agents under every strategy
+# (max_outer LQR_OUTER): agents 0-3 start at the example's x0, so their
+# costs sum to the reference's joint optimum, docs/RESULTS.md's 72.523735
+# (4 x 18.1309) under centralized, sequential and trust-region iLQR, within
+# LQR_ANCHOR_RTOL; the problem is convex and uncoupled, so the line search
+# accepts every sweep and gives the same sum.  The coupled game at
+# GAME28 under the line search and the trust region; its 12-car ring
+# (GAME28_RING) against the plain versions; the literal joint solve of
+# LQR_JOINT agents against the dispatch; the mixed fleet at MIXED28 agents;
+# run_mpc_nash under the trust region (GAME28_MPC).
+# The mangled-name marks of phase 28's instantiations (the LQR's K1, K2,
+# K3 hoist; K4 explicit at (4, 4) and (6, 2)), whose ptxas lines phase 2
+# names.
+LQR_INSTANTIATIONS = ("LinearILi4ELi4E", "QuadraticILi4ELi4E", "GivenValueELi4ELi4E",
+                      "GivenValueELi6ELi2E")
+LQR_AGENTS, LQR_OUTER = 1024, 5
+LQR_ANCHOR, LQR_ANCHOR_RTOL = 72.523735, 1e-5
+LQR_TIMED = 3
+GAME28 = (256, 8)
+GAME28_RING = (12, 3, 2, {"max_iterations": 5, "tolerance": 1e-5, "max_ms": 1e9}, "linesearch")
+LQR_JOINT = 4
+MIXED28 = (3, 1024)
+MIXED28_OUTER = 3
+GAME28_MPC = (64, 5)
+# The kernels against their plain versions on the LQR fleet's shapes (phase
+# 3's tolerances): the K2 rows' states and controls atol 5e-4, merits rtol
+# 1e-4; the rest rtol 1e-4 + atol 1e-5.
+LQR_CHECK_T = 10
+
+
+def lqr_stage_ops(nx, nu):
+    """Float32 operations of one stage's dense arithmetic, each counted
+    once, a floor: ``(f, rk4, cost, control, riccati)`` -- f = A x + B u,
+    the RK4 step around it, the quadratic cost x'Qx + u'Ru, the select's
+    control u + alpha k + K dx, and the Riccati stage (its Q terms, the
+    gain solve, the value update; the ladder's tests not counted)."""
+    f = nx * (2 * (nx + nu) - 1)
+    rk4 = 4 * f + 3 * 2 * nx + 7 * nx
+    cost = (2 * nx * nx + nx) + (2 * nu * nu + nu) + 1
+    control = nu * (2 * nx + 2)
+    riccati = (2 * nx * (nx + nu)                      # q_x, q_u
+               + 2 * nx * nx * nx * 2                  # v_xx A, q_xx
+               + 2 * nx * nx * nu * 2                  # v_xx B, q_ux
+               + 2 * nu * nu * nx                      # q_uu
+               + 2 * nu * nu * (nu + nx + 1)           # the gain solve
+               + 2 * nx * nu * (2 + nx))               # the value update
+    return f, rk4, cost, control, riccati
+
+
+def lqr_kernels(stats, card):
+    """Phase 28a: the LQR's instantiations (K1 in both Jacobian modes, K2's
+    rollout and select, K3's hoist) against their plain versions at the
+    fleet's shapes (LQR_AGENTS problems, T = LQR_CHECK_T), on drawn states
+    and controls, and each timed: ms a wrapper call (CUDA events around 20
+    calls), the plain version's, the bound.  K4's explicit mode at (4, 4)
+    and (6, 2) is checked in phase 19 and timed in 28e at the paths'
+    shapes."""
+    import torch
+    from multi_agent_solver_tpu_torch import entry
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    B, Tl, nx, nu = LQR_AGENTS, LQR_CHECK_T, 4, 4
+    spec = entry.lqr_fleet(1, device=DEVICE).agents[0].ocp.spec()
+    g = torch.Generator(device=DEVICE).manual_seed(28)
+    x0 = 2.0 * torch.rand((nx, B), generator=g, device=DEVICE) - 1.0
+    us = 2.0 * torch.rand((Tl, nu, B), generator=g, device=DEVICE) - 1.0
+    log(f"[28] the LQR's instantiations against their plain versions, B={B}, T={Tl}, card {card}")
+    errs, ok = {}, True
+
+    def record(key, results):
+        nonlocal ok
+        for good, max_abs, max_rel in results:
+            ok = ok and good
+            a, r = errs.get(key, (0.0, 0.0))
+            errs[key] = (max(a, max_abs), max(r, max_rel))
+
+    tail, cost = k2.rollout_cost(spec, x0, us)
+    tail_p, cost_p = k2.rollout_cost_plain(spec, x0, us)
+    record("K2r", [compare("LQR K2 rollout states", tail, tail_p, 1e-5, 1e-5),
+                   compare("LQR K2 rollout cost", cost, cost_p, 1e-5, 0.0)])
+    xs = torch.cat([x0[None], tail_p[:-1]], 0).contiguous()
+    xT = tail_p[-1].contiguous()
+    x1, u1 = x0[None].contiguous(), us[:1].contiguous()
+    hess = k3.linearize_hessians(spec, x1, u1)
+    record("K3h", [compare(f"LQR K3 hoist {n}", a, b, 1e-5, 1e-6) for n, a, b in
+                   zip(("lxx", "luu", "lux"), hess, k3.linearize_hessians_plain(spec, x1, u1))])
+    hess = [h[0].contiguous() for h in hess]
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    for disc in (True, False):
+        mode = "discrete" if disc else "continuous"
+        kk = k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels, discrete=disc)
+        kp = k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels, discrete=disc)
+        record("K1" if disc else "K1cont",
+               [compare(f"LQR K1 {mode} {n}", a, b, 1e-4, 1e-5) for n, a, b in
+                zip(("k", "K"), kk, kp)])
+    k, K = k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels)
+    ladder = tuple(0.5 ** i for i in range(10))
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    outs = []
+    for select in (k2.forward_select, k2.forward_select_plain):
+        bufs = [xs.clone(), us.clone(), xT.clone()]
+        outs.append(bufs + list(select(spec, *bufs, k, K, cost_p, active, None, None, ladder)))
+    (x_k, u_k, t_k, m_k, a_k), (x_p, u_p, t_p, m_p, a_p) = outs
+    same = bool(torch.equal(a_k, a_p))
+    log(f"  LQR K2 select accept flags {'equal' if same else 'DIFFERENT'} "
+        f"({int(a_k.sum())} of {B} accepted)")
+    record("K2", [(same, 0.0, 0.0), compare("LQR K2 select states", x_k, x_p, 0.0, 5e-4),
+                  compare("LQR K2 select controls", u_k, u_p, 0.0, 5e-4),
+                  compare("LQR K2 select x_T", t_k, t_p, 0.0, 5e-4),
+                  compare("LQR K2 select merit", m_k, m_p, 1e-4, 0.0)])
+    if not ok:
+        fail("an LQR instantiation disagrees with its plain version (phase 28)")
+
+    f = 4
+    fo, rk4, cst, ctl, ric = lqr_stage_ops(nx, nu)
+    hess_n = nx * nx + nu * nu + nu * nx
+    gains = Tl * (nu + nu * nx)
+    sel_bufs = [[xs.clone(), us.clone(), xT.clone()] for _ in range(20)]
+    rows = {   # name: (kernel call, plain call, bytes, operations)
+        "K1": (lambda: k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels),
+               lambda: k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels),
+               f * B * (Tl * (nx + nu) + hess_n + nx + gains), B * Tl * (rk4 + cst + ric)),
+        "K2r": (lambda: k2.rollout_cost(spec, x0, us), lambda: k2.rollout_cost_plain(spec, x0, us),
+                f * B * (nx + Tl * nu + Tl * nx + 1), B * Tl * (rk4 + cst)),
+        "K3h": (lambda: k3.linearize_hessians(spec, x1, u1),
+                lambda: k3.linearize_hessians_plain(spec, x1, u1),
+                f * B * (nx + nu + hess_n), 0),
+        "K2": ([lambda b=b: k2.forward_select(spec, *b, k, K, cost_p, active, None, None, ladder)
+                for b in sel_bufs],
+               lambda: k2.forward_select_plain(spec, xs.clone(), us.clone(), xT.clone(), k, K,
+                                               cost_p, active, None, None, ladder),
+               f * B * (2 * Tl * (nx + nu) + 2 * nx + gains + 2) + B,
+               len(ladder) * B * Tl * (ctl + rk4 + cst)),
+    }
+    timing = {}
+    for name, (call, plain, bytes_, ops) in rows.items():
+        calls = call if isinstance(call, list) else [call] * 20
+        event_ms(calls[:2])
+        ms = event_ms(calls)
+        plain_ms = event_ms([plain])
+        bound = bound_of(bytes_, ops)
+        timing[name] = (ms, plain_ms, bound)
+        log(f"  LQR {name}: {ms:.6f} ms a wrapper call, plain {plain_ms:.3f} ms, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}), card {card}")
+    return errs, timing
+
+
+def lqr_fleet_strategies(entry, ilqr, stats, card):
+    """Phase 28b: the LQR fleet under every strategy (the centralized one by
+    its dispatch, one batched solve), each call's launch counts, the anchor,
+    the centralized costs against sequential's; then with ``fused=False``
+    (the non-fused route: K4 explicit at (4, 4))."""
+    import torch
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    from multi_agent_solver_tpu_torch.strategies import make_strategy
+    log(f"[28] the LQR fleet, {LQR_AGENTS} agents, max_outer {LQR_OUTER}, every strategy, "
+        f"card {card}")
+    out, costs_of = {}, {}
+    # One fleet for every call: a stacked call reads the agents' warm
+    # starts and writes only their results, so each starts alike.
+    problem = entry.lqr_fleet(LQR_AGENTS, device=DEVICE)
+    for name, params in [(n, entry.LQR_PARAMS) for n in
+                         ("sequential", "linesearch", "trustregion", "centralized")] + [
+            ("sequential, fused=False", {**entry.LQR_PARAMS, "fused": 0})]:
+        strategy = make_strategy(name.split(",")[0], make_solver("ilqr", device=DEVICE), params,
+                                 LQR_OUTER)
+        walls = []
+        for rep in range(LQR_TIMED):
+            reset_counts(stats)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            sol = strategy(problem)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+            launches = read_counts(stats)
+        costs = np.array(sol.costs, np.float64)
+        anchor = float(costs[:4].sum())
+        rel = abs(anchor - LQR_ANCHOR) / LQR_ANCHOR
+        solves = 1 if name == "centralized" else LQR_OUTER
+        wall = float(np.median(walls))
+        log(f"  {name}: agents 0-3 sum {anchor!r}, anchor {LQR_ANCHOR} rel {rel:.3e} (rtol "
+            f"{LQR_ANCHOR_RTOL:g}) {'OK' if rel <= LQR_ANCHOR_RTOL else 'MISMATCH'}; "
+            f"{LQR_AGENTS * solves / wall:.1f} agent-solves/s ({1e3 * wall:.3f} ms a call, "
+            f"median of {LQR_TIMED}); launches {launches}")
+        if rel > LQR_ANCHOR_RTOL or not np.all(np.isfinite(costs)):
+            fail(f"LQR fleet, {name}: agents 0-3 sum {anchor} off the anchor {LQR_ANCHOR}")
+        want = ({"K2r": solves, "K4x": 1, "K2": 1} if "fused=False" in name
+                else {"K1": 1, "K2": 1, "K2r": solves, "K3h": solves})
+        missing = [k for k in want if launches.get(k, 0) < want[k]]
+        extra = [k for k, n in launches.items() if n and k not in want]
+        if missing or extra or launches["K2r"] != solves:
+            fail(f"LQR fleet, {name}: launch counts {launches} (path {sorted(want)})")
+        costs_of[name] = costs
+        out[name] = {"launches": launches, "agent_solves_per_s": LQR_AGENTS * solves / wall,
+                     "wall_ms": 1e3 * wall, "anchor_sum": anchor}
+    ok, max_abs, max_rel = compare("centralized vs sequential costs",
+                                   torch.as_tensor(costs_of["centralized"]),
+                                   torch.as_tensor(costs_of["sequential"]), 1e-5, 1e-6)
+    if not ok:
+        fail("LQR fleet: the centralized dispatch's costs are not sequential's")
+    return out
+
+
+def game28(entry, ilqr, stats, card):
+    """Phase 28c: the coupled game at GAME28 under the line search and the
+    trust region (one warm-up call, one timed): agent-solves/s, and the
+    strategy's own host time -- the wall minus its solves, each solve
+    between two synchronizations -- logged apart; the launch counts of the
+    game's kernels.  Then the 12-car ring, kernels against the plain
+    versions under the line search (its host-side accept decision is the
+    one a last-ulp difference could flip)."""
+    import torch
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    from multi_agent_solver_tpu_torch.strategies import make_strategy
+    agents, nearest = GAME28
+    out = {}
+    for name in ("linesearch", "trustregion"):
+        log(f"[28] coupled game {agents} cars x {nearest} nearest, {name}, {entry.MAX_OUTER} "
+            f"sweeps, card {card}")
+        problem, _ = entry.coupled_game(agents, nearest, device=DEVICE)
+        strategy = make_strategy(name, make_solver("ilqr", device=DEVICE), entry.COUPLED_PARAMS,
+                                 entry.MAX_OUTER)
+        solver = strategy.solver_proto
+        inner = solver._solve_batched_fn
+        solve_s = []
+
+        def timed(specs, config, structure=None, inner=inner, solve_s=solve_s):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            result = inner(specs, config, structure)
+            torch.cuda.synchronize()
+            solve_s.append(time.perf_counter() - s0)
+            return result
+
+        solver._solve_batched_fn = timed
+        strategy(problem)                                  # warm-up
+        problem, _ = entry.coupled_game(agents, nearest, device=DEVICE)
+        solve_s.clear()
+        reset_counts(stats)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        sol = strategy(problem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = read_counts(stats)
+        costs = np.array(sol.costs, np.float64)
+        host = wall - sum(solve_s)
+        log(f"  {agents * len(solve_s) / wall:.1f} agent-solves/s ({1e3 * wall:.3f} ms a call, "
+            f"{len(solve_s)} solves {1e3 * sum(solve_s):.3f} ms, the strategy's host time "
+            f"{1e3 * host:.3f} ms); total cost {sol.total_cost!r}; launches {launches}")
+        if not np.all(np.isfinite(costs)):
+            fail(f"coupled game, {name}: non-finite costs")
+        n_iter = launches["K6"]
+        if not (launches["K2r"] == len(solve_s) and n_iter > 0
+                and launches["K3ctx"] == launches["K4"] == n_iter):
+            fail(f"coupled game, {name}: launch counts {launches}")
+        check_counts(launches, {"K2r": len(solve_s), "K6": n_iter, "K3ctx": n_iter,
+                                "K4": n_iter}, f"coupled game, {name}", quiet=True)
+        out[name] = {"launches": launches, "agent_solves_per_s": agents * len(solve_s) / wall,
+                     "wall_ms": 1e3 * wall, "solves_ms": 1e3 * sum(solve_s),
+                     "host_ms": 1e3 * host, "total_cost": sol.total_cost}
+    cars, nearest, sweeps, params, ring_strategy = GAME28_RING
+    log(f"[28] {cars}-car ring x {nearest} nearest, {sweeps} sweeps, {ring_strategy}: kernels vs "
+        f"plain versions")
+    for name in (ring_strategy,):
+        got = {}
+        for label, ops in (("kernels", ilqr.KERNEL_OPS), ("plain", ilqr.PLAIN_OPS)):
+            problem, _ = entry.coupled_game(cars, nearest, device=DEVICE)
+            strategy = make_strategy(name, make_solver("ilqr", device=DEVICE), params, sweeps)
+            strategy.solver_proto.ops = ops
+            got[label] = torch.as_tensor(strategy(problem).costs, dtype=torch.float64)
+        ok, _, _ = compare(f"ring {name} costs", got["kernels"], got["plain"], 1e-4, 0.0)
+        if not ok:
+            fail(f"the {cars}-car ring under {name}: kernels and plain versions part")
+    return out
+
+
+def joint28(entry, card):
+    """Phase 28d: the literal joint solve of LQR_JOINT agents
+    (``structure_aware=False``: build_global_ocp, solve(ocp)'s torch loop on
+    the untagged joint functions) against the dispatch's costs, and agents
+    0-3 (at the example's x0) on the reference's joint optimum."""
+    import torch
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    from multi_agent_solver_tpu_torch.strategies import CentralizedStrategy
+    log(f"[28] the literal joint solve, {LQR_JOINT} LQR agents ({4 * LQR_JOINT} states), "
+        f"against the dispatch, card {card}")
+    costs, walls = {}, {}
+    for aware in (True, False):
+        solver = make_solver("ilqr", entry.LQR_PARAMS, device=DEVICE)
+        problem = entry.lqr_fleet(LQR_JOINT, device=DEVICE)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        costs[aware] = torch.as_tensor(CentralizedStrategy(solver, aware)(problem).costs,
+                                       dtype=torch.float64)
+        walls[aware] = time.perf_counter() - w0
+    ok, _, _ = compare("joint vs dispatch costs", costs[False], costs[True], 1e-5, 0.0)
+    joint_sum = float(costs[False][:4].sum())
+    rel = abs(joint_sum - LQR_ANCHOR) / LQR_ANCHOR
+    log(f"  joint {1e3 * walls[False]:.1f} ms, dispatch {1e3 * walls[True]:.1f} ms; joint "
+        f"agents 0-3 sum {joint_sum!r}, anchor {LQR_ANCHOR} rel {rel:.3e}")
+    if not ok or rel > LQR_ANCHOR_RTOL:
+        fail("the literal joint solve parts from the dispatch or the anchor")
+    return {"joint_ms": 1e3 * walls[False], "dispatch_ms": 1e3 * walls[True],
+            "joint_sum": float(costs[False].sum())}
+
+
+def mixed28(entry, ilqr, stats, card):
+    """Phase 28e: the mixed fleet (strategies/hetero.py's padded stack:
+    untagged dispatch functions, the non-fused route with K4 explicit at
+    (6, 2)) at MIXED28's sizes under ``sequential``: the padded control
+    components exactly zero, launches counted, the 3-agent LQR agent's cost
+    against a solo solve of its problem; and K4 explicit at (4, 4) and
+    (6, 2) timed at the paths' shapes."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import riccati as k1
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    from multi_agent_solver_tpu_torch.strategies import (make_strategy, scatter_padded_results,
+                                                         stack_agent_specs_padded)
+    from multi_agent_solver_tpu_torch.strategies.base import collect_solution
+    out = {}
+    for n in MIXED28:
+        log(f"[28] mixed fleet, {n} agents (cars and (2, 1) LQR agents), sequential, "
+            f"{MIXED28_OUTER} sweeps, card {card}")
+        problem = entry.mixed_fleet(n, device=DEVICE)
+        strategy = make_strategy("sequential", make_solver("ilqr", device=DEVICE),
+                                 entry.MIXED_PARAMS, MIXED28_OUTER)
+        specs, meta = stack_agent_specs_padded(problem, DEVICE)
+        if specs is None or (specs.state_dim, specs.control_dim) != (6, 2):
+            fail(f"mixed fleet: the padded stack is not (6, 2)")
+        specs = strategy._prepare(problem, specs)
+        reset_counts(stats)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        states, controls, costs = strategy._run_stacked(specs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = read_counts(stats)
+        lqr_lanes = [i for i in range(n) if meta.control_dims[i] == 1]
+        pad = controls[lqr_lanes, :, 1]
+        zero = bool((pad == 0).all())
+        scatter_padded_results(problem, meta, states, controls, costs)
+        sol = collect_solution(problem)
+        log(f"  {n * MIXED28_OUTER / wall:.1f} agent-solves/s ({1e3 * wall:.3f} ms); padded "
+            f"controls {'exactly zero' if zero else 'NOT zero'}; total cost "
+            f"{sol.total_cost!r}; launches {launches}")
+        if not zero or not np.all(np.isfinite(np.array(sol.costs))):
+            fail(f"mixed fleet, {n} agents: padded controls {float(pad.abs().max())}, "
+                 f"costs finite {np.all(np.isfinite(np.array(sol.costs)))}")
+        if launches["K4x"] == 0 or any(v for k, v in launches.items() if k != "K4x"):
+            fail(f"mixed fleet, {n} agents: launch counts {launches} (K4 explicit alone)")
+        out[n] = {"launches": launches, "agent_solves_per_s": n * MIXED28_OUTER / wall,
+                  "wall_ms": 1e3 * wall, "total_cost": sol.total_cost}
+        if n == MIXED28[0]:
+            solo = problem.agents[1].ocp
+            ocp = type(solo)(state_dim=2, control_dim=1, horizon_steps=solo.horizon_steps,
+                             dt=solo.dt, initial_state=solo.initial_state.clone(),
+                             dynamics=solo.dynamics, stage_cost=solo.stage_cost,
+                             terminal_cost=solo.terminal_cost, device=DEVICE)
+            ocp.initialize_problem()
+            make_solver("ilqr", entry.MIXED_PARAMS, device=DEVICE).solve(ocp)
+            ok, _, _ = compare("mixed LQR agent vs solo solve",
+                               torch.tensor([sol.costs[1]], dtype=torch.float64),
+                               torch.tensor([ocp.best_cost], dtype=torch.float64), 1e-5, 0.0)
+            if not ok:
+                fail("mixed fleet: the padded LQR agent's cost is not its solo optimum")
+    # K4 explicit at the new (nx, nu), at the paths' shapes: (4, 4) at the
+    # LQR fleet's (1,024 problems, T = 10), (6, 2) at the mixed fleet's
+    # (1,024, T = 20); both on the group kernel there.
+    timing = {}
+    for (nx, nu), (B, Th) in (((4, 4), (LQR_AGENTS, 10)), ((6, 2), (MIXED28[1], 20))):
+        stacks, _, _ = random_riccati_stacks(nx, nu, B, seed=28 * nx + nu, horizon=Th)
+        reg = (1e-6, 10.0, 16)
+        call = lambda s=stacks: k1.riccati_backward_pallas(*s, *reg)
+        plain = lambda s=stacks: k1.riccati_backward_pallas(
+            *s, *reg, explicit=k1.riccati_backward_explicit_plain)
+        event_ms([call] * 2)
+        ms, plain_ms = event_ms([call] * 20), event_ms([plain])
+        f = 4
+        bytes_ = f * B * (Th * (2 * nx * nx + nx * nu + nx + nu + nu * nu + nu * nx + nu + nu * nx)
+                          + nx + nx * nx)
+        bound = bound_of(bytes_, B * Th * lqr_stage_ops(nx, nu)[4])
+        timing[f"{nx}x{nu}"] = (ms, plain_ms, bound, B, Th)
+        log(f"  K4 explicit ({nx}, {nu}), B={B}, T={Th}: {ms:.6f} ms a wrapper call (with the "
+            f"batch-first conversions), plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms "
+            f"({bound[1]}), card {card}")
+    return out, timing
+
+
+def mpc28(entry, ilqr, stats, card):
+    """Phase 28f: run_mpc_nash under the trust region, GAME28_MPC's cars and
+    steps (all pairs)."""
+    import torch
+    from multi_agent_solver_tpu_torch.mpc import run_mpc_nash
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    from multi_agent_solver_tpu_torch.strategies import make_strategy
+    agents, steps = GAME28_MPC
+    log(f"[28] run_mpc_nash, trustregion, {agents} cars, {steps} steps of {entry.MAX_OUTER} "
+        f"sweeps, card {card}")
+    problem, _ = entry.coupled_game(agents, device=DEVICE)
+    strategy = make_strategy("trustregion", make_solver("ilqr", device=DEVICE),
+                             entry.COUPLED_PARAMS, entry.MAX_OUTER)
+    reset_counts(stats)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    trace = run_mpc_nash(problem, strategy, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = read_counts(stats)
+    if trace.states.shape != (steps + 1, agents, 4) or not torch.isfinite(trace.states).all():
+        fail(f"run_mpc_nash under trustregion: states {tuple(trace.states.shape)}")
+    solves = steps * entry.MAX_OUTER
+    log(f"  {agents * steps / wall:.1f} agent-steps/s ({wall:.3f} s); launches {launches}; "
+        f"step costs (mean) {trace.costs.mean(1).cpu().tolist()}")
+    n_iter = launches["K6"]
+    check_counts(launches, {"K2r": solves, "K6": n_iter, "K3ctx": n_iter, "K4": n_iter},
+                 "run_mpc_nash under trustregion", quiet=True)
+    return {"launches": launches, "agent_steps_per_s": agents * steps / wall, "wall_s": wall}
+
+
+def lqr_instantiation_keys(kernels, p28, errs):
+    """The JSON line's keys of phase 28's instantiations, added to their
+    kernels' entries: the LQR's K1, K2 select, K2 rollout and K3 hoist at
+    (4, 4) (B = LQR_AGENTS, T = LQR_CHECK_T), K4 explicit at (4, 4) and
+    (6, 2); each with its errors against the plain version, ms a wrapper
+    call, the plain version's ms and the bound."""
+    by_name = lambda prefix: next(e for e in kernels if e["name"].startswith(prefix))
+    rows = {"K1": "K1 riccati_fusedlin", "K2": "K2 forward_select (select",
+            "K2r": "K2 forward_rollout", "K3h": "K3 linearize, hoist"}
+    for key, prefix in rows.items():
+        ms, plain_ms, bound = p28["timing"][key]
+        err = p28["errs"][key]
+        by_name(prefix).update({"ms_lqr_4x4": ms, "plain_ms_lqr_4x4": plain_ms,
+                                **bound_keys(bound, "_lqr_4x4"), "max_abs_err_lqr_4x4": err[0],
+                                "max_rel_err_lqr_4x4": err[1], "batch_lqr_4x4": LQR_AGENTS,
+                                "T_lqr_4x4": LQR_CHECK_T})
+    by_name("K1 riccati_fusedlin").update(max_abs_err_lqr_4x4_continuous=p28["errs"]["K1cont"][0])
+    k4x = by_name("K4 riccati_backward, explicit")
+    for dims, (ms, plain_ms, bound, B, Th) in p28["k4x_timing"].items():
+        k4x.update({f"ms_{dims}": ms, f"plain_ms_{dims}": plain_ms, **bound_keys(bound, f"_{dims}"),
+                    f"batch_{dims}": B, f"T_{dims}": Th})
+    k4x["checked_dims"] = "phase 19: every EXPLICIT_DIMS entry (errors in max_abs_err)"
+
+
+def phase_28(entry, ilqr, stats, card):
+    """Phase 28, timed; every check fails the run."""
+    t28 = time.perf_counter()
+    errs, timing = lqr_kernels(stats, card)
+    fleet = lqr_fleet_strategies(entry, ilqr, stats, card)
+    games = game28(entry, ilqr, stats, card)
+    joint = joint28(entry, card)
+    mixed, k4x_timing = mixed28(entry, ilqr, stats, card)
+    mpc = mpc28(entry, ilqr, stats, card)
+    seconds = time.perf_counter() - t28
+    log(f"  phase 28: {seconds:.1f} s, card {card}")
+    return {"errs": errs, "timing": timing, "fleet": fleet, "games": games, "joint": joint,
+            "mixed": mixed, "k4x_timing": k4x_timing, "mpc": mpc, "seconds": seconds}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4204,6 +4708,8 @@ def main() -> None:
                 for name, label in REDESIGNED_KERNELS.items():
                     if name in line:
                         log(f"  {label}: " + line.strip())
+                if any(key in line for key in LQR_INSTANTIATIONS):
+                    log("  phase 28's instantiation: " + line.strip())
     # The instructions of the rollout's stage and of the hoist (SASS): their
     # issue floors at the main path's shapes.
     sass = sass_floors(_build.BUILD_DIR, MAIN_BATCH, T)
@@ -4333,6 +4839,8 @@ def main() -> None:
     fleet = fleet_mpc(entry, ilqr, stats, card)
     cart = cartpole_phase(entry, ilqr, stats, card)
     gmpc = game_mpc(entry, ilqr, stats, card)
+    # Phase 28: the other strategies and the LQR model.
+    p28 = phase_28(entry, ilqr, stats, card)
 
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
@@ -4352,7 +4860,13 @@ def main() -> None:
              f"cart-pole multistart {MULTISTART_N}": cart["multistart"]["launches"],
              f"cart-pole non-fused {CART_NONFUSED_B}": cart["nonfused"]["launches"],
              "cart-pole untagged cost 64": cart["untagged"]["launches"],
-             f"closed-loop game {GAME_MPC[0]} cars, {GAME_MPC[1]} steps": gmpc["launches"]}
+             f"closed-loop game {GAME_MPC[0]} cars, {GAME_MPC[1]} steps": gmpc["launches"],
+             **{f"LQR fleet {LQR_AGENTS}, {n}": v["launches"] for n, v in p28["fleet"].items()},
+             **{f"coupled game {GAME28[0]} cars {GAME28[1]}-NN, {n}": v["launches"]
+                for n, v in p28["games"].items()},
+             **{f"mixed fleet {n}": v["launches"] for n, v in p28["mixed"].items()},
+             f"closed-loop game {GAME28_MPC[0]} cars, {GAME28_MPC[1]} steps, trustregion":
+                 p28["mpc"]["launches"]}
     by_path = lambda key: {n: c[key] for n, c in paths.items()}
     general = branches["quadratic_cost=False"]["launches"]
     boxqp = branches["bound_mode=boxqp"]["launches"]
@@ -4547,11 +5061,18 @@ def main() -> None:
         status=REDESIGNED_K1, ms_20_calls=k1c_ms, device_ms=k1c_device,
         digests=list(k1c_digests))
     kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
+    lqr_instantiation_keys(kernels, p28, errs)
     log(f"  card {card}: fleet MPC {fleet['steps_per_s']:.1f} controller-steps/s at {MAIN_BATCH} "
         f"({fleet['step_ms']:.3f} ms a step); cart-pole {cart['solves_per_s']:.1f} solves/s at "
         f"{MAIN_BATCH}; closed-loop game {gmpc['agent_steps_per_s']:.1f} agent-steps/s at "
         f"{GAME_MPC[0]} cars; phases 25 / 26 / 27: {fleet['seconds']:.1f} / "
         f"{cart['seconds']:.1f} / {gmpc['seconds']:.1f} s")
+    log(f"  card {card}: LQR fleet {LQR_AGENTS} agents " + "; ".join(
+        f"{n} {v['agent_solves_per_s']:.1f} agent-solves/s" for n, v in p28["fleet"].items())
+        + f"; coupled game {GAME28[0]} cars " + "; ".join(
+        f"{n} {v['agent_solves_per_s']:.1f} agent-solves/s (host {v['host_ms']:.1f} ms of "
+        f"{v['wall_ms']:.1f})" for n, v in p28["games"].items())
+        + f"; phase 28: {p28['seconds']:.1f} s")
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -214,7 +214,8 @@ def k4_sweep(cs, entry):
         stacks = [k1.stage_major(a) for a in stacks]
         box = [k1.stage_major(a) for a in box]
         runs[f"explicit {nx}x{nu} clamp"] = lambda B, s=stacks: [a[..., :B] for a in s]
-        runs[f"explicit {nx}x{nu} boxqp"] = lambda B, s=stacks + box: [a[..., :B] for a in s]
+        if (nx, nu) not in k1.EXPLICIT_CLAMP_ONLY:
+            runs[f"explicit {nx}x{nu} boxqp"] = lambda B, s=stacks + box: [a[..., :B] for a in s]
     explicit_levels = k1.reg_ladder(BENCH_CONFIG.reg_init, BENCH_CONFIG.reg_factor,
                                     BENCH_CONFIG.reg_levels)
     out = {}

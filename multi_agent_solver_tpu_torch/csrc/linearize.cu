@@ -319,3 +319,9 @@ MAS_LINEARIZE_FLAT(single_track__circular_track, mas::SingleTrack, mas::Circular
 MAS_LINEARIZE(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)
 MAS_LINEARIZE_HESSIANS(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)
 MAS_LINEARIZE_FLAT(cartpole__cartpole_swing_up, mas::Cartpole, mas::CartpoleSwingUp)
+// The LQR's hoist (models/lqr.py, the size of examples/multi_agent_lqr.py):
+// its cost is quadratic and stationary, so the fused loop runs K1, and K3
+// only in its hoist mode.
+using Linear44 = mas::Linear<4, 4>;
+using Quadratic44 = mas::Quadratic<4, 4>;
+MAS_LINEARIZE_HESSIANS(linear_4x4__quadratic, Linear44, Quadratic44)

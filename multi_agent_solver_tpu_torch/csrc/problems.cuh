@@ -89,6 +89,60 @@ struct Cartpole {
   }
 };
 
+// Linear dynamics (models/lqr.py make_linear_dynamics):  f = A x + B u,
+// f_i = (sum_j A_ij x_j) + (sum_j B_ij u_j), each sum from column 0, as the
+// torch callable sums it.  Parameters: A, then B, row-major.  A linear
+// model comes in any size: the tag names its dims (linear_4x4), and each
+// size is an instantiation of its own.
+template <int NX_, int NU_>
+struct Linear {
+  static constexpr int NX = NX_;
+  static constexpr int NU = NU_;
+  static constexpr int NPARAMS = NX * NX + NX * NU;
+  float a[NX][NX], b[NX][NU];
+
+  static Linear from(const float* p) {
+    Linear f;
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX; ++j) f.a[i][j] = p[i * NX + j];
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NU; ++j) f.b[i][j] = p[NX * NX + i * NU + j];
+    return f;
+  }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      S ax = a[i][0] * x[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) ax = ax + a[i][j] * x[j];
+      S bu = b[i][0] * u[0];
+#pragma unroll
+      for (int j = 1; j < NU; ++j) bu = bu + b[i][j] * u[j];
+      f[i] = ax + bu;
+    }
+  }
+};
+
+// v' M v as the torch callables of models/lqr.py compute it, (v M) v:
+// w_j = sum_i v_i M_ij, then sum_j w_j v_j, each sum from index 0.
+template <int N, typename S>
+__device__ __forceinline__ S quadratic_form(const float (&m)[N][N], const S* v) {
+  S total = v[0] * m[0][0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) total = total + v[i] * m[i][0];
+  total = total * v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    S w = v[0] * m[0][j];
+#pragma unroll
+    for (int i = 1; i < N; ++i) w = w + v[i] * m[i][j];
+    total = total + w * v[j];
+  }
+  return total;
+}
+
 // What K1's linearization asks of a dynamics device function beyond f:
 // READS, the bit set of the state components f reads (default: all), and
 // hold(u), what f needs of a control that the RK4 step holds, evaluated
@@ -180,6 +234,28 @@ struct DiagQuadratic {
       c = c + wu[i] * (e * e);
     }
     return c;
+  }
+};
+
+// Quadratic stage cost (models/lqr.py quadratic_stage_cost):  x'Qx + u'Ru,
+// each form by quadratic_form.  Parameters: Q, then R, row-major.
+template <int NX, int NU>
+struct Quadratic {
+  static constexpr int NPARAMS = NX * NX + NU * NU;
+  float q[NX][NX], r[NU][NU];
+
+  static Quadratic from(const float* p) {
+    Quadratic c;
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX; ++j) c.q[i][j] = p[i * NX + j];
+    for (int i = 0; i < NU; ++i)
+      for (int j = 0; j < NU; ++j) c.r[i][j] = p[NX * NX + i * NU + j];
+    return c;
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x, const S* u) const {
+    return quadratic_form<NX>(q, x) + quadratic_form<NU>(r, u);
   }
 };
 
@@ -469,6 +545,26 @@ struct DiagQuadraticTerminal {
       c = c + w[i] * (e * e);
     }
     return c;
+  }
+};
+
+// Quadratic terminal cost (models/lqr.py quadratic_terminal_cost):  x'Qf x
+// by quadratic_form.  Parameters: Qf, row-major.
+template <int NX>
+struct QuadraticTerminal {
+  static constexpr int NPARAMS = NX * NX;
+  float q[NX][NX];
+
+  static QuadraticTerminal from(const float* p) {
+    QuadraticTerminal c;
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX; ++j) c.q[i][j] = p[i * NX + j];
+    return c;
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x) const {
+    return quadratic_form<NX>(q, x);
   }
 };
 

@@ -992,7 +992,11 @@ inline int reg_levels_from(const float* levels, int n_levels, RegLevels& reg) {
 constexpr int BLOCK = 128;
 
 // lb == nullptr: clamp mode; else boxqp with delta bounds lb / ub [T, NU, B].
-template <typename Dyn, typename Cost, typename Term>
+// BOXQP_MODES false instantiates the clamp mode alone (a model without
+// input bounds never runs K5, whose box QP at NU = 4 is the costliest part
+// of a build): a boxqp launch then returns cudaErrorNotSupported, which the
+// wrappers raise as NotImplementedError.
+template <typename Dyn, typename Cost, typename Term, bool BOXQP_MODES = true>
 int launch_riccati_fusedlin(const float* xs, const float* us, const float* lxx,
                             const float* luu, const float* lux, const float* lb,
                             const float* ub, const float* xT, float* k, float* K, int T, int B,
@@ -1009,11 +1013,14 @@ int launch_riccati_fusedlin(const float* xs, const float* us, const float* lxx,
 #define MAS_FUSEDLIN(BOX, DISC)                                                      \
   riccati_fusedlin_kernel<Dyn, Cost, Term, BOX, DISC><<<grid, BLOCK, 0, stream>>>( \
       xs, us, lxx, luu, lux, lb, ub, xT, k, K, dyn, cost, term, h, reg, T, B)
-  if (lb != nullptr && discrete)
-    MAS_FUSEDLIN(true, true);
-  else if (lb != nullptr)
-    MAS_FUSEDLIN(true, false);
-  else if (discrete)
+  if (lb != nullptr) {
+    if constexpr (!BOXQP_MODES)
+      return static_cast<int>(cudaErrorNotSupported);
+    else if (discrete)
+      MAS_FUSEDLIN(true, true);
+    else
+      MAS_FUSEDLIN(true, false);
+  } else if (discrete)
     MAS_FUSEDLIN(false, true);
   else
     MAS_FUSEDLIN(false, false);
@@ -1108,8 +1115,9 @@ int launch_riccati_backward(const float* A, const float* Bm, const float* lx, co
 
 // K4's explicit-terminal mode: per-stage Hessian stacks (H = T), the
 // initial value v_x0 [NX, B], v_xx0 [NX, NX, B] given.  lb == nullptr: clamp
-// mode, else boxqp with delta bounds lb / ub [T, NU, B].
-template <int NX, int NU>
+// mode, else boxqp with delta bounds lb / ub [T, NU, B]; BOXQP_MODES as in
+// launch_riccati_fusedlin.
+template <int NX, int NU, bool BOXQP_MODES = true>
 int launch_riccati_explicit(const float* A, const float* Bm, const float* lx, const float* lu,
                             const float* lxx, const float* luu, const float* lux,
                             const float* lb, const float* ub, const float* vx0,
@@ -1118,11 +1126,14 @@ int launch_riccati_explicit(const float* A, const float* Bm, const float* lx, co
   RegLevels reg;
   if (const int err = reg_levels_from(levels, n_levels, reg)) return err;
   const GivenValue given{};
-  if (lb != nullptr)
-    launch_backward_one<GivenValue, NX, NU, true, false>(A, Bm, lx, lu, lxx, luu, lux, lb, ub,
-                                                         vx0, vxx0, k, K, given, reg, T, B,
-                                                         stream);
-  else
+  if (lb != nullptr) {
+    if constexpr (!BOXQP_MODES)
+      return static_cast<int>(cudaErrorNotSupported);
+    else
+      launch_backward_one<GivenValue, NX, NU, true, false>(A, Bm, lx, lu, lxx, luu, lux, lb,
+                                                           ub, vx0, vxx0, k, K, given, reg, T,
+                                                           B, stream);
+  } else
     launch_backward_one<GivenValue, NX, NU, false, false>(A, Bm, lx, lu, lxx, luu, lux, lb,
                                                           ub, vx0, vxx0, k, K, given, reg, T,
                                                           B, stream);

@@ -19,6 +19,12 @@
   ``run_mpc_batched`` with :data:`FLEET_PARAMS`) and the cart-pole swing-up batch
   of ``examples/cartpole_swing_up.py`` (``cartpole_specs``,
   :data:`CARTPOLE_CONFIG`).
+* The multi-agent LQR of ``examples/multi_agent_lqr.py`` (``lqr_fleet``:
+  agents 0-3 at the example's x0, the rest drawn from a seed; ``lqr_joint``:
+  its block-diagonal joint OCP), solved under the four strategies, and the
+  mixed fleet of ``tests/test_hetero.py`` (``mixed_fleet``: single-track
+  cars beside (2, 1) LQR agents, padded to one stack by
+  ``strategies/hetero.py``).
 * The single problem of ``examples/single_track_ocp.py``
   (``single_track_ocp``, :data:`SINGLE_PARAMS`), solved through
   ``make_solver("ilqr", ...).solve(ocp)``, and the non-fused path's
@@ -32,11 +38,15 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from .agent import Agent
 from .examples.cartpole_swing_up import create_cartpole_swingup_ocp
+from .examples.multi_agent_lqr import PARAMS as LQR_PARAMS
+from .examples.multi_agent_lqr import build_problem as build_lqr_problem
 from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
 from .examples.single_track_mpc import PARAMS as FLEET_PARAMS
 from .examples.single_track_mpc import fleet_specs
@@ -48,6 +58,9 @@ from .derivatives import make_derivatives
 from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost, synthesized_objective,
                   with_state_bound_constraints)
 from .models import (
+    make_linear_dynamics,
+    quadratic_stage_cost,
+    quadratic_terminal_cost,
     single_track_control_jacobian,
     single_track_model,
     single_track_state_jacobian,
@@ -264,3 +277,82 @@ def untagged_specs(batch: int, device="cuda", horizon: int = 80) -> OCPSpec:
         cost, specs.terminal_cost), derivs=make_derivatives(
         specs.dynamics, cost, specs.terminal_cost, step_fx=specs.derivs.step_fx,
         step_fu=specs.derivs.step_fu))
+
+
+def lqr_x0(n_agents: int, seed: int = 0) -> np.ndarray:
+    """The LQR fleet's initial states ``[N, 4]``: U(-1, 1) from
+    ``RandomState(seed)``, agents 0-3 at the example's (1, 0, 0, 0)."""
+    x0 = np.random.RandomState(seed).uniform(-1.0, 1.0, (n_agents, 4)).astype(np.float32)
+    x0[:4] = (1.0, 0.0, 0.0, 0.0)
+    return x0
+
+
+def lqr_fleet(n_agents: int, seed: int = 0, dtype=torch.float32,
+              device="cuda") -> MultiAgentProblem:
+    """``examples/multi_agent_lqr.py``'s problem with ``n_agents`` agents
+    from :func:`lqr_x0`: homogeneous and uncoupled, so every strategy
+    stacks it (the centralized one by its dispatch) and each agent's
+    optimum is its own.  Solve it with :data:`LQR_PARAMS`."""
+    return build_lqr_problem(n_agents, lqr_x0(n_agents, seed), dtype, device)
+
+
+def lqr_joint(n_agents: int, dtype=torch.float32, device="cuda") -> OCP:
+    """The example's ``n_agents``-agent problem (every agent at (1, 0, 0,
+    0)) as one block-diagonal joint OCP (``build_global_ocp``): untagged
+    joint functions, ``4 n_agents`` states and controls."""
+    return build_lqr_problem(n_agents, None, dtype, device).build_global_ocp()
+
+
+# The mixed fleet's solver parameters (tests/test_hetero.py).
+MIXED_PARAMS = {"max_iterations": 40, "tolerance": 1e-6, "max_ms": 10000}
+MIXED_HORIZON = 20
+
+
+def _shared_lane_cost(x, u, t):
+    return (10.0 * x[..., 1] ** 2 + (x[..., 3] - 1.0) ** 2
+            + 0.1 * (u[..., 0] ** 2 + u[..., 1] ** 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_lqr_functions():
+    """The (2, 1) LQR agent's functions: A = I, B = e_1, Q = R = Qf = I."""
+    return (make_linear_dynamics(torch.eye(2), torch.eye(2, 1)),
+            quadratic_stage_cost(torch.eye(2), torch.eye(1)),
+            quadratic_terminal_cost(torch.eye(2)))
+
+
+def mixed_fleet(n_agents: int, seed: int = 0, dtype=torch.float32,
+                device="cuda") -> MultiAgentProblem:
+    """Single-track cars (nx = 4, nu = 2, input bounds, the lane cost of
+    ``tests/test_hetero.py``) and (2, 1) LQR agents (unbounded): agent i is
+    an LQR agent where ``i % 3 == 1``.  The first three agents are
+    ``tests/test_hetero.py``'s (cars at (0, 1, 0, 0) and (0, -1, 0, 0.5),
+    the LQR agent at (1, 0)); the others start from ``RandomState(seed)``
+    draws (cars: y U(-1.5, 1.5), v U(0, 0.5); LQR agents U(-1, 1)).  T = 20,
+    dt = 0.1; solve it with :data:`MIXED_PARAMS`."""
+    rng = np.random.RandomState(seed)
+    n = max(n_agents, 3)
+    cars = np.zeros((n, 4), np.float32)
+    cars[:, 1] = rng.uniform(-1.5, 1.5, n)
+    cars[:, 3] = rng.uniform(0.0, 0.5, n)
+    lqrs = rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32)
+    cars[0], cars[2] = (0.0, 1.0, 0.0, 0.0), (0.0, -1.0, 0.0, 0.5)
+    lqrs[1] = (1.0, 0.0)
+    dyn, stage, term = _mixed_lqr_functions()
+    problem = MultiAgentProblem()
+    for i in range(n_agents):
+        if i % 3 == 1:
+            ocp = OCP(state_dim=2, control_dim=1, horizon_steps=MIXED_HORIZON, dt=0.1,
+                      initial_state=torch.as_tensor(lqrs[i], dtype=dtype), dynamics=dyn,
+                      stage_cost=stage, terminal_cost=term, device=device)
+        else:
+            ocp = OCP(state_dim=4, control_dim=2, horizon_steps=MIXED_HORIZON, dt=0.1,
+                      initial_state=torch.as_tensor(cars[i], dtype=dtype),
+                      dynamics=single_track_model, stage_cost=_shared_lane_cost,
+                      dynamics_state_jacobian=single_track_state_jacobian,
+                      dynamics_control_jacobian=single_track_control_jacobian,
+                      input_lower_bounds=torch.tensor([-0.7, -1.0], dtype=dtype),
+                      input_upper_bounds=torch.tensor([0.7, 1.0], dtype=dtype), device=device)
+        ocp.initialize_problem()
+        problem.add_agent(Agent(i, ocp))
+    return problem

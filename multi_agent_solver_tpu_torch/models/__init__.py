@@ -5,6 +5,7 @@ from .cartpole import (
     cartpole_swing_up_stage_cost,
     cartpole_swing_up_terminal_cost,
 )
+from .lqr import make_linear_dynamics, quadratic_stage_cost, quadratic_terminal_cost
 from .pendulum import pendulum_control_jacobian, pendulum_dynamics, pendulum_state_jacobian
 from .single_track import (
     single_track_control_jacobian,
@@ -22,4 +23,7 @@ __all__ = [
     "cartpole_dynamics",
     "cartpole_swing_up_stage_cost",
     "cartpole_swing_up_terminal_cost",
+    "make_linear_dynamics",
+    "quadratic_stage_cost",
+    "quadratic_terminal_cost",
 ]

@@ -156,8 +156,11 @@ def run_mpc_nash(
     plant and shifts the warm starts.
 
     ``problem``: a homogeneous ``MultiAgentProblem`` (optionally with
-    ``inter_agent_cost``); ``strategy``: a strategy of
-    ``strategies.make_strategy``.  Returns step-major leaves: states
+    ``inter_agent_cost``); ``strategy``: a Nash strategy of
+    ``strategies.make_strategy`` -- ``sequential``, ``linesearch`` or
+    ``trustregion``; each step runs its ``_run_stacked`` (the line search's
+    backtracking and the trust regions' radii start afresh every step, as
+    in the JAX package).  Returns step-major leaves: states
     ``[n_steps+1, N, nx]``, controls ``[n_steps, N, nu]``, costs
     ``[n_steps, N]``, and zero iterations ``[n_steps]``.
     """

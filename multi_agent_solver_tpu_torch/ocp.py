@@ -9,6 +9,7 @@ PyTorch counterpart of the solver-facing part of
 * :class:`OCP` -- the mutable problem description with the reference's
   field names and lifecycle (``initialize_problem``, ``reset``,
   ``update_initial_with_best``, ``set_result``, ``spec()``).
+* :func:`cost_of` -- the objective of a given trajectory;
 * :func:`with_context_cost` -- a spec whose stage cost takes a per-stage
   context ``stage_cost(x, u, t, ctx_t)``: how the other agents' plans reach
   one agent's solve in a coupled game.
@@ -206,6 +207,12 @@ def rollout_and_cost(spec: OCPSpec, controls: Tensor):
     return xs, spec.cost(xs, controls)
 
 
+def cost_of(spec: OCPSpec, states: Tensor, controls: Tensor) -> Tensor:
+    """The spec's objective of a given trajectory (context-aware through
+    :meth:`OCPSpec.cost`)."""
+    return spec.cost(states, controls)
+
+
 def synthesized_objective(stage_cost: Callable, terminal_cost: Callable) -> Callable:
     """Default objective: stage costs plus terminal cost."""
     return lambda X, U: compute_trajectory_cost(X, U, stage_cost, terminal_cost)
@@ -326,6 +333,9 @@ class OCP:
         self.cost_control_gradient = None
         self.cost_state_hessian = None
         self.cost_control_hessian = None
+        self.cost_cross_term = None
+        self.terminal_cost_gradient = None
+        self.terminal_cost_hessian = None
 
         self.initial_state = None
         self.initial_states = None
@@ -390,6 +400,32 @@ class OCP:
         self.initial_states, cost = rollout_and_cost(self.spec(), self.initial_controls)
         self.set_result(self.initial_states, self.initial_controls, cost)
 
+    def verify_problem(self) -> bool:
+        """Consistency checks of the fields (the reference's assert-based
+        ``verify_problem``)."""
+        assert self.state_dim != 0, "No state dimension"
+        assert self.control_dim != 0, "No control dimension"
+        assert self.horizon_steps != 0, "No horizon dimension"
+        assert self.dt != 0.0, "dt is 0.0"
+        assert tuple(self.initial_state.shape) == (self.state_dim,), (
+            "Initial state size does not match state dimension")
+        for name, dim in (("state_lower_bounds", self.state_dim),
+                          ("state_upper_bounds", self.state_dim),
+                          ("input_lower_bounds", self.control_dim),
+                          ("input_upper_bounds", self.control_dim)):
+            bound = getattr(self, name)
+            if bound is not None:
+                assert tuple(bound.shape) == (dim,), f"{name} size mismatch"
+        spec = self.spec()
+        out = self.dynamics(self.best_states[0], self.best_controls[0])
+        assert tuple(out.shape) == (self.state_dim,), "Dynamics output size mismatch"
+        spec.objective_function(self.best_states, self.best_controls)
+        for constraint in (self.inequality_constraints, self.equality_constraints):
+            if constraint is not None:
+                c = constraint(self.best_states[0], self.best_controls[0])
+                assert c.dim() == 1, "Constraints output invalid shape"
+        return True
+
     def spec(self) -> OCPSpec:
         """The frozen solver-facing spec of the current fields.  The
         derivative bundle is built once and cached; call :meth:`invalidate`
@@ -411,6 +447,9 @@ class OCP:
                 lu=self.cost_control_gradient,
                 lxx=self.cost_state_hessian,
                 luu=self.cost_control_hessian,
+                lux=self.cost_cross_term,
+                phix=self.terminal_cost_gradient,
+                phixx=self.terminal_cost_hessian,
             )
         derivs = self._derivs
         objective = self.objective_function

@@ -1,8 +1,8 @@
 """Build, load and call the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one process per
-source, all started together) and links one shared library with a plain C
-interface, loaded with ``ctypes``.  The build runs at first use, into
+source, at most one a core, the longest first) and links one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at first use, into
 ``build/torch_kernels/`` under the repository root, keyed by a hash of the
 sources and flags so an edited source is rebuilt.  Nothing here runs at
 import time: CPU-only installs import the package without ``nvcc``.
@@ -14,7 +14,8 @@ with (``mas_<kernel>__<dynamics>__<stage cost>[__<terminal cost>]``; a
 coupled stage cost is named ``coupled_<base>_<pair>``; the select kernel's
 AL mode appends ``__<equality>__<inequality>`` constraint names, ``none``
 for an absent side), so a problem without a matching instantiation raises
-``NotImplementedError``.
+``NotImplementedError``; so does a launcher built without the mode asked
+for (it returns ``cudaErrorNotSupported``).
 """
 
 from __future__ import annotations
@@ -44,11 +45,17 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # (nx, nu) of each dynamics device function, and the number of float
-# parameters each device function reads, given (nx, nu).
+# parameters each device function reads, given (nx, nu).  A linear model
+# comes in any size, so its tag names its dims (LINEAR + "4x4": Linear<4, 4>)
+# and each size is an instantiation of its own.
 DYNAMICS_DIMS = {"single_track": (4, 2), "cartpole": (4, 1)}
+LINEAR = "linear_"
 PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
     "cartpole": lambda nx, nu: 6,
+    "linear": lambda nx, nu: nx * nx + nx * nu,
+    "quadratic": lambda nx, nu: nx * nx + nu * nu,
+    "quadratic_terminal": lambda nx, nu: nx * nx,
     "cartpole_swing_up": lambda nx, nu: 5,
     "cartpole_swing_up_terminal": lambda nx, nu: 4,
     "diag_quadratic": lambda nx, nu: 2 * (nx + nu),
@@ -59,6 +66,18 @@ PARAM_COUNT = {
     "none": lambda nx, nu: 0,
 }
 BOUND_ROWS = "bound_rows"   # + M: BoundRows<M>, three parameters a row
+# What a launcher returns for a mode it was built without (riccati.cuh:
+# BOXQP_MODES).
+CUDA_ERROR_NOT_SUPPORTED = 801
+
+
+def dynamics_dims(name: str):
+    """``(nx, nu)`` of the dynamics device function ``name``, None if it
+    fixes none."""
+    if name.startswith(LINEAR):
+        nx, _, nu = name[len(LINEAR):].partition("x")
+        return int(nx), int(nu)
+    return DYNAMICS_DIMS.get(name)
 
 
 def _param_count(tag, nx: int, nu: int) -> int:
@@ -68,7 +87,8 @@ def _param_count(tag, nx: int, nu: int) -> int:
         return sum(_param_count(p, nx, nu) for p in tag.parts)
     if tag.name.startswith(BOUND_ROWS):
         return 3 * int(tag.name[len(BOUND_ROWS):])
-    return PARAM_COUNT[tag.name](nx, nu) if tag.name in PARAM_COUNT else len(tag.params)
+    name = "linear" if tag.name.startswith(LINEAR) else tag.name
+    return PARAM_COUNT[name](nx, nu) if name in PARAM_COUNT else len(tag.params)
 
 
 @dataclasses.dataclass
@@ -82,6 +102,12 @@ class KernelStats:
         self.launches = 0
         self.plain_calls = 0
 
+
+# The sources that take longest to compile, longest first: the (8, 4) box
+# QP's 81 configurations in the two riccati_explicit_wide sources, then
+# K8's AL instantiations (build.log gives each source's seconds).
+LONG_POLES = ("riccati_explicit_wide.cu", "riccati_explicit_wide_group.cu",
+              "forward_select_emit_al.cu", "riccati_explicit.cu", "linearize.cu")
 
 _lib = None
 build_seconds = None   # wall time of the build done by this process, if any
@@ -110,16 +136,26 @@ def build_library() -> Path:
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
+    # At most one nvcc a core, the longest compiles first: with every source
+    # started at once the long poles share their cores with the short ones
+    # and end last, later than they would alone.
+    queue = sorted(sources, key=lambda src: (src.name not in LONG_POLES,
+                                             LONG_POLES.index(src.name)
+                                             if src.name in LONG_POLES else 0, src.name))
+    slots = max(1, len(os.sched_getaffinity(0)))
     procs = []
-    for src in sources:
-        obj = obj_dir / (src.stem + ".o")
-        out = open(obj_dir / (src.stem + ".log"), "w+")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, out, subprocess.Popen(
-            cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
-    # Each source's compile time, for the build report.
+    # Each source's compile time since the build began, for the build report.
     seconds = {}
-    while len(seconds) < len(procs):
+    while len(seconds) < len(sources):
+        running = sum(1 for src, *_, proc in procs if src.name not in seconds)
+        while queue and running < slots:
+            src = queue.pop(0)
+            obj = obj_dir / (src.stem + ".o")
+            out = open(obj_dir / (src.stem + ".log"), "w+")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, out, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
+            running += 1
         for src, _, _, proc in procs:
             if src.name not in seconds and proc.poll() is not None:
                 seconds[src.name] = time.perf_counter() - start
@@ -168,9 +204,10 @@ def problem_symbol(kernel: str, nx: int, nu: int, dynamics, *costs) -> tuple:
             "kernel cannot evaluate them; use CPU tensors for the plain "
             "PyTorch version, or add a device function in csrc/problems.cuh"
         )
-    if DYNAMICS_DIMS.get(tags[0].name, (nx, nu)) != (nx, nu):
-        raise ValueError(f"{kernel}: {tags[0].name} has (nx, nu) = "
-                         f"{DYNAMICS_DIMS[tags[0].name]}, the tensors {(nx, nu)}")
+    dims = dynamics_dims(tags[0].name)
+    if dims is not None and dims != (nx, nu):
+        raise ValueError(f"{kernel}: {tags[0].name} has (nx, nu) = {dims}, the tensors "
+                         f"{(nx, nu)}")
     for t in tags:
         want = _param_count(t, nx, nu)
         if len(t.params) != want:
@@ -216,6 +253,10 @@ def launch(symbol: str, *args) -> None:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     err = fn(*c_args)
+    if err == CUDA_ERROR_NOT_SUPPORTED:
+        raise NotImplementedError(
+            f"{symbol}: this mode of the kernel is not instantiated for these device "
+            "functions (e.g. boxqp for a model without input bounds)")
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
 

@@ -4,7 +4,9 @@ Counterpart of ``multi_agent_solver_tpu/strategies/base.py``.  Agents that
 share their problem functions and dimensions differ only in their tensors
 (initial state, warm start, bounds); their specs stack along a leading
 batch axis, so a Nash sweep is ONE batched solver call with every agent a
-batch lane.  Heterogeneous agents are not ported yet.
+batch lane.  Agents of mixed types are padded to one stack
+(``strategies/hetero.py``) or, where they cannot be, solved one by one in
+a host loop.
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ from ..types import SolverParams, resolve_device
 
 def _statics(ocp: OCP) -> tuple:
     """What the JAX package's spec tree structure compares: the problem
-    functions, dimensions, and which bounds are set."""
+    functions, dimensions, and which bounds -- input and state -- are set."""
     return (ocp.dynamics, ocp.stage_cost, ocp.terminal_cost, ocp.objective_function,
             ocp.equality_constraints, ocp.inequality_constraints,
             ocp.dynamics_state_jacobian, ocp.dynamics_control_jacobian,
             ocp.state_dim, ocp.control_dim, ocp.horizon_steps, float(ocp.dt),
-            ocp.derivative_mode, ocp.input_lower_bounds is None, ocp.input_upper_bounds is None)
+            ocp.derivative_mode, ocp.input_lower_bounds is None, ocp.input_upper_bounds is None,
+            ocp.state_lower_bounds is None, ocp.state_upper_bounds is None)
 
 
 def agents_are_homogeneous(problem: MultiAgentProblem) -> bool:
@@ -114,14 +117,15 @@ def available_strategy_names():
 
 
 def make_strategy(name: str, solver: SolverBase, params: SolverParams, max_outer: int):
-    """The strategy ``name`` over ``solver`` with ``params``; the strategies
-    not ported yet raise ``NotImplementedError``."""
+    """The strategy ``name`` over ``solver`` with ``params``: the centralized
+    strategy takes the solver with its params set (``max_outer`` unused),
+    the Nash strategies ``max_outer`` sweeps."""
     canonical = canonical_strategy_name(name)
-    if canonical not in _STRATEGIES:
-        raise NotImplementedError(
-            f"the {canonical} strategy is not ported yet (ROADMAP: queue 1, multi-agent -- "
-            f"{canonical})")
-    return _STRATEGIES[canonical](max_outer, solver, params)
+    cls = _STRATEGIES[canonical]
+    if canonical == "centralized":
+        solver.set_params(params)
+        return cls(solver)
+    return cls(max_outer, solver, params)
 
 
 def solve(strategy, problem: MultiAgentProblem) -> Solution:

@@ -23,7 +23,7 @@
 #define __maxnreg__(...)
 #define __shared__ static
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 inline int cudaGetLastError() { return cudaSuccess; }
 
 struct dim3 {

@@ -29,6 +29,7 @@ cannot be compared agent by agent.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -302,18 +303,26 @@ def test_strategy_probes_once_per_call(monkeypatch):
 @pytest.mark.parametrize("case", ["linesearch", "trustregion", "centralized", "heterogeneous",
                                   "build_global_ocp"])
 def test_unported_strategy_routes_raise(case):
+    """Named for the routes that raised NotImplementedError before they were
+    ported; each now runs on the 3-car coupled game: the line search, the
+    trust region, the centralized strategy (coupled: the literal joint
+    solve), a mix of agent types (the padded stack, coupled through its
+    dispatch stage cost) and the joint OCP (12 states, 6 controls)."""
     problem, _ = entry.coupled_game(3, device="cpu")
     solver = make_solver("ilqr", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case in ("linesearch", "trustregion", "centralized"):
-            make_strategy(case, solver, GAME["params"], 2)(problem)
-        elif case == "heterogeneous":
-            other = t_circ.create_single_track_circular_ocp(0.5, device="cpu")
-            other.stage_cost = lambda x, u, t: (x[..., 0] ** 2)
-            problem.add_agent(Agent(7, other))
-            make_strategy("sequential", solver, GAME["params"], 2)(problem)
-        else:
-            problem.build_global_ocp()
+    if case == "build_global_ocp":
+        g = problem.build_global_ocp()
+        assert (g.state_dim, g.control_dim) == (12, 6) and math.isfinite(g.best_cost)
+        return
+    if case == "heterogeneous":
+        other = t_circ.create_single_track_circular_ocp(0.5, device="cpu")
+        other.stage_cost = lambda x, u, t: (x[..., 0] ** 2)
+        other.invalidate()
+        problem.add_agent(Agent(7, other))
+        case = "sequential"
+    sol = make_strategy(case, solver, GAME["params"], 2)(problem)
+    assert len(sol.costs) == len(problem.agents)
+    assert all(math.isfinite(c) for c in sol.costs)
 
 
 def test_al_constrained_context_solve_still_raises():
