@@ -203,6 +203,21 @@ and, run after phase 5 and before 6 and 7, in this order:
    (6, 2) counted, the LQR agent on its solo optimum; K4 explicit at (4,
    4) and (6, 2) timed at those paths' shapes; ``run_mpc_nash`` under
    ``trustregion``, 64 cars, 5 steps;
+29. the model zoo on the kernels: the instantiations of the rocket (3, 1),
+   the dynamic bicycle (6, 2), the quadrotors (12, 4) and (16, 4) -- K1 in
+   both Jacobian modes, K2's rollout and select, K3's hoist -- and of the
+   pendulum swing-up (2, 1), whose stage cost reads the stage index -- K2,
+   K3 with Hessians in both modes, K4 with its terminal cost in the kernel
+   -- against their plain versions at 1,024 problems, T = 10; each model
+   solved on its kernels (the rocket at 262,144, T = 50, 25 iterations;
+   the bicycle at 32,768, T = 30; both quadrotors at 8,192, T = 40; 10
+   iterations), launch counts, the first 64 costs on zoo_anchors.py's JAX
+   float64 anchors (rtol 1e-4), solves/s and each kernel timed at the
+   solve's shapes with its bound; the pendulum's fused general branch at
+   262,144, T = 60, and one iteration of 1,024 of them against the
+   non-fused route; the rocket's fd route (4,096) against the plain
+   versions; the quadrotor's non-fused route (K4 explicit at (12, 4)); the
+   example's single rocket solve beside the JAX value;
 6. one JSON line listing every ported kernel (K1-K10, K2's rollout
    kernel, K3's hoist mode, K6's AL mode and its AL and context mode, K4's
    explicit-terminal mode and the continuous modes of K1 and K3; K6's
@@ -315,6 +330,13 @@ GAME_ANCHORS = {
 }
 KNIFE_EDGE_MOVES = tuple((c, d) for c in (0, 1, 3) for d in (float("inf"), float("-inf")))
 KNIFE_EDGE_Z = 3.0
+# Phase 23 plays each constrained row with three of those moves (x and y
+# up, v down), the spread then from four games: the run pays for phase 29
+# with the three games a row it saves (~7 s each on the 64- and 256-car
+# rows, less on the 64-car game against the plain versions).  Phase 14
+# keeps all six: with three, its 256-car anchor lay 3.58 std from the four
+# games' mean on an H100, 1.91 from the seven games' with six.
+SHORT_KNIFE_EDGE_MOVES = ((0, float("inf")), (1, float("inf")), (3, float("-inf")))
 # The context select is knife-edge as well: the collision cost's indefinite
 # Hessians give large feedback gains on these rings, and a one-ulp move of
 # x0 moves some plain-version problems beyond the select tolerances (phase
@@ -323,7 +345,7 @@ KNIFE_EDGE_Z = 3.0
 SELECT_SHARE = 0.995
 GAME_TIMED = 5
 # The constrained game's rows take 6-8 s a call (1,000 iterations) and
-# phase 23 plays each row 7 times for its anchor check; phase 24 times one
+# phase 23 plays each row 4 times for its anchor check; phase 24 times one
 # call a row (the call its launch counts are read around), which keeps the
 # run near 1,000 s of its 1,200 s limit on a slow host.
 CONSTRAINED_TIMED = 1
@@ -541,16 +563,46 @@ DEVICE = "cuda"
 def compare(name, got, want, rtol, atol):
     """``(ok, max abs error, max abs error / max |want|)`` of ``got`` against
     ``want``; ok is False if any element is outside ``atol + rtol |want|``
-    (NaNs count as outside)."""
+    (NaNs count as outside).  ``atol`` may be a tensor that broadcasts
+    against ``want``: a floor for each problem."""
     got = got.detach().double().cpu().numpy()
     want = want.detach().double().cpu().numpy()
+    if hasattr(atol, "detach"):
+        atol = atol.detach().double().cpu().numpy()
+    atol = np.asarray(atol, np.float64)
     err = np.abs(got - want)
     bad = ~(err <= atol + rtol * np.abs(want))
     max_abs = float(np.max(err)) if err.size else 0.0
     max_rel = max_abs / max(float(np.max(np.abs(want))), 1e-30) if err.size else 0.0
+    floor = (f"{float(atol):g}" if atol.ndim == 0 else
+             f"per problem {float(atol.min()):g} to {float(atol.max()):g}")
     log(f"  {name:28s} max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-        f"(rtol {rtol:g}, atol {atol:g}) {'OK' if not bad.any() else 'MISMATCH %d' % bad.sum()}")
+        f"(rtol {rtol:g}, atol {floor}) {'OK' if not bad.any() else 'MISMATCH %d' % bad.sum()}")
     return (not bad.any()), max_abs, max_rel
+
+
+class ErrorBook(dict):
+    """The largest absolute and relative error of each key over its
+    checks (``compare``'s results); ``ok`` until one of them fails."""
+    ok = True
+
+    def record(self, key, results):
+        for good, max_abs, max_rel in results:
+            self.ok = self.ok and good
+            a, r = self.get(key, (0.0, 0.0))
+            self[key] = (max(a, max_abs), max(r, max_rel))
+
+
+def term_scale(spec, xs, us, xT):
+    """Each problem's sum of |stage cost| over the stages and |terminal
+    cost| (``xs [T, nx, B]``, ``us [T, nu, B]``, ``xT [nx, B]``): the
+    scale of the rounding of a float32 sum of its cost, where its terms
+    cancel (for a cost whose terms are all of one sign, |cost|)."""
+    from multi_agent_solver_tpu_torch.ops.forward_select import stage_fn
+    total = spec.terminal_cost(xT.T).abs()
+    for t in range(xs.shape[0]):
+        total = total + stage_fn(spec, None, t)(xs[t].T, us[t].T, t).abs()
+    return total
 
 
 def event_times(fn, reps):
@@ -2159,13 +2211,14 @@ def counted_solves(strategy, stats):
     return record
 
 
-def knife_edge(entry, agents, neighbors, sweeps, nominal, game=None, params=None):
+def knife_edge(entry, agents, neighbors, sweeps, nominal, game=None, params=None,
+               moves=KNIFE_EDGE_MOVES):
     """Totals of the game (``game``, None: ``entry.coupled_game``; with
-    ``params``) through the kernels with x0 moved by one ulp
-    (KNIFE_EDGE_MOVES), beside the nominal total: ``(totals, mean, std)``."""
+    ``params``) through the kernels with x0 moved by one ulp (``moves``),
+    beside the nominal total: ``(totals, mean, std)``."""
     game = entry.coupled_game if game is None else game
     totals = [nominal]
-    for coord, direction in KNIFE_EDGE_MOVES:
+    for coord, direction in moves:
         problem, strategy = game(agents, neighbors, sweeps, params, device=DEVICE)
         totals.append(float(strategy(perturbed(problem, coord, direction)).total_cost))
     return totals, float(np.mean(totals)), float(np.std(totals, ddof=1))
@@ -3233,7 +3286,8 @@ def constrained_games(entry, ilqr, stats):
             f"K6alctx = K3ctx = K4 = iterations, no other kernel; in all {total_launches}")
         n_conv, v_conv = feasible_converged([r for _, _, r in solves], f"constrained game {tag}")
         totals, mean, std = knife_edge(entry, agents, neighbors, entry.MAX_OUTER,
-                                       solution.total_cost, entry.constrained_game)
+                                       solution.total_cost, entry.constrained_game,
+                                       moves=SHORT_KNIFE_EDGE_MOVES)
         z = abs(anchor["total"] - mean) / std
         log(f"  total {solution.total_cost!r} anchor {anchor['total']} (rel "
             f"{abs(solution.total_cost - anchor['total']) / anchor['total']:.3e}); per-agent "
@@ -3263,7 +3317,7 @@ def constrained_games(entry, ilqr, stats):
         res[name] = strategy(problem)
         log(f"  {name}: total {res[name].total_cost!r}, {time.perf_counter() - t0:.3f} s")
     totals, mean, std = knife_edge(entry, agents, neighbors, 2, res["kernels"].total_cost,
-                                   entry.constrained_game, params)
+                                   entry.constrained_game, params, SHORT_KNIFE_EDGE_MOVES)
     z = abs(res["plain"].total_cost - mean) / std
     log(f"  kernels' knife-edge totals {[round(t, 4) for t in totals]}, std {std:.4f}; plain "
         f"total at {z:.2f} std (limit {KNIFE_EDGE_Z}) {'OK' if z <= KNIFE_EDGE_Z else 'MISMATCH'}")
@@ -3754,20 +3808,10 @@ def time_kernels(spec, B, with_plain, hoist_ops):
 # loop through the single solve over SINGLE_MPC_STEPS steps.
 FLEET_STEPS, FLEET_CHECK_B, FLEET_CHECK_STEPS, SINGLE_MPC_STEPS = 20, 2048, 5, 3
 FLEET_ATOL, FLEET_COST_RTOL = 1e-3, 1e-4
-# Phase 26: the cart-pole's horizon, its warm timed calls, the batch of its
-# kernel checks, the multi-start's starts and the non-fused route's batch.
-CART_T, CART_TIMED, CART_CHECK_B, MULTISTART_N, CART_NONFUSED_B = 60, 3, 1024, 1024, 4096
-# The cart-pole's float32 operations, counted from its device functions
-# (csrc/problems.cuh; sin and cos one operation each): f 24, an RK4 step
-# 4 f + 52, the stage cost 16, a control with its clamp 16; K3 with
-# Hessians the RK4 step and the cost in Dual<float, 5> (about 11 operations
-# a value operation) and the cost in Dual<Dual<float, 5>, 5> (about 121);
-# without Hessians the first-order pass alone.  K4's stage is counted as
-# the (4, 2) stage core, OPS_STAGE_CORE, more than (4, 1) needs: its bytes
-# bind at either count.
-OPS_CP_RK4, OPS_CP_COST, OPS_CP_CONTROL = 148, 16, 16
-OPS_CP_K3_NOHESS = (OPS_CP_RK4 + OPS_CP_COST) * 11
-OPS_CP_K3 = OPS_CP_K3_NOHESS + OPS_CP_COST * 121
+# Phase 26: the cart-pole's horizon, its warm timed calls, the multi-start's
+# starts and the non-fused route's batch; its kernel checks are phase 29's
+# (zoo_check, at ZOO_CHECK_B problems over CART_T stages).
+CART_T, CART_TIMED, MULTISTART_N, CART_NONFUSED_B = 60, 3, 1024, 4096
 # Phase 27: the closed-loop game (cars, steps) and its check against the
 # plain versions (cars, nearest neighbours, steps, sweeps a step: the plain
 # versions take ~8 s a step of 10 sweeps), states and controls to
@@ -3800,13 +3844,14 @@ def check_trace(got, want, what, atol, cost_rtol):
 
 def cartpole_keys(cart, key):
     """A kernel row's cart-pole keys: its launches in the fused general
-    branch at MAIN_BATCH, its ms per launch and bound there, and its error
-    against the plain version (phase 26)."""
-    out = {"launches_cartpole": cart["launches"][key],
-           "max_abs_err_cartpole": cart["errs"][key][0],
-           "max_rel_err_cartpole": cart["errs"][key][1], "ms_cartpole": cart["ms"][key],
-           **bound_keys(cart["bound"][key], "_cartpole")}
-    return out
+    branch at MAIN_BATCH, its ms per launch (a wrapper call and on the
+    device) and bound there, and its error against the plain version
+    (phase 26)."""
+    ms, _, bound, device = cart["timing"][key]
+    err = cart["errs"][("cartpole", key)]
+    return {"launches_cartpole": cart["launches"][key], "max_abs_err_cartpole": err[0],
+            "max_rel_err_cartpole": err[1], "ms_cartpole": ms, "device_ms_cartpole": device,
+            **bound_keys(bound, "_cartpole")}
 
 
 def fleet_mpc(entry, ilqr, stats, card):
@@ -3885,160 +3930,11 @@ def fleet_mpc(entry, ilqr, stats, card):
             "lateral": lateral, "probes": probes, "hits": hits, "err": err, "seconds": seconds}
 
 
-def cartpole_inputs(spec, B, seed):
-    """Seeded cart-pole inputs batch innermost: x0 [4, B] (the pole at any
-    angle), controls [CART_T, 1, B] in the force box, the rollout
-    x_0..x_{T-1} [T, 4, B] and x_T through the plain rollout, its cost."""
-    import torch
-    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+def cartpole_x0(B, seed):
+    """Seeded cart-pole initial states ``[B, 4]``, the pole at any angle."""
     rng = np.random.RandomState(seed)
-    x0 = np.stack([rng.uniform(-1, 1, B), rng.uniform(0, 2 * np.pi, B), rng.uniform(-1, 1, B),
-                   rng.uniform(-2, 2, B)]).astype(np.float32)
-    x0 = torch.as_tensor(x0, device=DEVICE)
-    us = torch.as_tensor(rng.uniform(-12, 12, (CART_T, 1, B)).astype(np.float32), device=DEVICE)
-    tail, cost = k2.rollout_cost_plain(spec, x0, us)
-    return x0, us, torch.cat([x0[None], tail[:-1]], 0).contiguous(), tail[-1].contiguous(), cost
-
-
-def check_cartpole_kernels(spec, stats):
-    """Phase 26a: the cart-pole's instantiations against their plain versions
-    at CART_CHECK_B problems, T = CART_T: K2's rollout (rtol 1e-5) and its
-    select at the reference ladder (phase 3's tolerances); K3 with and
-    without Hessians in both Jacobian modes, its hoist (also K3's Hessians
-    bit for bit) and K7 (rtol 1e-5 with a floor of 1e-5 of each output's
-    scale, as phase 13); K4 with the cart-pole's terminal cost in the
-    kernel, clamp and boxqp, on regularized stages (phase 8's tolerances).
-    K4's explicit mode at (4, 1) is checked with the other (nx, nu) in
-    phase 19."""
-    import torch
-    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
-    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
-    B = CART_CHECK_B
-    x0, us, xs, xT, cost = cartpole_inputs(spec, B, seed=26)
-    errs, ok = {}, True
-    reset_counts(stats)
-
-    def record(kernel, results):
-        nonlocal ok
-        for good, max_abs, max_rel in results:
-            ok = ok and good
-            a, r = errs.get(kernel, (0.0, 0.0))
-            errs[kernel] = (max(a, max_abs), max(r, max_rel))
-
-    scaled = lambda name, a, b: compare(name, a, b, 1e-5, 1e-5 * max(float(b.abs().max()), 1.0))
-    log(f"[26] cart-pole instantiations against their plain versions, B={B}, T={CART_T}")
-    tail_k, cost_k = k2.rollout_cost(spec, x0, us)
-    tail_p, cost_p = k2.rollout_cost_plain(spec, x0, us)
-    record("K2r", [compare("cart-pole K2 rollout xs", tail_k, tail_p, 1e-5, 1e-5),
-                   compare("cart-pole K2 rollout cost", cost_k, cost_p, 1e-5, 0.0)])
-    names = ("A", "B", "lx", "lu", "lxx", "luu", "lux")
-    for disc in (True, False):
-        mode = "discrete" if disc else "continuous"
-        want = k3.linearize_plain(spec, xs, us, True, None, disc)
-        for hess in (True, False):
-            got = k3.linearize(spec, xs, us, hess, None, disc)
-            record("K3", [scaled(f"cart-pole K3 {mode} hessians={hess} {n}", a, b)
-                          for n, a, b in zip(names, got, want)])
-        xs_bf = torch.cat([xs, xT[None]], 0).permute(2, 0, 1).contiguous()
-        us_bf = us.permute(2, 0, 1).contiguous()
-        record("K7", [scaled(f"cart-pole K7 {mode} {n}", a, b) for n, a, b in zip(
-            names, k3.linearize_pallas(spec, xs_bf, us_bf, disc),
-            k3.linearize_pallas_plain(spec, xs_bf, us_bf, disc))])
-    full = k3.linearize(spec, xs, us, True)
-    hoist = k3.linearize_hessians(spec, xs, us)
-    same = all(torch.equal(a, b) for a, b in zip(hoist, full[4:]))
-    log(f"  cart-pole K3 hoist against K3's lxx, luu, lux: {'equal' if same else 'NOT EQUAL'}")
-    record("K3h", [scaled(f"cart-pole K3 hoist {n}", a, b) for n, a, b in zip(
-        ("lxx", "luu", "lux"), hoist, k3.linearize_hessians_plain(spec, xs, us))] + [(same, 0.0, 0.0)])
-    # K4 on the cart-pole's stacks with luu + 1, so that every stage's q_uu
-    # stays clear of the regularization ladder's steps (the swing-up's own
-    # q_uu crosses them, where one ulp picks another level).
-    lin = list(k3.linearize_plain(spec, xs, us, True))
-    lin[5] = (lin[5] + 1.0).contiguous()
-    levels = k1.reg_ladder(1e-6, 10.0, 16)
-    box = ((-12.0 - us).contiguous(), (12.0 - us).contiguous())
-    for tag, bounds, atol in (("clamp", (None, None), 1e-5), ("boxqp", box, 1e-4)):
-        k_k, K_k = k1.riccati_backward(spec, *lin, xT, levels, *bounds)
-        k_p, K_p = k1.riccati_backward_plain(spec, *lin, xT, levels, *bounds)
-        record("K4", [compare(f"cart-pole K4 {tag} k", k_k, k_p, 1e-4, atol),
-                      compare(f"cart-pole K4 {tag} K", K_k, K_p, 1e-4, atol)])
-    k, K = k1.riccati_backward_plain(spec, *lin, xT, levels)
-    ladder = _alpha_ladder_floats(1e-3)
-    lb = torch.full((1, B), -12.0, device=DEVICE)
-    ub = torch.full((1, B), 12.0, device=DEVICE)
-    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
-    outs = {}
-    for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
-        bufs = [xs.clone(), us.clone(), xT.clone()]
-        merit, accept = fn(spec, *bufs, k, K, cost, active, lb, ub, ladder)
-        outs[name] = bufs + [merit, accept]
-    (kx, ku, kT, km, ka), (px, pu, pT, pm, pa) = outs["kernel"], outs["plain"]
-    n_diff = int((ka != pa).sum())
-    log(f"  cart-pole K2 select A={len(ladder)}: {int(ka.sum())} of {B} accepted, {n_diff} differ")
-    launched = read_counts(stats)
-    log(f"  launches {launched}")
-    missing = [k_ for k_ in ("K2r", "K2", "K3", "K3cont", "K3h", "K7", "K4", "K5") if not launched[k_]]
-    if missing:
-        fail(f"cart-pole checks: {missing} were not launched")
-    record("K2", [compare("cart-pole K2 select xs", kx, px, 1e-4, 1e-4),
-                  compare("cart-pole K2 select us", ku, pu, 1e-4, 1e-4),
-                  compare("cart-pole K2 select xT", kT, pT, 1e-4, 1e-4),
-                  compare("cart-pole K2 select merit", km, pm, 1e-5, 0.0), (n_diff == 0, 0.0, 0.0)])
-    torch.cuda.synchronize()
-    if not ok:
-        fail("a cart-pole instantiation disagrees with its plain version (phase 26)")
-    return errs
-
-
-def time_cartpole_kernels(spec, specs, B):
-    """Phase 26c: each kernel of the cart-pole's general branch per launch
-    (a wrapper call, CUDA events around 5) at B problems, T = CART_T, on the
-    swing-up's own first-iteration inputs, with its bound."""
-    import torch
-    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
-    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
-    x0 = specs.initial_state.T.contiguous()
-    us = specs.initial_controls.permute(1, 2, 0).contiguous()
-    tail, cost = k2.rollout_cost(spec, x0, us)
-    xs = torch.cat([x0[None], tail[:-1]], 0).contiguous()
-    xT = tail[-1].contiguous()
-    lin = k3.linearize(spec, xs, us, True)
-    levels = k1.reg_ladder(1e-6, 10.0, 16)
-    k, K = k1.riccati_backward(spec, *lin, xT, levels)
-    ladder = _alpha_ladder_floats(1e-3)
-    lb = torch.full((1, B), -12.0, device=DEVICE)
-    ub = torch.full((1, B), 12.0, device=DEVICE)
-    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
-    fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
-    _, accept = k2.forward_select(spec, *fresh(), k, K, cost, active, lb, ub, ladder)
-    n_acc = int(accept.sum())
-    reps = 5
-    sel_bufs = [fresh() for _ in range(reps)]
-    ms = {"K2r": event_ms([lambda: k2.rollout_cost(spec, x0, us)] * reps),
-          "K3": event_ms([lambda: k3.linearize(spec, xs, us, True)] * reps),
-          "K4": event_ms([lambda: k1.riccati_backward(spec, *lin, xT, levels)] * reps),
-          "K2": event_ms([lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, lb, ub, ladder)
-                          for b in sel_bufs])}
-    del sel_bufs
-    nx, nu, f, Tc, A = 4, 1, 4, CART_T, len(ladder)
-    per_stage_in = nx * nx + nx * nu + nx + nu
-    hess_in = nx * nx + nu * nu + nu * nx
-    bytes_ = {"K2r": B * f * (nx + Tc * nu + Tc * nx + 1),
-              "K3": B * f * Tc * ((nx + nu) + per_stage_in + hess_in),
-              "K4": B * f * (Tc * (per_stage_in + hess_in + nu * (1 + nx)) + nx),
-              "K2": B * f * (Tc * (nx + 2 * nu + nu * nx) + 1 + 2 * nu + 1) + 2 * B
-                    + n_acc * f * (Tc * (nx + nu) + nx)}
-    ops = {"K2r": B * Tc * (OPS_CP_RK4 + OPS_CP_COST),
-           "K3": B * Tc * OPS_CP_K3,
-           "K4": B * Tc * OPS_STAGE_CORE,
-           "K2": B * Tc * A * (OPS_CP_CONTROL + OPS_CP_COST + OPS_CP_RK4)
-                 + n_acc * Tc * (OPS_CP_CONTROL + OPS_CP_RK4)}
-    bound = {name: bound_of(bytes_[name], ops[name]) for name in ops}
-    log(f"  cart-pole kernels ms/launch at B={B}, T={Tc}: "
-        f"{json.dumps({k_: round(v, 6) for k_, v in ms.items()})}; bound ms "
-        f"{json.dumps({k_: [round(v[0], 6), v[1]] for k_, v in bound.items()})}; K2 (A={A}) "
-        f"accepted {n_acc} of {B}")
-    return ms, bound
+    return np.stack([rng.uniform(-1, 1, B), rng.uniform(0, 2 * np.pi, B), rng.uniform(-1, 1, B),
+                     rng.uniform(-2, 2, B)], 1).astype(np.float32)
 
 
 def cartpole_phase(entry, ilqr, stats, card):
@@ -4049,7 +3945,19 @@ def cartpole_phase(entry, ilqr, stats, card):
     from multi_agent_solver_tpu_torch.solvers import make_solver
     t_phase = time.perf_counter()
     spec = cartpole_swing_up.create_cartpole_swingup_ocp(device=DEVICE).spec()
-    errs = check_cartpole_kernels(spec, stats)
+    # (a) The instantiations against their plain versions (zoo_check).
+    log(f"[26] cart-pole instantiations against their plain versions, B={ZOO_CHECK_B}, T={CART_T}")
+    errs = ErrorBook()
+    reset_counts(stats)
+    plain_ms = zoo_check("cartpole", spec, cartpole_x0(ZOO_CHECK_B, 26), errs, CART_T)
+    launched = read_counts(stats)
+    log(f"  launches {launched}")
+    missing = [k_ for k_ in ("K2r", "K2", "K3", "K3cont", "K3h", "K7", "K4", "K5") if not launched[k_]]
+    if missing:
+        fail(f"cart-pole checks: {missing} were not launched")
+    torch.cuda.synchronize()
+    if not errs.ok:
+        fail("a cart-pole instantiation disagrees with its plain version (phase 26)")
     out = {"errs": errs}
 
     # (b) The fused general branch at the main path's width.
@@ -4090,11 +3998,11 @@ def cartpole_phase(entry, ilqr, stats, card):
         f"{ilqr.PROBE_STATS.hits}; card {card}")
     if ilqr.PROBE_STATS.probes:
         fail("cart-pole: the warm calls probed the cost structure")
-    ms, bound = time_cartpole_kernels(spec, specs, B)
-    in_kernels = ms["K2r"] + it * (ms["K3"] + ms["K4"] + ms["K2"])
+    timing = zoo_kernel_times("cartpole", spec, specs, B, CART_T, config, card, plain_ms)
+    in_kernels = timing["K2r"][0] + it * sum(timing[k_][0] for k_ in ("K3", "K4", "K2"))
     log(f"  kernel time per solve {in_kernels:.3f} ms (launch counts x ms per launch) of "
         f"{med * 1e3:.3f} ms median solve, {100 * in_kernels / (med * 1e3):.1f}%")
-    out.update(solves_per_s=B / med, ms=ms, bound=bound, iterations=it)
+    out.update(solves_per_s=B / med, timing=timing, iterations=it)
     del specs, result, cost0
     out.pop("r", None)
 
@@ -4516,6 +4424,37 @@ def joint28(entry, card):
             "joint_sum": float(costs[False].sum())}
 
 
+def k4x_times(rows, seed, card):
+    """K4 explicit at each ``((nx, nu), (B, T))`` of ``rows`` on phase 19's
+    seeded stacks: ms a wrapper call (CUDA events around 20, with the
+    batch-first conversions), the plain version's ms and the bound, by
+    ``"{nx}x{nu}"``, and the device time (a CUDA graph of the 20 calls).  At
+    nx >= 12 the plain version is timed over the first
+    10 stages (0.35 ms a stage of host-bound torch calls at (16, 4)) and
+    scaled to T."""
+    from multi_agent_solver_tpu_torch.ops import riccati as k1
+    timing = {}
+    for (nx, nu), (B, Th) in rows:
+        stacks, _, _ = random_riccati_stacks(nx, nu, B, seed=seed * nx + nu, horizon=Th)
+        reg = (1e-6, 10.0, 16)
+        call = lambda s=stacks: k1.riccati_backward_pallas(*s, *reg)
+        Tp = Th if nx < 12 else 10
+        short = tuple(a[:, :Tp] for a in stacks[:7]) + stacks[7:]   # the stage stacks cut
+        plain = lambda s=short: k1.riccati_backward_pallas(
+            *s, *reg, explicit=k1.riccati_backward_explicit_plain)
+        event_ms([call] * 2)
+        (ms, device), plain_ms = time_calls([call] * 20), event_ms([plain]) * Th / Tp
+        f = 4
+        bytes_ = f * B * (Th * (2 * nx * nx + nx * nu + nx + nu + nu * nu + nu * nx + nu + nu * nx)
+                          + nx + nx * nx)
+        bound = bound_of(bytes_, B * Th * lqr_stage_ops(nx, nu)[4])
+        timing[f"{nx}x{nu}"] = (ms, plain_ms, bound, B, Th, device)
+        log(f"  K4 explicit ({nx}, {nu}), B={B}, T={Th}: {ms:.6f} ms a wrapper call (with the "
+            f"batch-first conversions), {device:.6f} ms on the device (CUDA graph), plain "
+            f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}), card {card}")
+    return timing
+
+
 def mixed28(entry, ilqr, stats, card):
     """Phase 28e: the mixed fleet (strategies/hetero.py's padded stack:
     untagged dispatch functions, the non-fused route with K4 explicit at
@@ -4524,7 +4463,6 @@ def mixed28(entry, ilqr, stats, card):
     against a solo solve of its problem; and K4 explicit at (4, 4) and
     (6, 2) timed at the paths' shapes."""
     import torch
-    from multi_agent_solver_tpu_torch.ops import riccati as k1
     from multi_agent_solver_tpu_torch.solvers import make_solver
     from multi_agent_solver_tpu_torch.strategies import (make_strategy, scatter_padded_results,
                                                          stack_agent_specs_padded)
@@ -4578,23 +4516,7 @@ def mixed28(entry, ilqr, stats, card):
     # K4 explicit at the new (nx, nu), at the paths' shapes: (4, 4) at the
     # LQR fleet's (1,024 problems, T = 10), (6, 2) at the mixed fleet's
     # (1,024, T = 20); both on the group kernel there.
-    timing = {}
-    for (nx, nu), (B, Th) in (((4, 4), (LQR_AGENTS, 10)), ((6, 2), (MIXED28[1], 20))):
-        stacks, _, _ = random_riccati_stacks(nx, nu, B, seed=28 * nx + nu, horizon=Th)
-        reg = (1e-6, 10.0, 16)
-        call = lambda s=stacks: k1.riccati_backward_pallas(*s, *reg)
-        plain = lambda s=stacks: k1.riccati_backward_pallas(
-            *s, *reg, explicit=k1.riccati_backward_explicit_plain)
-        event_ms([call] * 2)
-        ms, plain_ms = event_ms([call] * 20), event_ms([plain])
-        f = 4
-        bytes_ = f * B * (Th * (2 * nx * nx + nx * nu + nx + nu + nu * nu + nu * nx + nu + nu * nx)
-                          + nx + nx * nx)
-        bound = bound_of(bytes_, B * Th * lqr_stage_ops(nx, nu)[4])
-        timing[f"{nx}x{nu}"] = (ms, plain_ms, bound, B, Th)
-        log(f"  K4 explicit ({nx}, {nu}), B={B}, T={Th}: {ms:.6f} ms a wrapper call (with the "
-            f"batch-first conversions), plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms "
-            f"({bound[1]}), card {card}")
+    timing = k4x_times((((4, 4), (LQR_AGENTS, 10)), ((6, 2), (MIXED28[1], 20))), 28, card)
     return out, timing
 
 
@@ -4647,9 +4569,9 @@ def lqr_instantiation_keys(kernels, p28, errs):
                                 "T_lqr_4x4": LQR_CHECK_T})
     by_name("K1 riccati_fusedlin").update(max_abs_err_lqr_4x4_continuous=p28["errs"]["K1cont"][0])
     k4x = by_name("K4 riccati_backward, explicit")
-    for dims, (ms, plain_ms, bound, B, Th) in p28["k4x_timing"].items():
-        k4x.update({f"ms_{dims}": ms, f"plain_ms_{dims}": plain_ms, **bound_keys(bound, f"_{dims}"),
-                    f"batch_{dims}": B, f"T_{dims}": Th})
+    for dims, (ms, plain_ms, bound, B, Th, device) in p28["k4x_timing"].items():
+        k4x.update({f"ms_{dims}": ms, f"device_ms_{dims}": device, f"plain_ms_{dims}": plain_ms,
+                    **bound_keys(bound, f"_{dims}"), f"batch_{dims}": B, f"T_{dims}": Th})
     k4x["checked_dims"] = "phase 19: every EXPLICIT_DIMS entry (errors in max_abs_err)"
 
 
@@ -4666,6 +4588,719 @@ def phase_28(entry, ilqr, stats, card):
     log(f"  phase 28: {seconds:.1f} s, card {card}")
     return {"errs": errs, "timing": timing, "fleet": fleet, "games": games, "joint": joint,
             "mixed": mixed, "k4x_timing": k4x_timing, "mpc": mpc, "seconds": seconds}
+
+
+# Phase 29: the model zoo on the kernels.  Each model's instantiations are
+# held to their plain versions (zoo_check, at ZOO_CHECK_B problems and T =
+# ZOO_CHECK_T; phase 26 runs it on the cart-pole over CART_T), then each
+# model is solved on its kernels at its row's batch (ZOO_ROWS: the JAX
+# router's route, every count read around the solve) and its first
+# ZOO_ANCHOR_N costs held to zoo_anchors.py's float64 constants
+# (ZOO_ANCHORS) at rtol 1e-4, but for the knife-edge problems
+# (ZOO_KNIFE_EDGE: where the JAX package's float32 solve parts from its
+# float64 one, or its float64 solve accepted no step), which are held to
+# finite costs at or below their warm start.  K4's explicit mode at (3, 1),
+# (12, 4) and (16, 4) is checked with the other (nx, nu) in phase 19.
+ZOO_CHECK_B, ZOO_CHECK_T = 1024, 10
+# K1's continuous Jacobian mode feeds the raw A = df/dx to the recursion,
+# whose value function then grows by |A|^2 a stage; at the bicycle's and the
+# rotor quadrotor's A (entries of 50 and -20) a one-ulp move of x moves the
+# plain version's own gains at T = 10 by 1e-3 relative (the bicycle) and
+# by 60 times their scale (the rotor), so the mode is held over the first
+# ZOO_CONT_T stages, where that move stays inside rtol 1e-4 + atol 1e-5.
+ZOO_CONT_T = 3
+ZOO_ROWS = {   # model: (entry's specs function, batch, entry's config, horizon, nx, nu)
+    "rocket": ("rocket_specs", MAIN_BATCH, "ROCKET_CONFIG", 50, 3, 1),
+    "bicycle": ("bicycle_specs", 32768, "BICYCLE_CONFIG", 30, 6, 2),
+    "quadrotor": ("quadrotor_specs", 8192, "QUADROTOR_CONFIG", 40, 12, 4),
+    "quadrotor_rotor": ("quadrotor_rotor_specs", 8192, "QUADROTOR_CONFIG", 40, 16, 4),
+}
+# The models on the fused general branch (K3 over the horizon, K4 with the
+# terminal cost in the kernel), and those of them with K3's hoist and K7
+# instantiated.
+ZOO_GENERAL, ZOO_FLAT_HOIST = ("pendulum", "cartpole"), ("cartpole",)
+ZOO_ANCHOR_N, ZOO_ANCHOR_RTOL = 64, 1e-4
+ZOO_TIMED = 3
+# The pendulum swing-up's fused general branch at the main path's width;
+# its recursion is ill-conditioned (ROADMAP section 3), so besides the
+# kernel checks its first PENDULUM_ONE_B problems' first iteration is held
+# kernel by kernel on the solve's own inputs (zoo_pendulum).
+PENDULUM_B, PENDULUM_ONE_B = MAIN_BATCH, 1024
+# The rocket's fd route (derivative_mode="fd": the finite-difference
+# oracles, K4 explicit at (3, 1), K2) at ZOO_FD_B problems, kernels against
+# the plain versions on the card; the quadrotor's non-fused route (K4
+# explicit at (12, 4)) at ZOO_NONFUSED_B, 2 iterations.
+ZOO_FD_B, ZOO_NONFUSED_B = 4096, 1024
+# The mass (kg) down to which the fd route's rollout check holds a rocket's
+# states (zoo_routes); the drawn initial masses are 0.8-2.0.
+ROCKET_WELL_MASS = 1e-2
+# Float32 operations of one evaluation of each model's f, counted by hand
+# from its device function (csrc/problems.cuh; a transcendental one, a max
+# one), and of the stage costs that are not a weighted square a component
+# (the cart-pole's 16, the pendulum's 25), for the kernels' operation
+# floors.
+ZOO_F_OPS = {"rocket": 5, "bicycle": 33, "quadrotor": 43, "quadrotor_rotor": 62, "pendulum": 6,
+             "cartpole": 24}
+ZOO_COST_OPS = {"pendulum": 25, "cartpole": 16}
+# The instantiations' names in ptxas' report (phase 2 logs their lines).
+ZOO_INSTANTIATIONS = ("Rocket", "DynamicBicycle", "Quadrotor", "Pendulum", "GivenValueELi3ELi1E",
+                      "GivenValueELi12ELi4E", "GivenValueELi16ELi4E", "DiagQuadraticILi3ELi1E",
+                      "DiagQuadraticILi6ELi2E", "DiagQuadraticILi12ELi4E",
+                      "DiagQuadraticILi16ELi4E")
+# The control guesses the checks draw around: (center, half-width) a
+# component.
+ZOO_U_DRAW = {"rocket": ((10.0,), (10.0,)), "bicycle": ((0.0, 0.0), (0.3, 1.5)),
+              "quadrotor": ((9.81, 0.0, 0.0, 0.0), (2.0, 0.05, 0.05, 0.05)),
+              "quadrotor_rotor": ((2.4525,) * 4, (0.5,) * 4), "pendulum": ((0.0,), (2.0,)),
+              "cartpole": ((0.0,), (12.0,))}
+
+
+def zoo_stage_ops(model, nx, nu):
+    """``(rk4, cost, control, riccati)`` float32 operations of one stage, a
+    floor: four evaluations of f and the step's combinations, the stage
+    cost (a weighted square a component unless ZOO_COST_OPS says), the
+    select's control, and the Riccati stage's dense algebra
+    (lqr_stage_ops')."""
+    rk4 = 4 * ZOO_F_OPS[model] + 3 * 2 * nx + 7 * nx
+    cost = ZOO_COST_OPS.get(model, 4 * (nx + nu))
+    return rk4, cost, nu * (2 * nx + 2), lqr_stage_ops(nx, nu)[4]
+
+
+def zoo_inputs(model, spec, x0_all, B, horizon, seed):
+    """Drawn states and controls of ``model``: x0 the first B rows of
+    ``x0_all [*, nx]``, us the ZOO_U_DRAW box ``[T, nu, B]``, the plain
+    rollout's x_0..x_{T-1}, x_T and cost."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2
+    center, half = ZOO_U_DRAW[model]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x0 = torch.as_tensor(x0_all[:B].T.copy(), dtype=torch.float32, device=DEVICE).contiguous()
+    nu = len(center)
+    c = torch.tensor(center, device=DEVICE)[None, :, None]
+    h = torch.tensor(half, device=DEVICE)[None, :, None]
+    us = (c + h * (2.0 * torch.rand((horizon, nu, B), generator=g, device=DEVICE) - 1.0)).contiguous()
+    tail, cost = k2.rollout_cost_plain(spec, x0, us)
+    xs = torch.cat([x0[None], tail[:-1]], 0).contiguous()
+    return x0, us, xs, tail[-1].contiguous(), cost
+
+
+def spec_bounds(spec, B):
+    """The spec's input box as ``[nu, B]`` columns, or ``(None, None)``."""
+    lb, ub = spec.input_lower_bounds, spec.input_upper_bounds
+    if lb is None:
+        return None, None
+    column = lambda b: b.reshape(-1, b.shape[-1])[0].reshape(-1, 1).expand(-1, B).contiguous()
+    return column(lb), column(ub)
+
+
+def zoo_check(model, spec, x0_all, errs, horizon=ZOO_CHECK_T):
+    """One model's instantiations against their plain versions at
+    ZOO_CHECK_B problems over ``horizon`` stages (K1's continuous mode over
+    ZOO_CONT_T), into ``errs`` (an ErrorBook keyed ``(model, kernel)``), at
+    one set of tolerances: K2's rollout states rtol 1e-5 + atol 1e-5, its
+    cost atol 1e-5 of each problem's term_scale; K3 (with and without
+    Hessians, in both Jacobian modes), K7 and K3's hoist (also K3's
+    Hessians bit for bit) rtol 1e-5 with a floor of 1e-5 of each output's
+    scale; K4 with the terminal cost in the kernel on stacks with luu + 1
+    (clear of the regularization ladder's steps), clamp rtol 1e-4 + atol
+    1e-5 and boxqp rtol 1e-4 + atol 1e-4; K1 rtol 1e-4 + atol 1e-5; K2's
+    select at the reference ladder, states and controls atol 1e-4, merit
+    rtol 1e-5, the accept flags equal.  Returns each plain version's ms a
+    call at those shapes (the plain versions take their derivatives by
+    torch.func, ~40 ms a jvp-over-jvp entry, so a timing at the solve's
+    shapes would repeat the same host-bound loop)."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    from multi_agent_solver_tpu_torch.solvers.ilqr import _alpha_ladder_floats
+    B = ZOO_CHECK_B
+    x0, us, xs, xT, cost = zoo_inputs(model, spec, x0_all, B, horizon, seed=29)
+    record = lambda kernel, results: errs.record((model, kernel), results)
+    scaled = lambda name, a, b: compare(name, a, b, 1e-5, 1e-5 * max(float(b.abs().max()), 1.0))
+    tail_k, cost_k = k2.rollout_cost(spec, x0, us)
+    tail_p, cost_p = k2.rollout_cost_plain(spec, x0, us)
+    record("K2r", [compare(f"{model} K2 rollout xs", tail_k, tail_p, 1e-5, 1e-5),
+                   compare(f"{model} K2 rollout cost", cost_k, cost_p, 0.0,
+                           1e-5 * term_scale(spec, xs, us, xT))])
+    plain_ms = {"K2r": event_ms([lambda: k2.rollout_cost_plain(spec, x0, us)])}
+    levels = k1.reg_ladder(1e-6, 10.0, 16)
+    bounds = spec_bounds(spec, B)
+    if model in ZOO_GENERAL:
+        names = ("A", "B", "lx", "lu", "lxx", "luu", "lux")
+        for disc in (True, False):
+            mode = "discrete" if disc else "continuous"
+            want = k3.linearize_plain(spec, xs, us, True, None, disc)
+            for hess in (True, False):
+                got = k3.linearize(spec, xs, us, hess, None, disc)
+                record("K3", [scaled(f"{model} K3 {mode} hessians={hess} {n}", a, b)
+                              for n, a, b in zip(names, got, want)])
+            if model in ZOO_FLAT_HOIST:
+                xs_bf = torch.cat([xs, xT[None]], 0).permute(2, 0, 1).contiguous()
+                us_bf = us.permute(2, 0, 1).contiguous()
+                record("K7", [scaled(f"{model} K7 {mode} {n}", a, b) for n, a, b in zip(
+                    names, k3.linearize_pallas(spec, xs_bf, us_bf, disc),
+                    k3.linearize_pallas_plain(spec, xs_bf, us_bf, disc))])
+        if model in ZOO_FLAT_HOIST:
+            hoist = k3.linearize_hessians(spec, xs, us)
+            same = all(torch.equal(a, b) for a, b in zip(hoist, k3.linearize(spec, xs, us, True)[4:]))
+            log(f"  {model} K3 hoist against K3's lxx, luu, lux: {'equal' if same else 'NOT EQUAL'}")
+            record("K3h", [scaled(f"{model} K3 hoist {n}", a, b) for n, a, b in zip(
+                ("lxx", "luu", "lux"), hoist, k3.linearize_hessians_plain(spec, xs, us))]
+                   + [(same, 0.0, 0.0)])
+        lin = list(k3.linearize_plain(spec, xs, us, True))
+        lin[5] = (lin[5] + 1.0).contiguous()
+        box = ((bounds[0][None] - us).contiguous(), (bounds[1][None] - us).contiguous())
+        for tag, delta, atol in (("clamp", (None, None), 1e-5), ("boxqp", box, 1e-4)):
+            k_k, K_k = k1.riccati_backward(spec, *lin, xT, levels, *delta)
+            k_p, K_p = k1.riccati_backward_plain(spec, *lin, xT, levels, *delta)
+            record("K4", [compare(f"{model} K4 {tag} k", k_k, k_p, 1e-4, atol),
+                          compare(f"{model} K4 {tag} K", K_k, K_p, 1e-4, atol)])
+        plain_ms["K3"] = event_ms([lambda: k3.linearize_plain(spec, xs, us, True)])
+        plain_ms["K4"] = event_ms([lambda: k1.riccati_backward_plain(spec, *lin, xT, levels)])
+        k, K = k1.riccati_backward_plain(spec, *lin, xT, levels)
+    else:
+        hess = k3.linearize_hessians(spec, xs, us)
+        record("K3h", [scaled(f"{model} K3 hoist {n}", a, b) for n, a, b in zip(
+            ("lxx", "luu", "lux"), hess, k3.linearize_hessians_plain(spec, xs, us))])
+        plain_ms["K3h"] = event_ms([lambda: k3.linearize_hessians_plain(spec, xs, us)])
+        hess = [h[0].contiguous() for h in hess]
+        kp = k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels)
+        record("K1", [compare(f"{model} K1 discrete {n}", a, b, 1e-4, 1e-5) for n, a, b in
+                      zip(("k", "K"), k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels), kp)])
+        plain_ms["K1"] = event_ms([lambda: k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT,
+                                                                     levels)])
+        c = ZOO_CONT_T
+        xs_c, us_c, xT_c = xs[:c].contiguous(), us[:c].contiguous(), xs[c].contiguous()
+        record("K1cont", [compare(f"{model} K1 continuous T={c} {n}", a, b, 1e-4, 1e-5)
+                          for n, a, b in zip(("k", "K"), *(
+                              fn(spec, xs_c, us_c, *hess, xT_c, levels, discrete=False)
+                              for fn in (k1.riccati_fusedlin, k1.riccati_fusedlin_plain)))])
+        k, K = kp
+    ladder = _alpha_ladder_floats(1e-3)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    outs = {}
+    for name, fn in (("kernel", k2.forward_select), ("plain", k2.forward_select_plain)):
+        bufs = [xs.clone(), us.clone(), xT.clone()]
+        t0 = time.perf_counter()
+        merit, accept = fn(spec, *bufs, k, K, cost, active, *bounds, ladder)
+        outs[name] = bufs + [merit, accept]
+        if name == "plain":
+            plain_ms["K2"] = (time.perf_counter() - t0) * 1e3
+    (kx, ku, kT, km, ka), (px, pu, pT, pm, pa) = outs["kernel"], outs["plain"]
+    same = bool(torch.equal(ka, pa))
+    log(f"  {model} K2 select A={len(ladder)}: {int(ka.sum())} of {B} accepted, flags "
+        f"{'equal' if same else 'DIFFERENT'}")
+    record("K2", [(same, 0.0, 0.0),
+                  compare(f"{model} K2 select xs", kx, px, 0.0, 1e-4),
+                  compare(f"{model} K2 select us", ku, pu, 0.0, 1e-4),
+                  compare(f"{model} K2 select xT", kT, pT, 0.0, 1e-4),
+                  compare(f"{model} K2 select merit", km, pm, 1e-5, 0.0)])
+    return plain_ms
+
+
+def zoo_kernel_times(model, spec, specs, B, horizon, config, card, plain_ms):
+    """Each kernel a solve of ``model`` launches, at the solve's shapes (B,
+    T), ms a wrapper call (CUDA events around 20 calls) and a launch on the
+    device (a CUDA graph of them), and the bound (bytes, or the operation
+    floor of zoo_stage_ops; K3 with Hessians in Dual<float, n> and
+    Dual<Dual<float, n>, n>, n = nx + nu, at 1 + 2 n operations a value
+    operation and its square; K2's select with the re-roll of the problems
+    it accepts), beside ``plain_ms``, the plain version's ms a call at
+    zoo_check's shapes."""
+    import torch
+    from multi_agent_solver_tpu_torch.ops import forward_select as k2, linearize as k3, riccati as k1
+    nx, nu = spec.state_dim, spec.control_dim
+    x0_all = specs.initial_state.cpu().numpy()
+    x0, us, xs, xT, cost = zoo_inputs(model, spec, x0_all, B, horizon, seed=30)
+    rk4, cst, ctl, ric = zoo_stage_ops(model, nx, nu)
+    f, hess_n = 4, nx * nx + nu * nu + nu * nx
+    lin_n = nx * nx + nx * nu + nx + nu
+    gains = horizon * (nu + nu * nx)
+    levels = k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
+    ladder = config.alpha_ladder or tuple(0.5 ** i for i in range(10))
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    bounds = spec_bounds(spec, B)
+    rows = {
+        "K2r": (lambda: k2.rollout_cost(spec, x0, us),
+                f * B * (nx + horizon * (nu + nx) + 1), B * horizon * (rk4 + cst)),
+    }
+    if model in ZOO_GENERAL:
+        dual = 1 + 2 * (nx + nu)
+        lin = k3.linearize(spec, xs, us, True)
+        k, K = k1.riccati_backward(spec, *lin, xT, levels)
+        rows["K3"] = (lambda: k3.linearize(spec, xs, us, True),
+                      f * B * horizon * (nx + nu + lin_n + hess_n),
+                      B * horizon * ((rk4 + cst) * dual + cst * dual * dual))
+        rows["K4"] = (lambda: k1.riccati_backward(spec, *lin, xT, levels),
+                      f * B * (horizon * (lin_n + hess_n) + nx + gains), B * horizon * ric)
+    else:
+        x1, u1 = x0[None].contiguous(), us[:1].contiguous()
+        hess = [h[0].contiguous() for h in k3.linearize_hessians(spec, x1, u1)]
+        k, K = k1.riccati_fusedlin_plain(spec, xs, us, *hess, xT, levels)
+        rows["K3h"] = (lambda: k3.linearize_hessians(spec, x1, u1),
+                       f * B * (nx + nu + hess_n), 0)
+        rows["K1"] = (lambda: k1.riccati_fusedlin(spec, xs, us, *hess, xT, levels),
+                      f * B * (horizon * (nx + nu) + hess_n + nx + gains),
+                      B * horizon * (rk4 + cst + ric))
+    fresh = lambda: [xs.clone(), us.clone(), xT.clone()]
+    n_acc = int(k2.forward_select(spec, *fresh(), k, K, cost, active, *bounds, ladder)[1].sum())
+    sel_bufs = [fresh() for _ in range(20)]
+    rows["K2"] = ([lambda b=b: k2.forward_select(spec, *b, k, K, cost, active, *bounds, ladder)
+                   for b in sel_bufs],
+                  f * B * (2 * horizon * (nx + nu) + 2 * nx + gains + 2) + B
+                  + f * n_acc * (horizon * (nx + nu) + nx),
+                  len(ladder) * B * horizon * (ctl + rk4 + cst) + n_acc * horizon * (ctl + rk4))
+    timing = {}
+    for name, (call, bytes_, ops) in rows.items():
+        calls = call if isinstance(call, list) else [call] * 20
+        event_ms(calls[:2])
+        ms, device = time_calls(calls)
+        bound = bound_of(bytes_, ops)
+        timing[name] = (ms, plain_ms[name], bound, device)
+        log(f"  {model} {name} (B={B}, T={horizon}): {ms:.6f} ms a wrapper call, {device:.6f} "
+            f"ms a launch on the device (CUDA graph), bound {bound[0]:.6f} ms ({bound[1]}); plain "
+            f"{plain_ms[name]:.3f} ms a call at B={ZOO_CHECK_B}; card {card}")
+    log(f"  {model} K2 (A={len(ladder)}) accepted {n_acc} of {B}")
+    del sel_bufs
+    torch.cuda.synchronize()
+    return timing
+
+
+def zoo_solve(model, entry, ilqr, stats, card, plain_ms):
+    """Phase 29b for one stationary quadratic model: the fused main-path
+    branch at the row's batch, counts read around it, the first
+    ZOO_ANCHOR_N costs on ZOO_ANCHORS (the knife-edge ones finite and at or
+    below their warm start), then ZOO_TIMED warm calls and the kernels'
+    times (zoo_kernel_times)."""
+    import torch
+    fn, B, config_name, horizon, nx, nu = ZOO_ROWS[model]
+    config = getattr(entry, config_name)
+    specs = getattr(entry, fn)(B, device=DEVICE)
+    log(f"[29] {model}: B={B}, T={horizon}, {config.max_iterations} iterations, tolerance "
+        f"{config.tolerance:g}")
+    reset_counts(stats)
+    result = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    launches = read_counts(stats)
+    it = int(result.iterations.max())
+    if result.states.shape != (B, horizon + 1, nx) or result.controls.shape != (B, horizon, nu):
+        fail(f"{model}: result shapes {tuple(result.states.shape)} {tuple(result.controls.shape)}")
+    if not (torch.isfinite(result.cost).all() and torch.isfinite(result.controls).all()):
+        fail(f"{model}: non-finite costs or controls")
+    check_counts(launches, {"K2r": 1, "K3h": 1, "K1": it, "K2": it}, f"{model} fused")
+    costs = result.cost.double().cpu().numpy()
+    anchor = np.asarray(ZOO_ANCHORS[model], np.float64)
+    n = len(anchor)
+    edge = np.zeros(n, bool)
+    edge[list(ZOO_KNIFE_EDGE[model])] = True
+    warm = specs.cost(specs.rollout(specs.initial_controls), specs.initial_controls)
+    warm = warm[:n].double().cpu().numpy()
+    rel = np.abs(costs[:n] - anchor) / np.maximum(np.abs(anchor), 1e-30)
+    bad = int((rel[~edge] > ZOO_ANCHOR_RTOL).sum())
+    bad_edge = int((~(costs[:n][edge] <= warm[edge] + 1e-6 * np.abs(warm[edge]))).sum())
+    log(f"  iterations {it}, converged {int(result.converged.sum())} of {B}; cost median "
+        f"{float(np.median(costs))!r} min {float(costs.min())!r} max {float(costs.max())!r}; "
+        f"first {n} against the JAX float64 anchors: {n - int(edge.sum())} held, max rel "
+        f"{float(rel[~edge].max()):.3e} (rtol {ZOO_ANCHOR_RTOL:g}) "
+        f"{'OK' if bad == 0 else f'MISMATCH {bad}'}; knife-edge {np.flatnonzero(edge).tolist()}: "
+        f"rel {[float('%.3e' % r) for r in rel[edge]]}, at or below their warm start "
+        f"{'OK' if bad_edge == 0 else f'NOT {bad_edge}'}")
+    if bad or bad_edge:
+        fail(f"{model}: {bad} of the first {n} costs are off the JAX anchors, {bad_edge} "
+             "knife-edge ones above their warm start")
+
+    def solve():
+        ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+
+    times = [t / 1e3 for t in event_times(solve, ZOO_TIMED)]
+    med = float(np.median(times))
+    log(f"  {ZOO_TIMED} warm calls {[round(t, 6) for t in times]} s, median {med:.6f} s, "
+        f"{B / med:.1f} solves/s, card {card}")
+    spec = ilqr._unbatch(specs)
+    timing = zoo_kernel_times(model, spec, specs, B, horizon, config, card, plain_ms)
+    in_kernels = (timing["K2r"][0] + timing["K3h"][0]
+                  + launches["K1"] * timing["K1"][0] + launches["K2"] * timing["K2"][0])
+    log(f"  kernel time per solve {in_kernels:.3f} ms (launch counts x ms per launch) of "
+        f"{med * 1e3:.3f} ms median solve, {100 * in_kernels / (med * 1e3):.1f}%")
+    out = {"launches": launches, "iterations": it, "solves_per_s": B / med, "batch": B,
+           "horizon": horizon, "timing": timing, "anchor_max_rel": float(rel[~edge].max()),
+           "solve_ms": med * 1e3, "kernel_ms": in_kernels}
+    del specs, result
+    torch.cuda.synchronize()
+    return out
+
+
+def zoo_pendulum(entry, ilqr, stats, card, plain_ms):
+    """Phase 29d: the pendulum swing-up's fused general branch at
+    PENDULUM_B (counts K2r = 1, K3 = K4 = K2 = iterations), timed; then the
+    first iteration of its first PENDULUM_ONE_B problems, kernel by kernel
+    on the solve's own inputs at the warm start (T = 60): K3 against the
+    non-fused route's vmapped linearizer (rtol 1e-5 with a floor of 1e-5 of
+    each output's scale); the fused route's K4 (the terminal cost in the
+    kernel) on K3's stacks and the non-fused route's K4 explicit (2, 1) on
+    the vmapped linearizer's, each against its plain version on the same
+    stacks (rtol 1e-4 + atol 1e-5); and one iteration of both routes, each
+    of which keeps every cost at or below its warm start.  The two routes'
+    costs after that iteration are logged, not held: the swing-up's
+    backward recursion is ill-conditioned, so no two float32
+    implementations agree there.  The float32 witness says by how much:
+    the plain recursion in float32 against the same recursion in float64
+    on the same stacks, the share of problems whose gains agree within
+    rtol 1e-4 (of the problem's largest gain)."""
+    import dataclasses
+    import torch
+    from multi_agent_solver_tpu_torch.ops import linearize as k3, riccati as k1
+    B, config, horizon = PENDULUM_B, entry.PENDULUM_CONFIG, 60
+    specs = entry.pendulum_specs(B, device=DEVICE)
+    log(f"[29] pendulum swing-up, fused general branch, B={B}, T={horizon}, "
+        f"{config.max_iterations} iterations")
+    reset_counts(stats)
+    result = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    launches = read_counts(stats)
+    it = int(result.iterations.max())
+    if not (torch.isfinite(result.cost).all() and torch.isfinite(result.controls).all()):
+        fail("pendulum: non-finite costs or controls")
+    check_counts(launches, {"K2r": 1, "K3": it, "K4": it, "K2": it}, "pendulum fused")
+    costs = result.cost.double().cpu().numpy()
+    log(f"  iterations {it}, converged {int(result.converged.sum())} of {B}; cost median "
+        f"{float(np.median(costs))!r} min {float(costs.min())!r} max {float(costs.max())!r}")
+
+    def solve():
+        ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+
+    times = [t / 1e3 for t in event_times(solve, ZOO_TIMED)]
+    med = float(np.median(times))
+    log(f"  {ZOO_TIMED} warm calls {[round(t, 6) for t in times]} s, median {med:.6f} s, "
+        f"{B / med:.1f} solves/s, card {card}")
+    timing = zoo_kernel_times("pendulum", ilqr._unbatch(specs), specs, B, horizon, config, card,
+                              plain_ms)
+    in_kernels = timing["K2r"][0] + it * (timing["K3"][0] + timing["K4"][0] + timing["K2"][0])
+    log(f"  kernel time per solve {in_kernels:.3f} ms (launch counts x ms per launch) of "
+        f"{med * 1e3:.3f} ms median solve, {100 * in_kernels / (med * 1e3):.1f}%")
+    del specs, result
+
+    n = PENDULUM_ONE_B
+    small = entry.pendulum_specs(n, device=DEVICE)
+    spec = ilqr._unbatch(small)
+    xs_bf = small.rollout(small.initial_controls)                        # [n, T+1, 2]
+    us_bf = small.initial_controls
+    xs, us = xs_bf[:, :-1].permute(1, 2, 0).contiguous(), us_bf.permute(1, 2, 0).contiguous()
+    xT = xs_bf[:, -1].T.contiguous()
+    warm = small.cost(xs_bf, us_bf).double().cpu().numpy()
+    want = ilqr._linearize(small, config, xs_bf, us_bf)
+    got = k3.linearize(spec, xs, us, True)
+    names = ("A", "B", "lx", "lu", "lxx", "luu", "lux")
+    good = [compare(f"pendulum K3 against the vmapped linearizer {nm}", g.movedim(-1, 0), w,
+                    1e-5, 1e-5 * max(float(w.abs().max()), 1.0))
+            for nm, g, w in zip(names, got, want)]
+    levels = k1.reg_ladder(config.reg_init, config.reg_factor, config.reg_levels)
+    fused_k4 = [fn(spec, *got, xT, levels) for fn in (k1.riccati_backward,
+                                                       k1.riccati_backward_plain)]
+    nonf_k4 = [ilqr._batched_backward_pallas(small, config, xs_bf, us_bf, want, ops)
+               for ops in (ilqr.KERNEL_OPS, ilqr.PLAIN_OPS)]
+    for what, (kern, plain) in (("K4 on K3's stacks", fused_k4),
+                                ("K4 explicit on the vmapped stacks", nonf_k4)):
+        bits = all(torch.equal(a, b) for a, b in zip(kern, plain))
+        good += [compare(f"pendulum {what} {nm}", a, b, 1e-4, 1e-5)
+                 for nm, a, b in zip(("k", "K"), kern, plain)]
+        log(f"  pendulum {what}, against its plain version: "
+            f"{'bit for bit' if bits else 'not bit for bit'}")
+    # The float32 witness: the plain recursion in float64 on the same stacks.
+    k64 = k1.riccati_backward_plain(spec, *(g.double() for g in got), xT.double(), levels)
+    per_problem = lambda a, b: ((a.double() - b.double()).abs().reshape(-1, n).amax(0)
+                                / b.double().abs().reshape(-1, n).amax(0).clamp_min(1e-30))
+    witness = torch.maximum(*(per_problem(a, b) for a, b in zip(fused_k4[1], k64))).cpu().numpy()
+    one = dataclasses.replace(config, max_iterations=1)
+    fused = ilqr.solve_ilqr_batched(small, one, device=DEVICE).cost.double().cpu().numpy()
+    reset_counts(stats)
+    nonf = ilqr.solve_ilqr_batched(small, one, fused=False, device=DEVICE)
+    nf_launches = read_counts(stats)
+    check_counts(nf_launches, {"K2r": 1, "K4x": 1, "K2": 1}, "pendulum non-fused")
+    nonf = nonf.cost.double().cpu().numpy()
+    below = lambda c: bool(np.all(c <= warm + 1e-6 * np.abs(warm)))
+    rel = np.abs(fused - nonf) / np.abs(nonf)
+    share = float((rel <= 1e-4).mean())
+    witness_share = float((witness <= 1e-4).mean())
+    log(f"  float32 witness at {n}: the plain recursion's gains in float32 against float64 on "
+        f"K3's stacks within rtol 1e-4 for {100 * witness_share:.2f}% of the problems (median "
+        f"per-problem rel {float(np.median(witness)):.3e}, max {float(witness.max()):.3e})")
+    log(f"  one iteration at {n}: every cost at or below its warm start, fused "
+        f"{'yes' if below(fused) else 'NO'}, non-fused (K2, the vmapped linearizer, K4 explicit "
+        f"(2, 1)) {'yes' if below(nonf) else 'NO'}; the two routes' costs within rtol 1e-4 at "
+        f"{100 * share:.2f}% (max rel {float(rel.max()):.3e}; not held, as the witness above)")
+    if not (all(g for g, _, _ in good) and below(fused) and below(nonf)):
+        fail("pendulum: K3 parts from the vmapped linearizer, a K4 from its plain version, or "
+             "a route raised a cost")
+    out = {"launches": launches, "iterations": it, "solves_per_s": B / med, "batch": B,
+           "horizon": horizon, "timing": timing, "one_iteration_share": share,
+           "witness_share": witness_share, "nonfused_launches": nf_launches,
+           "solve_ms": med * 1e3, "kernel_ms": in_kernels}
+    torch.cuda.synchronize()
+    return out
+
+
+def zoo_routes(entry, ilqr, stats, card):
+    """Phase 29e: the rocket's fd route at ZOO_FD_B: counts (K2r = 1, K4x =
+    K2 = iterations, no K1 or K3) over a whole solve, finite costs at or
+    below their warm start, and the route's kernels on its own inputs at
+    the warm start against their plain versions -- K2's rollout (rtol 1e-5
+    with a floor for each problem, while the mass stays at or above
+    ROCKET_WELL_MASS), K4 explicit on the fd stacks (bit for
+    bit), K2's select (states, controls and x_T atol 5e-4, the merit rtol
+    1e-4, the accept flags equal).  Whole solves through the kernels
+    and through the plain versions are not compared: the float32 stencils
+    (1e-6 steps on float32 states) turn a last-ulp difference of a state
+    into another Jacobian (94.5% of the costs within rtol 1e-4 after one
+    iteration on an H100).  Then the quadrotor's non-fused route at
+    ZOO_NONFUSED_B, 2 iterations (K4 explicit at (12, 4)) against its fused
+    one; the example's single rocket solve beside the JAX value."""
+    import dataclasses
+    import torch
+    from multi_agent_solver_tpu_torch.examples import rocket_max_altitude
+    from multi_agent_solver_tpu_torch.solvers import make_solver
+    out = {}
+    config = entry.ROCKET_CONFIG
+    specs = entry.rocket_specs(ZOO_FD_B, device=DEVICE, derivative_mode="fd")
+    log(f"[29] rocket, derivative_mode='fd', B={ZOO_FD_B}: route "
+        f"{ilqr.route(specs, config, device_type='cuda')}")
+    warm = specs.cost(specs.rollout(specs.initial_controls), specs.initial_controls)
+    reset_counts(stats)
+    t0 = time.perf_counter()
+    r = ilqr.solve_ilqr_batched(specs, config, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(stats)
+    it = int(r.iterations.max())
+    check_counts(launches, {"K2r": 1, "K4x": it, "K2": it}, "rocket fd")
+    ok = bool(torch.isfinite(r.cost).all() and (r.cost <= warm + 1e-6 * warm.abs()).all())
+    log(f"  {seconds:.3f} s, {it} iterations, cost median {float(r.cost.double().median())!r}; "
+        f"finite and at or below the warm start {'OK' if ok else 'NO'}")
+    # The route's kernels on its own inputs at the warm start: K2's rollout,
+    # then the fd stacks of the non-fused linearizer (torch), K4 explicit
+    # and K2's select, each against its plain version.
+    plain = ilqr.PLAIN_OPS
+    us = specs.initial_controls
+    xs_k, cost_k = ilqr.KERNEL_OPS.rollout_select(specs, specs.initial_state, us)
+    xs, cost = plain.rollout_select(specs, specs.initial_state, us)
+    # A state is held where its problem's mass has stayed at or above
+    # ROCKET_WELL_MASS over the stages so far, a cost where it has over the
+    # whole horizon: below that a one-ulp difference of the mass (the K2
+    # rollout rows are not bit for bit on the card) moves thrust / m by more
+    # than 1e-5, and past the floor the speed reaches 1e7.  Held at rtol
+    # 1e-5 with a floor for each problem: 1e-5 of its largest held state,
+    # and of its term_scale for the cost.
+    spec = ilqr._unbatch(specs)
+    well = xs[:, :, 2].cummin(1).values >= ROCKET_WELL_MASS                  # [B, T+1]
+    held = lambda a: torch.where(well[:, :, None], a, torch.zeros_like(a))
+    floor = 1e-5 * held(xs).abs().amax((1, 2)).clamp_min(1.0)
+    terms = term_scale(spec, xs[:, :-1].permute(1, 2, 0), us.permute(1, 2, 0), xs[:, -1].T)
+    whole = well[:, -1]
+    good = [compare("rocket fd K2 rollout xs", held(xs_k), held(xs), 1e-5, floor[:, None, None]),
+            compare("rocket fd K2 rollout cost", cost_k[whole], cost[whole], 1e-5,
+                    1e-5 * terms[whole])]
+    out_of = (held(xs_k) - held(xs)).abs() > floor[:, None, None] + 1e-5 * xs.abs()
+    for b, t, i in out_of.nonzero()[:5].tolist():
+        log(f"    problem {b} stage {t} component {i}: {float(xs_k[b, t, i])!r} against "
+            f"{float(xs[b, t, i])!r}, mass {float(xs[b, t, 2])!r} (its horizon's least "
+            f"{float(xs[b, :, 2].min())!r})")
+    finite = bool(torch.equal(torch.isfinite(cost_k), torch.isfinite(cost)))
+    log(f"  rocket fd K2 rollout: {int(whole.sum())} of {ZOO_FD_B} problems keep a mass of "
+        f"{ROCKET_WELL_MASS:g} or more and are held whole, the other {int((~whole).sum())} up to "
+        f"that stage; costs finite where the plain version's are {'OK' if finite else 'NO'}")
+    good.append((finite, 0.0, 0.0))
+    lin = ilqr._linearize(specs, config, xs, us, None)
+    gains = [ilqr._batched_backward_pallas(specs, config, xs, us, lin, ops)
+             for ops in (ilqr.KERNEL_OPS, plain)]
+    same = all(torch.equal(a, b) for a, b in zip(*gains))
+    log(f"  rocket fd K4 explicit (3, 1) against its plain version: "
+        f"{'bit for bit' if same else 'DIFFERENT'}")
+    ladder = ilqr._alpha_ladder_floats(config.alpha_min)
+    sel = [ops.forward_select_pallas(specs, xs, us, *gains[1], cost, ladder, None, None, None,
+                                     config.inequality_activation_tolerance)
+           for ops in (ilqr.KERNEL_OPS, plain)]
+    n_diff = int((sel[0][3] != sel[1][3]).sum())
+    good += [compare(f"rocket fd K2 select {nm}", a, b, 0.0, 5e-4) for nm, a, b in (
+                 ("xs", sel[0][0][:, :-1], sel[1][0][:, :-1]), ("us", sel[0][1], sel[1][1]),
+                 ("xT", sel[0][0][:, -1], sel[1][0][:, -1]))]
+    good.append(compare("rocket fd K2 select merit", sel[0][2], sel[1][2], 1e-4, 0.0))
+    log(f"  rocket fd K2 select A={len(ladder)}: {int(sel[0][3].sum())} of {ZOO_FD_B} accepted, "
+        f"{n_diff} flags differ")
+    if not (ok and same and n_diff == 0 and all(g for g, _, _ in good)):
+        fail("rocket fd: non-finite or raised costs, or a kernel parts from its plain version")
+    out["fd"] = {"launches": launches, "iterations": it, "seconds": seconds}
+
+    two = dataclasses.replace(entry.QUADROTOR_CONFIG, max_iterations=2)
+    specs = entry.quadrotor_specs(ZOO_NONFUSED_B, device=DEVICE)
+    reset_counts(stats)
+    r = ilqr.solve_ilqr_batched(specs, two, fused=False, device=DEVICE)
+    launches = read_counts(stats)
+    it = int(r.iterations.max())
+    check_counts(launches, {"K2r": 1, "K4x": it, "K2": it}, "quadrotor non-fused")
+    fused = ilqr.solve_ilqr_batched(specs, two, device=DEVICE).cost.double().cpu().numpy()
+    nonf = r.cost.double().cpu().numpy()
+    rel = np.abs(fused - nonf) / np.abs(nonf)
+    log(f"[29] quadrotor non-fused, B={ZOO_NONFUSED_B}, {it} iterations: against the fused "
+        f"route max rel {float(rel.max()):.3e} (rtol 1e-4) {'OK' if rel.max() <= 1e-4 else 'MISMATCH'}")
+    if not rel.max() <= 1e-4:
+        fail("quadrotor: the non-fused route parts from the fused one")
+    out["quadrotor_nonfused"] = {"launches": launches, "iterations": it}
+
+    # K4 explicit at the zoo's (nx, nu), at the routes' shapes: (3, 1) at the
+    # fd route's (ZOO_FD_B, T = 50), (12, 4) at the quadrotor's non-fused
+    # route's (ZOO_NONFUSED_B, T = 40), and (16, 4), which no phase-29 path
+    # runs, at the same shapes.
+    timing = k4x_times((((3, 1), (ZOO_FD_B, 50)), ((12, 4), (ZOO_NONFUSED_B, 40)),
+                        ((16, 4), (ZOO_NONFUSED_B, 40))), 29, card)
+    out["k4x_timing"] = timing
+
+    ocp = rocket_max_altitude.create_max_altitude_rocket_ocp(device=DEVICE)
+    t0 = time.perf_counter()
+    make_solver("ilqr", rocket_max_altitude.PARAMS, device=DEVICE).solve(ocp)
+    log(f"[29] the example's single rocket solve (solve(ocp), torch on the card): cost "
+        f"{float(ocp.best_cost)!r} in {time.perf_counter() - t0:.3f} s; the JAX package on the "
+        f"CPU: {ZOO_SINGLE['f32']!r} (float32) / {ZOO_SINGLE['f64']!r} (float64)")
+    if not np.isfinite(ocp.best_cost):
+        fail("the single rocket solve's cost is not finite")
+    out["single"] = float(ocp.best_cost)
+    return out
+
+
+def phase_29(entry, ilqr, stats, card):
+    """Phase 29, timed; every check fails the run."""
+    import torch
+    from multi_agent_solver_tpu_torch.examples import pendulum_swing_up
+    t29 = time.perf_counter()
+    errs = ErrorBook()
+    log(f"[29] the model zoo's instantiations against their plain versions, B={ZOO_CHECK_B}, "
+        f"T={ZOO_CHECK_T}, card {card}")
+    reset_counts(stats)
+    plain_ms = {}
+    for model, (fn, B, _, _, _, _) in ZOO_ROWS.items():
+        specs = getattr(entry, fn)(ZOO_CHECK_B, device=DEVICE)
+        plain_ms[model] = zoo_check(model, ilqr._unbatch(specs),
+                                    specs.initial_state.cpu().numpy(), errs)
+    spec = pendulum_swing_up.create_pendulum_swingup_ocp(device=DEVICE).spec()
+    plain_ms["pendulum"] = zoo_check("pendulum", spec, entry.pendulum_x0(ZOO_CHECK_B), errs)
+    launched = read_counts(stats)
+    missing = [k for k in ("K2r", "K2", "K3", "K3h", "K1", "K1cont", "K4", "K5") if not launched[k]]
+    log(f"  launches {launched}")
+    if missing:
+        fail(f"phase 29 checks: {missing} were not launched")
+    torch.cuda.synchronize()
+    if not errs.ok:
+        fail("a model zoo instantiation disagrees with its plain version (phase 29)")
+    solves = {m: zoo_solve(m, entry, ilqr, stats, card, plain_ms[m]) for m in ZOO_ROWS}
+    pend = zoo_pendulum(entry, ilqr, stats, card, plain_ms["pendulum"])
+    routes = zoo_routes(entry, ilqr, stats, card)
+    seconds = time.perf_counter() - t29
+    log(f"  phase 29: {seconds:.1f} s, card {card}")
+    return {"errs": errs, "solves": solves, "pendulum": pend, "routes": routes,
+            "seconds": seconds}
+
+
+def zoo_instantiation_keys(kernels, p29):
+    """The JSON line's keys of phase 29's instantiations, added to their
+    kernels' entries: per model its errors against the plain version, ms a
+    wrapper call, the plain version's ms and the bound at its solve's
+    shapes, the batch and the horizon."""
+    by_name = lambda prefix: next(e for e in kernels if e["name"].startswith(prefix))
+    rows = {"K1": "K1 riccati_fusedlin", "K2": "K2 forward_select (select",
+            "K2r": "K2 forward_rollout", "K3h": "K3 linearize, hoist", "K3": "K3 linearize",
+            "K4": "K4 riccati_backward"}
+    runs = {**p29["solves"], "pendulum": p29["pendulum"]}
+    for model, run in runs.items():
+        for key, (ms, plain_ms, bound, device) in run["timing"].items():
+            err = p29["errs"].get((model, key), (0.0, 0.0))
+            by_name(rows[key]).update({
+                f"ms_{model}": ms, f"device_ms_{model}": device, f"plain_ms_{model}": plain_ms,
+                **bound_keys(bound, f"_{model}"),
+                f"max_abs_err_{model}": err[0], f"max_rel_err_{model}": err[1],
+                f"batch_{model}": run["batch"], f"T_{model}": run["horizon"],
+                f"launches_{model}": run["launches"][key]})
+    for model in ZOO_ROWS:
+        err = p29["errs"].get((model, "K1cont"), (0.0, 0.0))
+        by_name("K1 riccati_fusedlin").update({f"max_abs_err_{model}_continuous": err[0]})
+    k4x = by_name("K4 riccati_backward, explicit")
+    for dims, (ms, plain_ms, bound, B, Th, device) in p29["routes"]["k4x_timing"].items():
+        k4x.update({f"ms_{dims}": ms, f"device_ms_{dims}": device, f"plain_ms_{dims}": plain_ms,
+                    **bound_keys(bound, f"_{dims}"), f"batch_{dims}": B, f"T_{dims}": Th})
+
+
+# The JAX package's float64 costs of the first ZOO_ANCHOR_N problems of each
+# phase-29 solve (its scan route on the CPU), the knife-edge problems among
+# them, and the rocket example's single solve, as `python3 zoo_anchors.py`
+# prints them.
+ZOO_ANCHORS = {
+    "rocket": (
+        -1001.9979692968782, 2.531107807542611, -386.2951256683017, -992.1403758183062,
+        -899.0464615034999, -726.1739574208075, -944.9252183080202, -160.76280300829734,
+        429.4313323139656, -551.7591969986477, -550.5318462778683, -935.9776418646683,
+        141.8333728739646, -314.44132505484646, 34030584498172.67, 23363578762777.016,
+        78032296544960.3, 315.6586703343964, -491.2036026659118, -22.410807102802927,
+        314.4471908628886, -578.3173995175263, -192.10377032313423, -502.3387983655958,
+        8029898399587.653, -693.097174810433, 1362310152673.7808, 600.4182079101502,
+        -901.7293825773335, -852.8033839184177, 1805.5437144726498, -471.8682025954182,
+        -74.30306543490265, 134.05751061015147, 78033411444030.48, -533.3720194137474,
+        -482.95278986560743, -527.2537322832835, 609.4908328754436, -855.9114053476516,
+        -66.28540951458888, -943.541947762502, 237.10723152062587, 38033566941252.96,
+        -814.2751887266143, -826.5418636210575, 7163.629800156002, 4695795682436.879,
+        108.36072023825602, -174.03775918574001, 99.48027700581417, -947.3656217818299,
+        247.67196343825924, 14696990968661.844, 7434.257458394829, 27899515320.18269,
+        -761.1622994435437, 2718.3061270798826, -288.20844052907853, 3786.5766971904445,
+        28134330455.43491, 10030636705977.197, -775.1622456157511, 3361981135505.8315,),
+    "bicycle": (
+        56.824425406374644, 79.85451735289392, 63.78161582594228, 56.33637668250975,
+        42.49445420569733, 69.69322725200121, 43.969961596653675, 109.61538196930536,
+        123.44882339647991, 38.40027684448217, 92.05496165257222, 54.377320201983906,
+        59.249242705188976, 115.99578374529217, 14.511791978888922, 15.420068230218563,
+        11.849083277450308, 99.0033575665084, 89.81947263173701, 105.63333586977598,
+        126.45621206924899, 93.29431413259822, 46.56900331720221, 90.2079163194839,
+        17.273870410990703, 68.85586152582785, 18.859573890838814, 119.69379138291872,
+        53.52728222478408, 41.55769240456429, 27.708738223633283, 89.1786313970396,
+        45.98175558589916, 59.29898041195268, 11.778678051968926, 65.78469788055587,
+        65.03422615881527, 65.68937419617455, 119.51358876504104, 74.85781415173012,
+        36.07893283589599, 43.910591240463596, 77.20143939206392, 13.919456855864867,
+        72.66672538374333, 73.22643443243244, 23.508666861269965, 17.937210130871758,
+        32.02726193594817, 36.48036592798072, 59.524415657718585, 44.07853101649612,
+        128.4398451294816, 16.291941444000994, 23.397604522817684, 20.046150422250033,
+        70.71246852967097, 26.80250420859837, 47.10517228470292, 26.101398741859906,
+        19.88909241111124, 16.791612397839454, 71.17050781078404, 18.525848016529196,),
+    "quadrotor": (
+        13.985587865048984, 9.486721379442171, 99.77720998423248, 28.14070043800928,
+        91.20353681249713, 142.16392936253519, 122.50949628705638, 47.37214357300123,
+        71.59931252340253, 59.98557435597683, 36.37689617154533, 68.59030013393242,
+        57.51288621386771, 21.236222555341456, 73.85067757335196, 60.42847161374025,
+        15.576330354474866, 107.515384848345, 64.2316864462593, 31.027815605165998,
+        78.70148932607296, 70.29833818196443, 102.49091712408634, 96.68793089350946,
+        77.91314669871244, 102.53368481990785, 55.00904791916938, 68.45578232889306,
+        18.631837987029463, 92.84580645615958, 47.702243166259336, 53.17629672385518,
+        89.85032228584444, 83.83620412455993, 83.4313244943156, 5.626983713873997,
+        79.15876405900632, 55.22276704661392, 69.2477539131649, 54.82954143030959,
+        66.3913741597988, 11.665029807641755, 73.3655738009237, 15.163211728800517,
+        48.443176858247206, 10.295871227202491, 47.162140374171436, 46.02353886942145,
+        74.85282572469684, 121.5317135297135, 95.21590700044048, 77.19797298759316,
+        31.598775798888774, 58.06120010941222, 108.1443511555051, 103.65022017437606,
+        38.56460184415874, 125.48343188262723, 46.43840593462023, 118.71643911824499,
+        32.423924956601766, 68.29433652305727, 15.788682909497957, 34.73611937088703,),
+    "quadrotor_rotor": (
+        13.876969614602196, 9.741057048898712, 98.06999489637619, 29.572215070591252,
+        87.3223316261292, 145.80468226224218, 121.60955184450133, 47.63242228317895,
+        68.86313795368902, 62.98696659772094, 37.92274310268313, 71.25131159063626,
+        54.08556011784933, 23.39922704167594, 76.92592966616036, 57.212664669775286,
+        16.1468999441154, 106.69368628065702, 67.09737743463076, 29.623064042111686,
+        81.26422449434551, 73.52408289838527, 103.96907335825247, 97.99925871997618,
+        79.43431927596664, 100.44839438022734, 54.977830390987066, 71.33279024985285,
+        19.985298829821417, 91.49937625961304, 44.644762618569466, 52.867770145440694,
+        90.34887470294485, 83.92504703342242, 82.98022633943057, 5.825653436263243,
+        82.4436881129807, 56.35278162613916, 68.38647972713046, 56.95131308183858,
+        62.916240778418995, 12.26923108485066, 74.35001596853128, 15.166613610668334,
+        50.33422574863416, 10.176248668161975, 44.3883750692191, 43.51697519596249,
+        72.11333719744933, 119.53263154862569, 93.98622204794331, 77.69106296040503,
+        33.18915470709892, 59.46072131945125, 106.36120526995848, 106.55859817643442,
+        38.89539788571383, 119.69795379747698, 46.464783146843104, 116.57464958275324,
+        32.7835669719095, 69.73688271065312, 14.835238773486795, 33.810806088876404,),
+}
+ZOO_KNIFE_EDGE = {"rocket": (1, 14, 15, 19, 24, 26, 32, 34, 40, 43, 47, 53, 55, 60, 61, 63),
+                  "bicycle": (), "quadrotor": (), "quadrotor_rotor": ()}
+ZOO_SINGLE = {"f32": 27851702272.0, "f64": 27851698923.52993}
 
 
 def main() -> None:
@@ -4710,6 +5345,8 @@ def main() -> None:
                         log(f"  {label}: " + line.strip())
                 if any(key in line for key in LQR_INSTANTIATIONS):
                     log("  phase 28's instantiation: " + line.strip())
+                if any(key in line for key in ZOO_INSTANTIATIONS):
+                    log("  phase 29's instantiation: " + line.strip())
     # The instructions of the rollout's stage and of the hoist (SASS): their
     # issue floors at the main path's shapes.
     sass = sass_floors(_build.BUILD_DIR, MAIN_BATCH, T)
@@ -4841,6 +5478,8 @@ def main() -> None:
     gmpc = game_mpc(entry, ilqr, stats, card)
     # Phase 28: the other strategies and the LQR model.
     p28 = phase_28(entry, ilqr, stats, card)
+    # Phase 29: the model zoo on the kernels.
+    p29 = phase_29(entry, ilqr, stats, card)
 
     ms, plain, bound = timing[MAIN_BATCH]
     ms_big = timing[BENCH_BATCH][0]
@@ -4866,7 +5505,12 @@ def main() -> None:
                 for n, v in p28["games"].items()},
              **{f"mixed fleet {n}": v["launches"] for n, v in p28["mixed"].items()},
              f"closed-loop game {GAME28_MPC[0]} cars, {GAME28_MPC[1]} steps, trustregion":
-                 p28["mpc"]["launches"]}
+                 p28["mpc"]["launches"],
+             **{f"{m} fused {v['batch']}": v["launches"] for m, v in p29["solves"].items()},
+             f"pendulum fused {PENDULUM_B}": p29["pendulum"]["launches"],
+             f"pendulum non-fused {PENDULUM_ONE_B}, 1 iteration": p29["pendulum"]["nonfused_launches"],
+             f"rocket fd {ZOO_FD_B}": p29["routes"]["fd"]["launches"],
+             f"quadrotor non-fused {ZOO_NONFUSED_B}": p29["routes"]["quadrotor_nonfused"]["launches"]}
     by_path = lambda key: {n: c[key] for n, c in paths.items()}
     general = branches["quadratic_cost=False"]["launches"]
     boxqp = branches["bound_mode=boxqp"]["launches"]
@@ -4968,8 +5612,8 @@ def main() -> None:
         **redesigned_entry(redesigned, "K3_hoist_stage", "K3_hoist_horizon", REDESIGNED_K3H),
     }
     rollout.update(cartpole_keys(cart, "K2r"))
-    hoist_e.update(max_abs_err_cartpole=cart["errs"]["K3h"][0],
-                   max_rel_err_cartpole=cart["errs"]["K3h"][1])
+    hoist_e.update(max_abs_err_cartpole=cart["errs"][("cartpole", "K3h")][0],
+                   max_rel_err_cartpole=cart["errs"][("cartpole", "K3h")][1])
     kernels += [rollout, hoist_e]
     k4 = {
         "name": "K4 riccati_backward", "route": "cuda",
@@ -5053,7 +5697,8 @@ def main() -> None:
                    f"device_ms_constrained_{tag}": row["K4"][1]})
     kernels += nonfused_kernel_entries(errs, nf_paths, nf_timing, by_path)
     next(e for e in kernels if e["name"].startswith("K7")).update(
-        max_abs_err_cartpole=cart["errs"]["K7"][0], max_rel_err_cartpole=cart["errs"]["K7"][1])
+        max_abs_err_cartpole=cart["errs"][("cartpole", "K7")][0],
+        max_rel_err_cartpole=cart["errs"][("cartpole", "K7")][1])
     next(e for e in kernels if e["name"].startswith("K7")).update(
         redesigned_entry(redesigned, "K7", "K7_continuous", REDESIGNED_K7))
     k1c_ms, k1c_device, k1c_digests = redesigned["K1_continuous"]
@@ -5062,6 +5707,7 @@ def main() -> None:
         digests=list(k1c_digests))
     kernels += lane_kernel_entries(errs, cgames, crows, lane_timing, by_path)
     lqr_instantiation_keys(kernels, p28, errs)
+    zoo_instantiation_keys(kernels, p29)
     log(f"  card {card}: fleet MPC {fleet['steps_per_s']:.1f} controller-steps/s at {MAIN_BATCH} "
         f"({fleet['step_ms']:.3f} ms a step); cart-pole {cart['solves_per_s']:.1f} solves/s at "
         f"{MAIN_BATCH}; closed-loop game {gmpc['agent_steps_per_s']:.1f} agent-steps/s at "
@@ -5073,6 +5719,10 @@ def main() -> None:
         f"{n} {v['agent_solves_per_s']:.1f} agent-solves/s (host {v['host_ms']:.1f} ms of "
         f"{v['wall_ms']:.1f})" for n, v in p28["games"].items())
         + f"; phase 28: {p28['seconds']:.1f} s")
+    log(f"  card {card}: " + "; ".join(
+        f"{m} {v['solves_per_s']:.1f} solves/s at {v['batch']}"
+        for m, v in {**p29["solves"], "pendulum": p29["pendulum"]}.items())
+        + f"; phase 29: {p29['seconds']:.1f} s")
     log(f"  the whole run: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

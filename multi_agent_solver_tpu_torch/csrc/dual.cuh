@@ -200,6 +200,44 @@ __device__ __forceinline__ Dual<S, N> dexp(const Dual<S, N>& a) {
   return r;
 }
 
+// The primal value of a scalar of any order.
+__device__ __forceinline__ float primal(float x) { return x; }
+
+template <typename S, int N>
+__device__ __forceinline__ float primal(const Dual<S, N>& a) {
+  return primal(a.v);
+}
+
+// max(a, c) and min(a, c) against a constant c, NaN-propagating as
+// jnp.maximum / jnp.minimum, with their tangent rule: the tangent times 1
+// where a wins, 0.5 at a tie, 0 where c wins (a weight taken from the
+// primal values, so a constant of every higher order, as JAX's
+// _balanced_eq; torch.maximum / torch.minimum give the same 0.5).
+__device__ __forceinline__ float dmax(float a, float c) { return a != a ? a : fmaxf(a, c); }
+__device__ __forceinline__ float dmin(float a, float c) { return a != a ? a : fminf(a, c); }
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> dmax(const Dual<S, N>& a, float c) {
+  const float p = primal(a);
+  const float w = p > c ? 1.0f : (p == c ? 0.5f : 0.0f);
+  Dual<S, N> r;
+  r.v = dmax(a.v, c);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * w;
+  return r;
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> dmin(const Dual<S, N>& a, float c) {
+  const float p = primal(a);
+  const float w = p < c ? 1.0f : (p == c ? 0.5f : 0.0f);
+  Dual<S, N> r;
+  r.v = dmin(a.v, c);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * w;
+  return r;
+}
+
 // Seed helpers: a variable whose tangent k is 1 (first order).
 template <int N>
 __device__ __forceinline__ Dual<float, N> seed(float v, int k) {

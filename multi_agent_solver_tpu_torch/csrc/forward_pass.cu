@@ -118,7 +118,7 @@ __global__ void __maxnreg__(CHAINS == 1 ? 40 : 72) forward_pass_kernel(
 #pragma unroll
     for (int c = 0; c < CHAINS; ++c) {
       float xn[NX];
-      cst[c] = cst[c] + cost(x[c], u[c]);
+      cst[c] = cst[c] + stage_value(cost, x[c], u[c], t);
       rk4_step(dyn, x[c], control_hold(dyn, static_cast<const float*>(u[c])), h, xn);
       const size_t l = l0 + c * sB;
 #pragma unroll

@@ -261,14 +261,15 @@ __device__ __forceinline__ void load_multipliers(const float* eq_mult, const flo
 // candidate: its feedback control at x and alpha, its step cost at (x, u)
 // -- the stage cost (a context cost: base + ps, the pair costs that the
 // caller sums over the neighbours in its own layout) plus, in the AL mode,
-// the AL terms, stage first -- and x advanced in place by one RK4 step,
+// the AL terms, stage first; a cost with TAKES_STAGE sees the integer stage
+// index t -- and x advanced in place by one RK4 step,
 // its control held (control_hold: tan(delta) once a step, the floats of f
 // at the control).  Returns the step cost.
 template <typename Dyn, typename Cost, typename Eq, typename In>
 __device__ __forceinline__ float candidate_step(
     const Dyn& dyn, const Cost& cost, const Eq& eq, const In& in, const Step& h,
     const StageRef<Dyn::NX, Dyn::NU>& s, const AlStage<Eq::M, In::M>& al, float alpha,
-    const float* lb, const float* ub, float ps, float* x) {
+    const float* lb, const float* ub, float ps, int t, float* x) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   float u[NU];
   feedback_control<NX, NU>(x, s.xr, s.ur, s.kt, s.Kt, alpha, lb, ub, u);
@@ -276,7 +277,7 @@ __device__ __forceinline__ float candidate_step(
   if constexpr (takes_context<Cost>::value)
     step = cost.base(x, u) + ps;
   else
-    step = cost(x, u);
+    step = stage_value(cost, x, u, t);
   if constexpr (Eq::M + In::M > 0)
     step = step + al_terms<NX, NU>(eq, in, x, u, al.lam_eq, al.lam_in, al.half_rho, al.act_tol);
   float xn[NX];
@@ -386,7 +387,7 @@ __global__ void __launch_bounds__(ROLLOUT_BLOCK) forward_rollout_kernel(
     if constexpr (takes_context<Cost>::value)
       step = cost.base(x, u) + pair_sum(cost, ctx_view(ctx, t, n_ctx, c_ctx, sB, b), x);
     else
-      step = cost(x, u);
+      step = stage_value(cost, x, u, t);
     c = c + step;
     float xn[NX];
     rk4_step(dyn, x, control_hold(dyn, static_cast<const float*>(u)), h, xn);
@@ -487,7 +488,7 @@ __global__ void __launch_bounds__(SELECT_GROUP_BLOCK) forward_select_group_kerne
     load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
     load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
     c = c + candidate_step(dyn, cost, eq, in, h, s, al, alpha, bounded ? lb : nullptr, ub, ps,
-                           x);
+                           t, x);
   }
 
   // Selection by ballot: bit a of `wins` is candidate a's `total < merit`
@@ -585,7 +586,7 @@ __global__ void __launch_bounds__(SELECT_LANES_BLOCK) forward_select_lanes_kerne
       load_stage<NX, NU>(xs, us, k, K, t, sB, b, s);
       load_multipliers(eq_mult, ineq_mult, t, sB, b, al);
       c = c + candidate_step(dyn, cost, eq, in, h, s, al, alpha, bounded ? lb : nullptr, ub,
-                             0.0f, x);
+                             0.0f, t, x);
     }
   }
 
@@ -748,7 +749,7 @@ __global__ void __launch_bounds__(128, 5) forward_emit_one_thread_kernel(
     for (int a = 0; a < MAXA; ++a) {
       if (a >= A) break;
       ca[a] = ca[a] + candidate_step(dyn, cost, eq, in, h, s, al, alphas.v[a],
-                                     bounded ? lb : nullptr, ub, 0.0f, xa[a]);
+                                     bounded ? lb : nullptr, ub, 0.0f, t, xa[a]);
     }
   }
   // Smallest alpha first, so the largest improving one wins.

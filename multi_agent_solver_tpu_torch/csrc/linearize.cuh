@@ -84,7 +84,8 @@ __device__ __forceinline__ void linearize_stage(const Dyn& dyn, const Cost& cost
                                                 size_t sB, size_t b, const LinOut& o) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
+  const float ts = static_cast<float>(t);   // the stage index as the float JAX builds
+  stage_derivatives<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu, ts);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll
@@ -98,7 +99,7 @@ __device__ __forceinline__ void linearize_stage(const Dyn& dyn, const Cost& cost
 
   if constexpr (HESSIANS) {
     float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-    stage_hessians<NX, NU>(cost, x, u, CtxView(), lxx, luu, lux);
+    stage_hessians<NX, NU>(cost, x, u, CtxView(), ts, lxx, luu, lux);
 #pragma unroll
     for (int i = 0; i < NX; ++i)
 #pragma unroll
@@ -193,7 +194,7 @@ __global__ void __launch_bounds__(LIN_GROUP_BLOCK) linearize_group_kernel(
   const CtxView cv = ctx_view(ctx, static_cast<int>(t), n_ctx, c_ctx, sB, b);
   const GroupCoupled<Cost, G> gc{cost, lane, group_mask<G>()};
   float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-  stage_derivatives<DISCRETE>(dyn, gc, h, x, u, A, Bm, lx, lu, cv);
+  stage_derivatives<DISCRETE>(dyn, gc, h, x, u, A, Bm, lx, lu, static_cast<float>(t), cv);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll
@@ -210,7 +211,7 @@ __global__ void __launch_bounds__(LIN_GROUP_BLOCK) linearize_group_kernel(
 
   if constexpr (HESSIANS) {
     float lxx[NX][NX], luu[NU][NU], lux[NU][NX];
-    stage_hessians<NX, NU>(gc, x, u, cv, lxx, luu, lux);
+    stage_hessians<NX, NU>(gc, x, u, cv, static_cast<float>(t), lxx, luu, lux);
 #pragma unroll
     for (int i = 0; i < NX; ++i)
 #pragma unroll

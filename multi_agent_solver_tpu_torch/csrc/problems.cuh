@@ -324,6 +324,237 @@ struct CartpoleSwingUpTerminal {
   }
 };
 
+// Damped pendulum (models/pendulum.py), x = (theta, omega), u = (torque,),
+// theta = 0 upright:  f = (omega, (g/l sin theta + u / (m l^2)) - (b / (m
+// l^2)) omega), each constant folded in double as Python folds it.
+// Parameters: g/l, m l^2, b/(m l^2).
+struct Pendulum {
+  static constexpr int NX = 2;
+  static constexpr int NU = 1;
+  float g_l, ml2, b_ml2;
+
+  static Pendulum from(const float* p) { return Pendulum{p[0], p[1], p[2]}; }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    S s, c;
+    dsincos(x[0], s, c);
+    f[0] = x[1];
+    f[1] = (g_l * s + u[0] / ml2) - b_ml2 * x[1];
+  }
+};
+
+// The pendulum swing-up's stage cost (examples/pendulum_swing_up.py), with
+// weights that move over the horizon: s = t / (T - 1) (the stage index as
+// a float over the float span T - 1), late = s s, early = 1 - late,
+//   w_e (0.2 + 0.8 early) ee ee + w_s (0.2 + 0.8 late) (1 - cos theta)
+//     + w_w (0.2 + 0.8 late) omega omega + w_u torque torque,
+// ee = ((kin omega omega + mgl cos theta) - mgl) / mgl, each product and sum
+// in the torch callable's order.  Parameters: T - 1, w_e, w_s, w_w, w_u,
+// mgl, kin (0.5 m l^2).
+struct PendulumSwingUp {
+  static constexpr int NPARAMS = 7;
+  static constexpr bool TAKES_STAGE = true;
+  float span, w_energy, w_shape, w_omega, w_u, mgl, kin;
+
+  static PendulumSwingUp from(const float* p) {
+    return PendulumSwingUp{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+  }
+
+  template <typename S, typename I>
+  __device__ __forceinline__ S operator()(const S* x, const S* u, I t) const {
+    const float s = static_cast<float>(t) / span;
+    const float late = s * s;
+    const float early = 1.0f - late;
+    const float we = w_energy * (0.2f + 0.8f * early);
+    const float ws = w_shape * (0.2f + 0.8f * late);
+    const float ww = w_omega * (0.2f + 0.8f * late);
+    S sn, c;
+    dsincos(x[0], sn, c);
+    const S w2 = x[1] * x[1];
+    const S ee = ((kin * w2 + mgl * c) - mgl) / mgl;
+    const S up = 1.0f - c;
+    return ((we * (ee * ee) + ws * up) + ww * w2) + w_u * (u[0] * u[0]);
+  }
+};
+
+// Its terminal cost:  w_pos (1 - cos theta) + w_vel omega omega.
+// Parameters: w_pos, w_vel.
+struct PendulumSwingUpTerminal {
+  static constexpr int NPARAMS = 2;
+  float w_pos, w_vel;
+
+  static PendulumSwingUpTerminal from(const float* p) {
+    return PendulumSwingUpTerminal{p[0], p[1]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x) const {
+    S s, c;
+    dsincos(x[0], s, c);
+    return w_pos * (1.0f - c) + w_vel * (x[1] * x[1]);
+  }
+};
+
+// Vertical rocket (models/rocket.py), x = (h, v, m), u = (thrust,):
+//   f = (v, thrust / max(m, 1e-6) - g, -thrust / v_e),
+// max with jnp.maximum's tangent (dmax: 0.5 at the tie).  f never reads h
+// (READS).  Parameters: g, v_e.
+struct Rocket {
+  static constexpr int NX = 3;
+  static constexpr int NU = 1;
+  static constexpr unsigned READS = (1u << 1) | (1u << 2);
+  float gravity, v_exhaust;
+
+  static Rocket from(const float* p) { return Rocket{p[0], p[1]}; }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    const S mass = dmax(x[2], 1e-6f);
+    f[0] = x[1];
+    f[1] = u[0] / mass - gravity;
+    f[2] = (-u[0]) / v_exhaust;
+  }
+};
+
+// The rocket's terminal cost (examples/rocket_max_altitude.py):
+// w_h h + w_v v v, with w_h = -15 and w_v = 0.5 2 as Python folds them.
+// Parameters: w_h, w_v.
+struct RocketTerminal {
+  static constexpr int NPARAMS = 2;
+  float w_h, w_v;
+
+  static RocketTerminal from(const float* p) { return RocketTerminal{p[0], p[1]}; }
+
+  template <typename S>
+  __device__ __forceinline__ S operator()(const S* x) const {
+    return w_h * x[0] + w_v * (x[1] * x[1]);
+  }
+};
+
+// Dynamic bicycle with linear tires (models/dynamic_bicycle.py), x = (X, Y,
+// psi, vx, vy, r), u = (delta, ax), vx_s = max(vx, v_eps) (dmax):
+//   a_f = delta - (vy + lf r) / vx_s,  a_r = -(vy - lr r) / vx_s,
+//   F_f = C_f a_f,  F_r = C_r a_r,
+//   f = (vx cos psi - vy sin psi, vx sin psi + vy cos psi, r, ax + vy r,
+//        (F_f cos delta + F_r) / m - vx r, (lf F_f cos delta - lr F_r) / Iz),
+// each product and sum in the torch callable's order.  f never reads X or
+// Y (READS).  Parameters: m, Iz, lf, lr, C_f, C_r, v_eps.
+struct DynamicBicycle {
+  static constexpr int NX = 6;
+  static constexpr int NU = 2;
+  static constexpr unsigned READS = 0x3cu;
+  float mass, iz, lf, lr, caf, car, v_eps;
+
+  static DynamicBicycle from(const float* p) {
+    return DynamicBicycle{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    const S vx = x[3], vy = x[4], r = x[5];
+    const S vs = dmax(vx, v_eps);
+    const S a_f = u[0] - (vy + lf * r) / vs;
+    const S a_r = (-(vy - lr * r)) / vs;
+    const S fyf = caf * a_f;
+    const S fyr = car * a_r;
+    S sp, cp, sd, cd;
+    dsincos(x[2], sp, cp);
+    dsincos(u[0], sd, cd);
+    f[0] = vx * cp - vy * sp;
+    f[1] = vx * sp + vy * cp;
+    f[2] = r;
+    f[3] = u[1] + vy * r;
+    f[4] = (fyf * cd + fyr) / mass - vx * r;
+    f[5] = ((lf * fyf) * cd - lr * fyr) / iz;
+  }
+};
+
+// The quadrotor's rigid body (models/quadrotor.py): from x's velocities
+// (3-5), ZYX Euler angles (6-8) and body rates (9-11), the thrust fz and
+// the body torques, f_0..f_11 -- v, R e_z fz / m - g e_z, the Euler rates
+// through cos theta guarded away from 0 by c_eps (sign kept: jnp.where on
+// cos theta >= 0 of dmax / dmin), and the diagonal-inertia Euler
+// equations, each product and sum in the torch callable's order.
+struct QuadBody {
+  float mass, gravity, jx, jy, jz, c_eps, jzy, jxz, jyx;   // jzy = jz - jy, ...
+
+  static QuadBody from(const float* p) {
+    return QuadBody{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ void eval(const S* x, const S& fz, const S& tx, const S& ty,
+                                       const S& tz, S* f) const {
+    const S p = x[9], q = x[10], r = x[11];
+    S sphi, cphi, sth, cth, spsi, cpsi;
+    dsincos(x[6], sphi, cphi);
+    dsincos(x[7], sth, cth);
+    dsincos(x[8], spsi, cpsi);
+    const S a = fz / mass;
+    f[0] = x[3];
+    f[1] = x[4];
+    f[2] = x[5];
+    f[3] = ((cpsi * sth) * cphi + spsi * sphi) * a;
+    f[4] = ((spsi * sth) * cphi - cpsi * sphi) * a;
+    f[5] = (cth * cphi) * a - gravity;
+    const S cs = primal(cth) >= 0.0f ? dmax(cth, c_eps) : dmin(cth, -c_eps);
+    const S tth = sth / cs;
+    const S qr = q * sphi + r * cphi;
+    f[6] = p + qr * tth;
+    f[7] = q * cphi - r * sphi;
+    f[8] = qr / cs;
+    f[9] = (tx - (jzy * q) * r) / jx;
+    f[10] = (ty - (jxz * p) * r) / jy;
+    f[11] = (tz - (jyx * p) * q) / jz;
+  }
+};
+
+// Quadrotor (models/quadrotor.py), nx = 12, u = (thrust, tau_x, tau_y,
+// tau_z).  f never reads the position (READS).  Parameters: QuadBody's.
+struct Quadrotor {
+  static constexpr int NX = 12;
+  static constexpr int NU = 4;
+  static constexpr unsigned READS = 0xff8u;
+  QuadBody body;
+
+  static Quadrotor from(const float* p) { return Quadrotor{QuadBody::from(p)}; }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    body.eval(x, u[0], u[1], u[2], u[3], f);
+  }
+};
+
+// Quadrotor with first-order rotor lag (models/quadrotor_rotor.py), nx =
+// 16: rotor thrusts w = x[12..15] mixed as fz = ((w0 + w1) + w2) + w3, tau_x
+// = arm (w1 - w3), tau_y = arm (w2 - w0), tau_z = k_yaw (((w0 - w1) + w2) -
+// w3), and w_dot = (c - w) inv_tau for the commands c = u.  f never reads
+// the position (READS).  Parameters: QuadBody's, arm, k_yaw, inv_tau.
+struct QuadrotorRotor {
+  static constexpr int NX = 16;
+  static constexpr int NU = 4;
+  static constexpr unsigned READS = 0xfff8u;
+  QuadBody body;
+  float arm, k_yaw, inv_tau;
+
+  static QuadrotorRotor from(const float* p) {
+    return QuadrotorRotor{QuadBody::from(p), p[9], p[10], p[11]};
+  }
+
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S* x, const S* u, S* f) const {
+    const S w0 = x[12], w1 = x[13], w2 = x[14], w3 = x[15];
+    const S fz = ((w0 + w1) + w2) + w3;
+    const S tx = arm * (w1 - w3);
+    const S ty = arm * (w2 - w0);
+    const S tz = k_yaw * (((w0 - w1) + w2) - w3);
+    body.eval(x, fz, tx, ty, tz, f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[12 + i] = (u[i] - x[12 + i]) * inv_tau;
+  }
+};
+
 // A stage's view of the per-stage context ctx [T, K, C, B] for one problem
 // b: element (k, c) of stage t at p[k * sK + c * sC] with p = ctx + t K C B
 // + b, sK = C B and sC = B, so a warp's loads of one element coalesce.
@@ -434,14 +665,38 @@ struct takes_context<Coupled<Base, Pair>> {
   static constexpr bool value = true;
 };
 
-// The stage cost with or without its context, uniformly.
-template <typename Cost, typename S>
-__device__ __forceinline__ S stage_cost(const Cost& cost, const S* x, const S* u,
-                                        const CtxView& c) {
-  if constexpr (takes_context<Cost>::value)
-    return cost(x, u, c);
+// A stage cost that reads the stage index declares TAKES_STAGE = true and
+// an operator()(x, u, t), t an int or a float: each kernel hands it the
+// index in the type its TPU kernel does -- an integer in the selects, the
+// rollout and the forward pass, the float that JAX builds in K1, K3 and K7
+// -- and the absolute stage (K1 walks the stages backwards).  A cost
+// without it is called as cost(x, u) and compiles to the code it did
+// before the index was handed down.
+template <typename Cost, typename = void>
+struct takes_stage : std::false_type {};
+template <typename Cost>
+struct takes_stage<Cost, std::enable_if_t<Cost::TAKES_STAGE>> : std::true_type {};
+
+// The stage cost at stage t without a context.
+template <typename Cost, typename S, typename I>
+__device__ __forceinline__ S stage_value(const Cost& cost, const S* x, const S* u, I t) {
+  if constexpr (takes_stage<Cost>::value)
+    return cost(x, u, t);
   else
     return cost(x, u);
+}
+
+// The stage cost with or without its context, uniformly, at stage t (a
+// context cost reads no stage index).
+template <typename Cost, typename S, typename I>
+__device__ __forceinline__ S stage_cost(const Cost& cost, const S* x, const S* u,
+                                        const CtxView& c, I t) {
+  if constexpr (takes_context<Cost>::value) {
+    static_assert(!takes_stage<Cost>::value, "a context cost reads no stage index");
+    return cost(x, u, c);
+  } else {
+    return stage_value(cost, x, u, t);
+  }
 }
 
 // Path constraints g(x, u) -> [M] (AL rows; the fused loop folds their
@@ -601,7 +856,8 @@ __device__ __forceinline__ void rk4_step(const Dyn& f, const S* x, const U& u,
 // Dual<float, NX + NU>: tangents 0..NX-1 seed x, NX..NX+NU-1 seed u.
 template <int NX, int NU, typename Cost>
 __device__ __forceinline__ void cost_gradient(const Cost& cost, const float* x, const float* u,
-                                              const CtxView& ctx, float* lx, float* lu) {
+                                              const CtxView& ctx, float t, float* lx,
+                                              float* lu) {
   constexpr int NZ = NX + NU;
   using D = Dual<float, NZ>;
   D xd[NX], ud[NU];
@@ -609,7 +865,7 @@ __device__ __forceinline__ void cost_gradient(const Cost& cost, const float* x, 
   for (int i = 0; i < NX; ++i) xd[i] = seed<NZ>(x[i], i);
 #pragma unroll
   for (int i = 0; i < NU; ++i) ud[i] = seed<NZ>(u[i], NX + i);
-  const D c = stage_cost(cost, xd, ud, ctx);
+  const D c = stage_cost(cost, xd, ud, ctx, t);
 #pragma unroll
   for (int j = 0; j < NX; ++j) lx[j] = c.d[j];
 #pragma unroll
@@ -628,7 +884,7 @@ __device__ __forceinline__ void cost_gradient(const Cost& cost, const float* x, 
 template <bool DISCRETE = true, typename Dyn, typename Cost>
 __device__ __forceinline__ void stage_derivatives(
     const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
-    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu,
+    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu, float t,
     const CtxView& ctx = CtxView()) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU, NZ = NX + NU;
   using D = Dual<float, NZ>;
@@ -649,7 +905,7 @@ __device__ __forceinline__ void stage_derivatives(
 #pragma unroll
     for (int j = 0; j < NU; ++j) Bm[i][j] = nxt[i].d[NX + j];
   }
-  cost_gradient<NX, NU>(cost, x, u, ctx, lx, lu);
+  cost_gradient<NX, NU>(cost, x, u, ctx, t, lx, lu);
 }
 
 // K1's linearization: stage_derivatives' A, B, lx, lu (no context), with
@@ -665,7 +921,7 @@ __device__ __forceinline__ void stage_derivatives(
 template <bool DISCRETE = true, typename Dyn, typename Cost>
 __device__ __forceinline__ void stage_derivatives_live(
     const Dyn& dyn, const Cost& cost, const Step& h, const float* x, const float* u,
-    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu) {
+    float (*A)[Dyn::NX], float (*Bm)[Dyn::NU], float* lx, float* lu, float t) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU;
   constexpr unsigned R = state_reads<Dyn>::value;
   constexpr int NL = read_count(R), NT = NL + NU;
@@ -697,37 +953,78 @@ __device__ __forceinline__ void stage_derivatives_live(
 #pragma unroll
     for (int j = 0; j < NU; ++j) Bm[i][j] = nxt[i].d[NL + j];
   }
-  cost_gradient<NX, NU>(cost, x, u, CtxView(), lx, lu);
+  cost_gradient<NX, NU>(cost, x, u, CtxView(), t, lx, lu);
+}
+
+// Second-order duals of every direction at once hold (1 + N)^2 floats a
+// scalar; past HESSIAN_FULL_MAX directions (the quadrotors' 16 and 20) the
+// Hessians are taken one column at a time instead, in Dual<Dual<float, N>,
+// 1>: column q seeds the outer tangent of z_q alone.  Each entry sees the
+// arithmetic of the full pass, so the columns are its floats.
+constexpr int HESSIAN_FULL_MAX = 8;
+
+// A variable of a column pass: inner tangent k, outer tangent 1 iff k == q.
+template <int N>
+__device__ __forceinline__ Dual<Dual<float, N>, 1> seed_col(float v, int k, int q) {
+  Dual<Dual<float, N>, 1> r(v);
+  r.v.d[k] = 1.0f;
+  if (k == q) r.d[0].v = 1.0f;
+  return r;
 }
 
 // The stage cost's Hessians at one stage from one Dual<Dual<float, NZ>, NZ>
 // pass: r.d[q].d[p] = d^2 l / dz_p dz_q, z = (x, u), entry (p, q) with p
 // the inner (gradient) direction and q the outer one, as the TPU kernel's
 // jvp of lgrad_p along e_q; upper triangles mirrored, as it symmetrizes.
+// Past HESSIAN_FULL_MAX directions, column by column (seed_col).
 template <int NX, int NU, typename Cost>
 __device__ __forceinline__ void stage_hessians(const Cost& cost, const float* x, const float* u,
-                                               const CtxView& ctx, float (&lxx)[NX][NX],
-                                               float (&luu)[NU][NU], float (&lux)[NU][NX]) {
+                                               const CtxView& ctx, float t,
+                                               float (&lxx)[NX][NX], float (&luu)[NU][NU],
+                                               float (&lux)[NU][NX]) {
   constexpr int NZ = NX + NU;
-  using D2 = Dual<Dual<float, NZ>, NZ>;
-  D2 xd[NX], ud[NU];
+  if constexpr (NZ <= HESSIAN_FULL_MAX) {
+    using D2 = Dual<Dual<float, NZ>, NZ>;
+    D2 xd[NX], ud[NU];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xd[i] = seed2<NZ>(x[i], i);
+    for (int i = 0; i < NX; ++i) xd[i] = seed2<NZ>(x[i], i);
 #pragma unroll
-  for (int i = 0; i < NU; ++i) ud[i] = seed2<NZ>(u[i], NX + i);
-  const D2 r = stage_cost(cost, xd, ud, ctx);
+    for (int i = 0; i < NU; ++i) ud[i] = seed2<NZ>(u[i], NX + i);
+    const D2 r = stage_cost(cost, xd, ud, ctx, t);
 #pragma unroll
-  for (int i = 0; i < NX; ++i)
+    for (int i = 0; i < NX; ++i)
 #pragma unroll
-    for (int j = i; j < NX; ++j) lxx[i][j] = lxx[j][i] = r.d[j].d[i];
+      for (int j = i; j < NX; ++j) lxx[i][j] = lxx[j][i] = r.d[j].d[i];
 #pragma unroll
-  for (int i = 0; i < NU; ++i)
+    for (int i = 0; i < NU; ++i)
 #pragma unroll
-    for (int j = i; j < NU; ++j) luu[i][j] = luu[j][i] = r.d[NX + j].d[NX + i];
+      for (int j = i; j < NU; ++j) luu[i][j] = luu[j][i] = r.d[NX + j].d[NX + i];
 #pragma unroll
-  for (int i = 0; i < NU; ++i)
+    for (int i = 0; i < NU; ++i)
 #pragma unroll
-    for (int j = 0; j < NX; ++j) lux[i][j] = r.d[j].d[NX + i];
+      for (int j = 0; j < NX; ++j) lux[i][j] = r.d[j].d[NX + i];
+  } else {
+    using DC = Dual<Dual<float, NZ>, 1>;
+    static_for<NZ>([&](auto q_) {
+      constexpr int q = decltype(q_)::value;
+      DC xd[NX], ud[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xd[i] = seed_col<NZ>(x[i], i, q);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) ud[i] = seed_col<NZ>(u[i], NX + i, q);
+      const DC r = stage_cost(cost, xd, ud, ctx, t);
+      const Dual<float, NZ>& col = r.d[0];
+      if constexpr (q < NX) {
+#pragma unroll
+        for (int i = 0; i <= q; ++i) lxx[i][q] = lxx[q][i] = col.d[i];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) lux[i][q] = col.d[NX + i];
+      } else {
+#pragma unroll
+        for (int i = 0; i <= q - NX; ++i) luu[i][q - NX] = luu[q - NX][i] = col.d[NX + i];
+      }
+    });
+  }
 }
 
 // NaN-propagating clamp min(max(u, lb), ub), as jnp.minimum/maximum and

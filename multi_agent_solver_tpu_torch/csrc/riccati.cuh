@@ -510,24 +510,48 @@ __device__ __forceinline__ void load_bounds(const float* __restrict__ lb_in,
 // Terminal value function (riccati_pallas._terminal_into_scratch): phi_x,
 // and phi_xx from its upper triangle (inner tangent i, outer tangent j),
 // mirrored.  Shared by K1 and K4.
+// Past HESSIAN_FULL_MAX states, column by column (problems.cuh: seed_col).
 template <int NX, typename Term>
 __device__ __forceinline__ void terminal_value(const Term& term, const float* __restrict__ xT,
                                                int b, size_t sB, float (&vx)[NX],
                                                float (&vxx)[NX][NX]) {
-  using D2 = Dual<Dual<float, NX>, NX>;
-  D2 z[NX];
+  if constexpr (NX <= HESSIAN_FULL_MAX) {
+    using D2 = Dual<Dual<float, NX>, NX>;
+    D2 z[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) z[i] = seed2<NX>(xT[i * sB + b], i);
-  const D2 r = term(z);
+    for (int i = 0; i < NX; ++i) z[i] = seed2<NX>(xT[i * sB + b], i);
+    const D2 r = term(z);
 #pragma unroll
-  for (int j = 0; j < NX; ++j) vx[j] = r.v.d[j];
+    for (int j = 0; j < NX; ++j) vx[j] = r.v.d[j];
 #pragma unroll
-  for (int i = 0; i < NX; ++i)
+    for (int i = 0; i < NX; ++i)
 #pragma unroll
-    for (int j = i; j < NX; ++j) {
-      vxx[i][j] = r.d[j].d[i];
-      vxx[j][i] = r.d[j].d[i];
-    }
+      for (int j = i; j < NX; ++j) {
+        vxx[i][j] = r.d[j].d[i];
+        vxx[j][i] = r.d[j].d[i];
+      }
+  } else {
+    float x[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xT[i * sB + b];
+    static_for<NX>([&](auto j_) {
+      constexpr int j = decltype(j_)::value;
+      using DC = Dual<Dual<float, NX>, 1>;
+      DC z[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) z[i] = seed_col<NX>(x[i], i, j);
+      const DC r = term(z);
+      if constexpr (j == 0) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) vx[i] = r.v.d[i];
+      }
+#pragma unroll
+      for (int i = 0; i <= j; ++i) {
+        vxx[i][j] = r.d[0].d[i];
+        vxx[j][i] = r.d[0].d[i];
+      }
+    });
+  }
 }
 
 // The explicit-terminal mode's initial value (the TPU kernel with
@@ -594,7 +618,8 @@ __global__ void __launch_bounds__(128) riccati_fusedlin_kernel(
 #pragma unroll
     for (int i = 0; i < NU; ++i) u[i] = us[(st * NU + i) * sB + b];
     float A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-    stage_derivatives_live<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu);
+    // The absolute stage t, as the float the TPU kernel builds (t_lane).
+    stage_derivatives_live<DISCRETE>(dyn, cost, h, x, u, A, Bm, lx, lu, static_cast<float>(t));
     float lb[NU], ub[NU];
     if constexpr (BOXQP) load_bounds<NU>(lb_in, ub_in, st, b, sB, lb, ub);
     float k[NU], K[NU][NX];

@@ -1,9 +1,10 @@
-"""Derivative oracles by exact forward/reverse AD (``torch.func``).
+"""Derivative oracles: exact forward/reverse AD (``torch.func``) by
+default, the reference's finite differences in the ``fd`` parity mode.
 
-PyTorch counterpart of the ``ad`` bundle of
-``multi_agent_solver_tpu/derivatives.py``.  Every oracle takes one problem
-(``x [nx]``, ``u [nu]``); ``torch.func.vmap`` batches it.  The
-finite-difference parity mode is not ported yet.
+PyTorch counterpart of ``multi_agent_solver_tpu/derivatives.py``: the
+``ad`` bundle, and the ``fd`` bundle of ``finite_differences.py``'s
+stencils with the reference's epsilons.  Every oracle takes one problem
+(``x [nx]``, ``u [nu]``); ``torch.func.vmap`` batches it.
 
 * ``fx(x, u) -> [nx, nx]``, ``fu(x, u) -> [nx, nu]``: continuous dynamics
 * ``step_fx(x, u) -> [nx, nx]``, ``step_fu(x, u) -> [nx, nu]``: the
@@ -30,6 +31,7 @@ from typing import Callable, Optional
 
 from torch.func import grad, jacfwd, vmap
 
+from . import finite_differences as fd
 from .types import ConstraintsFunction, MotionModel, StageCostFunction, TerminalCostFunction
 
 
@@ -57,25 +59,10 @@ class Derivatives:
         return dataclasses.replace(self, **kwargs)
 
 
-def make_derivatives(
-    dynamics: MotionModel,
-    stage_cost: StageCostFunction,
-    terminal_cost: TerminalCostFunction,
-    equality_constraints: Optional[ConstraintsFunction] = None,
-    inequality_constraints: Optional[ConstraintsFunction] = None,
-    mode: str = "ad",
-    **overrides,
-) -> Derivatives:
-    """Build the AD oracle bundle; any oracle may be overridden by an
-    analytic callable (``overrides`` keys are :class:`Derivatives` fields).
-    The constraint Jacobians are taken by ``jacfwd`` (None without the
-    constraint)."""
-    if mode != "ad":
-        raise NotImplementedError(
-            f"derivative mode {mode!r}: only 'ad' is ported (the 'fd' parity "
-            "mode waits for ROADMAP queue 1, model zoo and derivative oracles)"
-        )
-    derivs = Derivatives(
+def _ad_derivatives(dynamics, stage_cost, terminal_cost, equality_constraints,
+                    inequality_constraints) -> Derivatives:
+    """Exact derivatives by ``torch.func`` (forward mode for the Jacobians)."""
+    return Derivatives(
         fx=jacfwd(dynamics, argnums=0),
         fu=jacfwd(dynamics, argnums=1),
         lx=grad(stage_cost, argnums=0),
@@ -90,6 +77,59 @@ def make_derivatives(
         ineq_gx=jacfwd(inequality_constraints, argnums=0) if inequality_constraints else None,
         ineq_gu=jacfwd(inequality_constraints, argnums=1) if inequality_constraints else None,
     )
+
+
+def fd_jacobians(g):
+    """``(g_x, g_u)`` of ``g(x, u)`` by central differences, eps = 1e-6."""
+    return (lambda x, u: fd.fd_jacobian(lambda y: g(y, u), x, eps=1e-6),
+            lambda x, u: fd.fd_jacobian(lambda w: g(x, w), u, eps=1e-6))
+
+
+def _fd_derivatives(dynamics, stage_cost, terminal_cost, equality_constraints,
+                    inequality_constraints) -> Derivatives:
+    """Finite differences with the reference's epsilons (the parity mode)."""
+    fx, fu = fd_jacobians(dynamics)
+    eq_gx, eq_gu = fd_jacobians(equality_constraints) if equality_constraints else (None, None)
+    ineq_gx, ineq_gu = (fd_jacobians(inequality_constraints) if inequality_constraints
+                        else (None, None))
+    return Derivatives(
+        fx=fx,
+        fu=fu,
+        lx=lambda x, u, t: fd.fd_gradient(lambda y: stage_cost(y, u, t), x, eps=1e-6),
+        lu=lambda x, u, t: fd.fd_gradient(lambda w: stage_cost(x, w, t), u, eps=1e-6),
+        lxx=lambda x, u, t: fd.fd_hessian(lambda y: stage_cost(y, u, t), x, eps=1e-5),
+        luu=lambda x, u, t: fd.fd_hessian(lambda w: stage_cost(x, w, t), u, eps=1e-5),
+        lux=lambda x, u, t: fd.fd_cross_term(lambda y, w: stage_cost(y, w, t), x, u, eps=1e-6),
+        phix=lambda x: fd.fd_gradient(terminal_cost, x, eps=1e-6),
+        phixx=lambda x: fd.fd_hessian(terminal_cost, x, eps=1e-5),
+        eq_gx=eq_gx,
+        eq_gu=eq_gu,
+        ineq_gx=ineq_gx,
+        ineq_gu=ineq_gu,
+    )
+
+
+def make_derivatives(
+    dynamics: MotionModel,
+    stage_cost: StageCostFunction,
+    terminal_cost: TerminalCostFunction,
+    equality_constraints: Optional[ConstraintsFunction] = None,
+    inequality_constraints: Optional[ConstraintsFunction] = None,
+    mode: str = "ad",
+    **overrides,
+) -> Derivatives:
+    """Build the oracle bundle of ``mode`` (``"ad"``: exact, ``"fd"``: the
+    reference's central differences); any oracle may be overridden by an
+    analytic callable (``overrides`` keys are :class:`Derivatives`
+    fields).  The constraint Jacobians are None without the constraint."""
+    if mode == "ad":
+        derivs = _ad_derivatives(dynamics, stage_cost, terminal_cost, equality_constraints,
+                                 inequality_constraints)
+    elif mode == "fd":
+        derivs = _fd_derivatives(dynamics, stage_cost, terminal_cost, equality_constraints,
+                                 inequality_constraints)
+    else:
+        raise ValueError(f"unknown derivative mode {mode!r} (expected 'ad' or 'fd')")
     overrides = {k: v for k, v in overrides.items() if v is not None}
     unknown = set(overrides) - {f.name for f in dataclasses.fields(Derivatives)}
     if unknown:

@@ -31,6 +31,12 @@
   configurations of the main-path batch: :data:`NONFUSED_ROUTES`
   (``fused=False`` with either linearizer), :data:`CONTINUOUS_CONFIG`,
   ``untagged_specs`` (the lane-follow cost as a plain torch callable).
+* The model zoo on the kernels: the rocket of
+  ``examples/rocket_max_altitude.py`` (``rocket_specs``, drawn initial
+  masses; ``derivative_mode="fd"`` for the finite-difference route), the
+  dynamic bicycle's lane change (``bicycle_specs``), the quadrotors' hover
+  regulation (``quadrotor_specs``, ``quadrotor_rotor_specs``) and the
+  pendulum swing-up batch (``pendulum_specs``), with their configs.
 
 ``chip_smoke.py`` and the tests use them.
 """
@@ -50,17 +56,25 @@ from .examples.multi_agent_lqr import build_problem as build_lqr_problem
 from .examples.multi_agent_single_track import build_problem, create_single_track_circular_ocp
 from .examples.single_track_mpc import PARAMS as FLEET_PARAMS
 from .examples.single_track_mpc import fleet_specs
+from .examples.pendulum_swing_up import create_pendulum_swingup_ocp
+from .examples.rocket_max_altitude import create_max_altitude_rocket_ocp
 from .examples.single_track_ocp import PARAMS as SINGLE_PARAMS
 from .examples.single_track_ocp import (DESIRED_VELOCITY, LANE_FOLLOW_COST, W_ACC, W_DELTA,
                                         W_LANE, W_SPEED, create_single_track_lane_following_ocp)
 from .multi_agent import MultiAgentProblem
 from .derivatives import make_derivatives
-from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost, synthesized_objective,
+from .ocp import (OCP, OCPSpec, bound_rows, diagonal_quadratic_cost,
+                  diagonal_quadratic_terminal_cost, synthesized_objective,
                   with_state_bound_constraints)
 from .models import (
+    HOVER_ROTOR_THRUST,
+    HOVER_THRUST,
+    dynamic_bicycle_model,
     make_linear_dynamics,
     quadratic_stage_cost,
     quadratic_terminal_cost,
+    quadrotor_dynamics,
+    quadrotor_rotor_dynamics,
     single_track_control_jacobian,
     single_track_model,
     single_track_state_jacobian,
@@ -356,3 +370,174 @@ def mixed_fleet(n_agents: int, seed: int = 0, dtype=torch.float32,
         ocp.initialize_problem()
         problem.add_agent(Agent(i, ocp))
     return problem
+
+
+# The model zoo.  Each problem is the JAX package's (an example, a test or a
+# script), its cost written as the tagged device-function callables
+# (ocp.diagonal_quadratic_cost for the sums of weighted squares), its x0
+# drawn from RandomState(seed); each runs on the kernels by the JAX router.
+
+# examples/rocket_max_altitude.py's solver parameters as a config.
+ROCKET_CONFIG = ILQRConfig(max_iterations=25, tolerance=1e-6)
+# tests/test_dynamic_bicycle.py's lane change, 10 iterations.
+BICYCLE_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-8)
+BICYCLE_HORIZON = 30
+# scripts/bench_quadrotor.py's hover regulation: T = 40, dt = 0.05, 10
+# iterations, tolerance 1e-6; the rotor-lag quadrotor the same.
+QUADROTOR_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-6)
+QUADROTOR_HORIZON = 40
+QUADROTOR_W = (4.0, 4.0, 4.0, 1.0, 1.0, 1.0, 2.0, 2.0, 2.0, 0.1, 0.1, 0.1)
+QUADROTOR_RU = (0.1, 1.0, 1.0, 1.0)
+# The pendulum swing-up batch: the example's problem (T = 60), 10
+# iterations at its tolerance.
+PENDULUM_CONFIG = ILQRConfig(max_iterations=10, tolerance=1e-4)
+
+
+def rocket_x0(batch: int, seed: int = 0) -> np.ndarray:
+    """Rocket initial states ``(0, 0, m0)``, ``m0`` drawn U(0.8, 2.0) from
+    ``RandomState(seed)``: around the example's 1.0, where the half-thrust
+    guess burns the mass down to the floor, and above it, where it lifts
+    off."""
+    x0 = np.zeros((batch, 3), np.float32)
+    x0[:, 2] = np.random.RandomState(seed).uniform(0.8, 2.0, batch)
+    return x0
+
+
+def rocket_specs(batch: int, device="cuda", seed: int = 0, derivative_mode: str = "ad",
+                 dtype=torch.float32) -> OCPSpec:
+    """``batch`` rockets of ``examples/rocket_max_altitude.py`` (its
+    analytic oracles, thrust box and half-thrust guess) from
+    :func:`rocket_x0`.  In the ``ad`` mode the fused loop's main-path branch
+    runs (K2, K3's hoist, K1); ``derivative_mode="fd"`` takes the non-fused
+    path with the finite-difference oracles, K4's explicit mode and K2."""
+    ocp = create_max_altitude_rocket_ocp(dtype=dtype, device=device)
+    if derivative_mode != "ad":
+        ocp.derivative_mode = derivative_mode
+        ocp.invalidate()
+    return batch_specs(ocp.spec(), rocket_x0(batch, seed))
+
+
+def bicycle_x0(batch: int, seed: int = 0) -> np.ndarray:
+    """Lane-change initial states ``(0, y0, 0, 15, 0, 0)``, ``y0`` drawn
+    U(1, 3) (around the test's 2 m) from ``RandomState(seed)``."""
+    x0 = np.zeros((batch, 6), np.float32)
+    x0[:, 1] = np.random.RandomState(seed).uniform(1.0, 3.0, batch)
+    x0[:, 3] = 15.0
+    return x0
+
+
+# tests/test_dynamic_bicycle.py's stage cost, 2 y^2 + 0.5 psi^2 + 0.05 (vx -
+# 15)^2 + 2 delta^2 + 0.1 ax^2, as DiagQuadratic<6, 2>.
+BICYCLE_COST = diagonal_quadratic_cost(w_x=(0.0, 2.0, 0.5, 0.05, 0.0, 0.0),
+                                       r_x=(0.0, 0.0, 0.0, 15.0, 0.0, 0.0),
+                                       w_u=(2.0, 0.1), r_u=(0.0, 0.0))
+
+
+def bicycle_spec(horizon: int = BICYCLE_HORIZON, dtype=torch.float32, device="cuda") -> OCPSpec:
+    """``tests/test_dynamic_bicycle.py::lane_change_ocp``: start 2 m off the
+    lane at 15 m/s, regulate to y = 0 (:data:`BICYCLE_COST`), input bounds
+    (-0.4, -4) .. (0.4, 2), dt = 0.05."""
+    ocp = OCP(
+        state_dim=6, control_dim=2, horizon_steps=horizon, dt=0.05,
+        initial_state=torch.tensor([0.0, 2.0, 0.0, 15.0, 0.0, 0.0], dtype=dtype),
+        dynamics=dynamic_bicycle_model,
+        stage_cost=BICYCLE_COST,
+        input_lower_bounds=torch.tensor([-0.4, -4.0], dtype=dtype),
+        input_upper_bounds=torch.tensor([0.4, 2.0], dtype=dtype),
+        device=device,
+    )
+    ocp.initialize_problem()
+    return ocp.spec()
+
+
+def bicycle_specs(batch: int, device="cuda", seed: int = 0,
+                  horizon: int = BICYCLE_HORIZON, dtype=torch.float32) -> OCPSpec:
+    return batch_specs(bicycle_spec(horizon, dtype, device), bicycle_x0(batch, seed))
+
+
+def quadrotor_x0(batch: int, seed: int = 0, nx: int = 12) -> np.ndarray:
+    """``scripts/bench_quadrotor.py``'s initial states: positions U(-1, 1)
+    and roll / pitch U(-0.2, 0.2), drawn in that order from
+    ``RandomState(seed)``; at nx = 16 the rotors at hover thrust."""
+    rng = np.random.RandomState(seed)
+    x0 = np.zeros((batch, nx), np.float32)
+    x0[:, :3] = rng.uniform(-1.0, 1.0, (batch, 3))
+    x0[:, 6:8] = rng.uniform(-0.2, 0.2, (batch, 2))
+    if nx == 16:
+        x0[:, 12:] = HOVER_ROTOR_THRUST
+    return x0
+
+
+def quadrotor_spec(horizon: int = QUADROTOR_HORIZON, dtype=torch.float32,
+                   device="cuda") -> OCPSpec:
+    """``scripts/bench_quadrotor.py``'s hover regulation: stage ``sum w x x +
+    sum ru du du`` (``du = u - (mg, 0, 0, 0)``) and terminal ``10 sum w x
+    x`` as ``DiagQuadratic<12, 4>`` and ``DiagQuadraticTerminal<12>``, the
+    hover thrust as the guess, dt = 0.05, no input bounds."""
+    u_hover = (HOVER_THRUST, 0.0, 0.0, 0.0)
+    ocp = OCP(
+        state_dim=12, control_dim=4, horizon_steps=horizon, dt=0.05,
+        initial_state=torch.zeros(12, dtype=dtype).index_fill_(0, torch.tensor([0]), 1.0),
+        dynamics=quadrotor_dynamics,
+        stage_cost=diagonal_quadratic_cost(QUADROTOR_W, (0.0,) * 12, QUADROTOR_RU, u_hover),
+        terminal_cost=diagonal_quadratic_terminal_cost(
+            tuple(10.0 * w for w in QUADROTOR_W), (0.0,) * 12),
+        initial_controls=torch.tensor(u_hover, dtype=dtype).repeat(horizon, 1),
+        device=device,
+    )
+    ocp.initialize_problem()
+    return ocp.spec()
+
+
+def quadrotor_specs(batch: int, device="cuda", seed: int = 0,
+                    horizon: int = QUADROTOR_HORIZON, dtype=torch.float32) -> OCPSpec:
+    return batch_specs(quadrotor_spec(horizon, dtype, device), quadrotor_x0(batch, seed))
+
+
+QUADROTOR_ROTOR_W = QUADROTOR_W + (0.01,) * 4
+
+
+def quadrotor_rotor_spec(horizon: int = QUADROTOR_HORIZON, dtype=torch.float32,
+                         device="cuda") -> OCPSpec:
+    """``tests/test_quadrotor_rotor.py::hover_ocp``: the rotors' thrusts
+    weighted around hover, stage ``sum W dx dx + 0.1 sum du du`` and
+    terminal ``10 sum W dx dx`` as ``DiagQuadratic<16, 4>`` and
+    ``DiagQuadraticTerminal<16>``, x0 = (1, -0.5, 0, 0, 0, 0, 0.2, 0 ...,
+    hover x 4), hover commands as the guess, dt = 0.05."""
+    hover = (HOVER_ROTOR_THRUST,) * 4
+    ref = (0.0,) * 12 + hover
+    x0 = torch.tensor((1.0, -0.5, 0.0, 0.0, 0.0, 0.0, 0.2) + (0.0,) * 5 + hover, dtype=dtype)
+    ocp = OCP(
+        state_dim=16, control_dim=4, horizon_steps=horizon, dt=0.05,
+        initial_state=x0,
+        dynamics=quadrotor_rotor_dynamics,
+        stage_cost=diagonal_quadratic_cost(QUADROTOR_ROTOR_W, ref, (0.1,) * 4, hover),
+        terminal_cost=diagonal_quadratic_terminal_cost(
+            tuple(10.0 * w for w in QUADROTOR_ROTOR_W), ref),
+        initial_controls=torch.tensor(hover, dtype=dtype).repeat(horizon, 1),
+        device=device,
+    )
+    ocp.initialize_problem()
+    return ocp.spec()
+
+
+def quadrotor_rotor_specs(batch: int, device="cuda", seed: int = 0,
+                          horizon: int = QUADROTOR_HORIZON, dtype=torch.float32) -> OCPSpec:
+    return batch_specs(quadrotor_rotor_spec(horizon, dtype, device),
+                       quadrotor_x0(batch, seed, nx=16))
+
+
+def pendulum_x0(batch: int, seed: int = 0) -> np.ndarray:
+    """Pendulum initial states ``(theta, 0)``, ``theta`` drawn U(pi - 0.1,
+    pi) (around the example's pi - 0.05) from ``RandomState(seed)``."""
+    x0 = np.zeros((batch, 2), np.float32)
+    x0[:, 0] = np.random.RandomState(seed).uniform(np.pi - 0.1, np.pi, batch)
+    return x0
+
+
+def pendulum_specs(batch: int, device="cuda", seed: int = 0, dtype=torch.float32) -> OCPSpec:
+    """``batch`` swing-ups of ``examples/pendulum_swing_up.py`` (its torque
+    box and sinusoid guess) from :func:`pendulum_x0`; solved with
+    :data:`PENDULUM_CONFIG` they run the fused loop's general branch."""
+    return batch_specs(create_pendulum_swingup_ocp(dtype=dtype, device=device).spec(),
+                       pendulum_x0(batch, seed))

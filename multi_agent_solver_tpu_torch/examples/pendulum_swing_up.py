@@ -5,9 +5,13 @@ PyTorch counterpart of the problem half of
 stage weights blending an energy error early against upright shaping late
 (quadratic schedule s^2), torque box +-5, a sinusoidal initial guess to
 break symmetry, x0 = (pi - 0.05, 0), T = 60, dt = 0.05, and the example's
-solver parameters.  The stage cost reads the stage index, which the device
-functions do not take, so its callables carry no tag: on the card it takes
-the non-fused path with the torch linearizer and K4's explicit mode.
+solver parameters.  The stage cost reads the stage index; it carries the
+tag of ``PendulumSwingUp`` in ``csrc/problems.cuh`` (the horizon's span
+T - 1 is one of its parameters), the terminal cost that of
+``PendulumSwingUpTerminal``, so on the card the swing-up runs the fused
+loop's general branch on the kernels: K2's rollout and select, K3 with
+Hessians and K4 with the terminal cost in the kernel, as the JAX router
+sends it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from ..models import pendulum_dynamics
 from ..models.pendulum import G, L, M
 from ..ocp import OCP
+from ..types import tag_device_fn
 
 TORQUE_MAX = 5.0
 HORIZON = 60
@@ -58,8 +63,15 @@ def _stage_cost(x, u, k):
     )
 
 
+tag_device_fn(_stage_cost, "pendulum_swing_up",
+              (float(HORIZON) - 1.0, W_ENERGY, W_SHAPE, W_OMEGA, W_U, MGL, 0.5 * M * L * L))
+
+
 def _terminal_cost(x):
     return WT_POS * (1.0 - torch.cos(x[..., 0])) + WT_VEL * x[..., 1] ** 2
+
+
+tag_device_fn(_terminal_cost, "pendulum_swing_up_terminal", (WT_POS, WT_VEL))
 
 
 def create_pendulum_swingup_ocp(dtype=torch.float32, device="cuda") -> OCP:

@@ -5,17 +5,17 @@ state ``(theta, omega)``, control ``(torque,)``,
 
     omega_dot = (g/l) sin(theta) + u/(m l^2) - (b/(m l^2)) omega
 
-with g = 9.81, l = m = 1, damping b = 0.1.  The callables carry no device
-tag: the swing-up's stage cost reads the stage index, which the device
-functions do not take, so on the card the pendulum runs the non-fused
-path with the torch linearizer and K4's explicit mode at (2, 1).
+with g = 9.81, l = m = 1, damping b = 0.1.  ``pendulum_dynamics`` carries
+the tag of ``Pendulum`` in ``csrc/problems.cuh``, which computes the same
+expression in the same order (its parameters are the constants Python
+folds: g/l, m l^2 and b/(m l^2)), so the pendulum runs on the kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..types import Tensor
+from ..types import Tensor, tag_device_fn
 
 G = 9.81
 L = 1.0
@@ -27,6 +27,9 @@ def pendulum_dynamics(x: Tensor, u: Tensor) -> Tensor:
     theta, omega = x[..., 0], x[..., 1]
     omega_dot = (G / L) * torch.sin(theta) + u[..., 0] / (M * L * L) - (B / (M * L * L)) * omega
     return torch.stack([omega, omega_dot], dim=-1)
+
+
+tag_device_fn(pendulum_dynamics, "pendulum", (G / L, M * L * L, B / (M * L * L)))
 
 
 def pendulum_state_jacobian(x: Tensor, u: Tensor) -> Tensor:

@@ -35,7 +35,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.func import jacfwd
 
-from .derivatives import Derivatives, make_derivatives
+from .derivatives import Derivatives, fd_jacobians, make_derivatives
 from .integrators import integrate_horizon, integrate_rk4
 from .types import Tensor, resolve_device, tag_device_fn
 
@@ -219,11 +219,14 @@ def synthesized_objective(stage_cost: Callable, terminal_cost: Callable) -> Call
 
 
 @functools.lru_cache(maxsize=None)
-def step_jacobians(dynamics: Callable, dt: float):
+def step_jacobians(dynamics: Callable, dt: float, fd: bool = False):
     """Memoized ``(step_fx, step_fu)``: the Jacobians of one RK4 step of
-    ``dynamics`` by ``jacfwd`` through the integrator, the oracles of the
+    ``dynamics`` -- by ``jacfwd`` through the integrator, or with ``fd`` by
+    central differences of the step (eps = 1e-6) --, the oracles of the
     discrete Jacobian mode."""
     step = lambda x, u: integrate_rk4(x, u, dt, dynamics)
+    if fd:
+        return fd_jacobians(step)
     return jacfwd(step, argnums=0), jacfwd(step, argnums=1)
 
 
@@ -248,14 +251,11 @@ def _state_bound_ineq_fns(base_fn, lb_key, ub_key, mode):
     """Memoized ``(g, gx, gu, extra)``: the constraint stacking the finite
     state-bound rows ``x_i - ub_i <= 0`` (each finite ``ub``), then
     ``lb_i - x_i <= 0`` (each finite ``lb``), under the rows of
-    ``base_fn``; its Jacobian oracles; the number of rows added.  Keys are
+    ``base_fn``; its Jacobian oracles (``jacfwd``, or central differences in
+    the ``fd`` mode); the number of rows added.  Keys are
     float tuples, so problems that share bounds share the functions.  A
     tagged (``bound_rows``) or absent base gives a tagged ``bound_rows``
     constraint, any other base an untagged one."""
-    if mode != "ad":
-        raise NotImplementedError(
-            f"derivative mode {mode!r}: only 'ad' is ported (ROADMAP: queue 1, model zoo "
-            "and derivative oracles)")
     new = tuple(("x", i, v, "upper") for i, v in enumerate(ub_key or ()) if math.isfinite(v))
     new += tuple(("x", i, v, "lower") for i, v in enumerate(lb_key or ()) if math.isfinite(v))
     if not new:
@@ -270,7 +270,9 @@ def _state_bound_ineq_fns(base_fn, lb_key, ub_key, mode):
             r = rows(x, u)
             return torch.cat([b.expand(r.shape[:-1] + b.shape[-1:]), r], -1)
 
-    return g, jacfwd(g, argnums=0), jacfwd(g, argnums=1), len(new)
+    if mode == "ad":
+        return g, jacfwd(g, argnums=0), jacfwd(g, argnums=1), len(new)
+    return (g, *fd_jacobians(g), len(new))
 
 
 def with_state_bound_constraints(spec: OCPSpec) -> OCPSpec:
@@ -431,7 +433,8 @@ class OCP:
         derivative bundle is built once and cached; call :meth:`invalidate`
         after changing the problem's functions."""
         if self._derivs is None:
-            step_fx, step_fu = step_jacobians(self.dynamics, float(self.dt))
+            step_fx, step_fu = step_jacobians(self.dynamics, float(self.dt),
+                                              self.derivative_mode == "fd")
             self._derivs = make_derivatives(
                 self.dynamics,
                 self.stage_cost,

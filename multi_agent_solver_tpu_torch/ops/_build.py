@@ -48,11 +48,21 @@ NVCC_FLAGS = (
 # parameters each device function reads, given (nx, nu).  A linear model
 # comes in any size, so its tag names its dims (LINEAR + "4x4": Linear<4, 4>)
 # and each size is an instantiation of its own.
-DYNAMICS_DIMS = {"single_track": (4, 2), "cartpole": (4, 1)}
+DYNAMICS_DIMS = {"single_track": (4, 2), "cartpole": (4, 1), "pendulum": (2, 1),
+                 "rocket": (3, 1), "dynamic_bicycle": (6, 2), "quadrotor": (12, 4),
+                 "quadrotor_rotor": (16, 4)}
 LINEAR = "linear_"
 PARAM_COUNT = {
     "single_track": lambda nx, nu: 1,
     "cartpole": lambda nx, nu: 6,
+    "pendulum": lambda nx, nu: 3,
+    "rocket": lambda nx, nu: 2,
+    "dynamic_bicycle": lambda nx, nu: 7,
+    "quadrotor": lambda nx, nu: 9,
+    "quadrotor_rotor": lambda nx, nu: 12,
+    "pendulum_swing_up": lambda nx, nu: 7,
+    "pendulum_swing_up_terminal": lambda nx, nu: 2,
+    "rocket_terminal": lambda nx, nu: 2,
     "linear": lambda nx, nu: nx * nx + nx * nu,
     "quadratic": lambda nx, nu: nx * nx + nu * nu,
     "quadratic_terminal": lambda nx, nu: nx * nx,
@@ -104,9 +114,13 @@ class KernelStats:
 
 
 # The sources that take longest to compile, longest first: the (8, 4) box
-# QP's 81 configurations in the two riccati_explicit_wide sources, then
-# K8's AL instantiations (build.log gives each source's seconds).
+# QP's 81 configurations in the two riccati_explicit_wide sources, the
+# quadrotors' K1 (a dual RK4 step in 13 and 17 live tangents, fully
+# unrolled), then K8's AL instantiations (build.log gives each source's
+# seconds).
 LONG_POLES = ("riccati_explicit_wide.cu", "riccati_explicit_wide_group.cu",
+              "riccati_quadrotor_rotor.cu", "riccati_quadrotor.cu",
+              "riccati_explicit_quadrotor.cu", "forward_select_quadrotor.cu",
               "forward_select_emit_al.cu", "riccati_explicit.cu", "linearize.cu")
 
 _lib = None

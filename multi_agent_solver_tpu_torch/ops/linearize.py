@@ -56,7 +56,7 @@ counted per mode: ``STATS`` (discrete), ``CONT_STATS`` (continuous),
 from __future__ import annotations
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from ..integrators import integrate_rk4
 from ..types import Tensor
@@ -108,25 +108,35 @@ def stage_derivatives(spec, x: Tensor, u: Tensor, t, discrete: bool = True):
     return A, Bm, lx, lu
 
 
+def _row(h, zeros, a, directions):
+    """``[jvp(h, (a,), (e,))[1] for e in directions]`` of a scalar-valued
+    ``h``, each plus ``zeros``, by one ``torch.func.vmap`` over the
+    directions: every direction sees the arithmetic of its own jvp, so
+    the entries are the separate jvps' floats."""
+    E = torch.stack(directions)
+    return list((vmap(lambda e: jvp(h, (a,), (e,))[1])(E) + zeros).unbind(0))
+
+
 def cost_hessians(spec, x: Tensor, u: Tensor, t):
     """``(lxx, luu, lux)`` by jvp over jvp: entry (i, j) is the jvp along
-    e_j of the gradient along e_i; upper triangles mirrored."""
+    e_j of the gradient along e_i (the directions j of a row in one
+    vmapped jvp); upper triangles mirrored."""
     nx, nu = x.shape[-1], u.shape[-1]
     zeros = torch.zeros_like(x[..., 0])
     grad_x = lambda a, b, i: jvp(lambda z: spec.stage_cost(z, b, t), (a,), (_basis(nx, i, a),))[1]
     grad_u = lambda a, b, i: jvp(lambda z: spec.stage_cost(a, z, t), (b,), (_basis(nu, i, b),))[1]
     lxx = [[None] * nx for _ in range(nx)]
     for i in range(nx):
-        for j in range(i, nx):
-            h = jvp(lambda a: grad_x(a, u, i), (x,), (_basis(nx, j, x),))[1] + zeros
+        row = _row(lambda a: grad_x(a, u, i), zeros, x, [_basis(nx, j, x) for j in range(i, nx)])
+        for j, h in zip(range(i, nx), row):
             lxx[i][j] = lxx[j][i] = h
     luu = [[None] * nu for _ in range(nu)]
     for i in range(nu):
-        for j in range(i, nu):
-            h = jvp(lambda b: grad_u(x, b, i), (u,), (_basis(nu, j, u),))[1] + zeros
+        row = _row(lambda b: grad_u(x, b, i), zeros, u, [_basis(nu, j, u) for j in range(i, nu)])
+        for j, h in zip(range(i, nu), row):
             luu[i][j] = luu[j][i] = h
-    lux = [[jvp(lambda a: grad_u(a, u, i), (x,), (_basis(nx, j, x),))[1] + zeros
-            for j in range(nx)] for i in range(nu)]
+    lux = [_row(lambda a: grad_u(a, u, i), zeros, x, [_basis(nx, j, x) for j in range(nx)])
+           for i in range(nu)]
     stack2 = lambda rows: torch.stack([torch.stack(r, -1) for r in rows], -2)
     return stack2(lxx), stack2(luu), stack2(lux)
 
@@ -134,16 +144,17 @@ def cost_hessians(spec, x: Tensor, u: Tensor, t):
 def terminal_derivatives(terminal_fn, xT: Tensor):
     """``(phi_x, phi_xx)`` of ``terminal_fn`` at ``xT [B, nx]`` by jvp and
     jvp over jvp, as lists of ``[B]`` tensors; upper triangle mirrored (entry
-    (i, j), j >= i, the jvp along e_j of the gradient along e_i).  The plain
-    version of K10, and the terminal value of K1's and K4's."""
+    (i, j), j >= i, the jvp along e_j of the gradient along e_i, the
+    directions j of a row in one vmapped jvp).  The plain version of K10,
+    and the terminal value of K1's and K4's."""
     nx = xT.shape[-1]
     zeros = torch.zeros_like(xT[..., 0])
     grad_j = lambda a, j: jvp(terminal_fn, (a,), (_basis(nx, j, a),))[1] + zeros
     vx = [grad_j(xT, j) for j in range(nx)]
     vxx = [[None] * nx for _ in range(nx)]
     for i in range(nx):
-        for j in range(i, nx):
-            h = jvp(lambda a: grad_j(a, i), (xT,), (_basis(nx, j, xT),))[1] + zeros
+        row = _row(lambda a: grad_j(a, i), zeros, xT, [_basis(nx, j, xT) for j in range(i, nx)])
+        for j, h in zip(range(i, nx), row):
             vxx[i][j] = vxx[j][i] = h
     return vx, vxx
 

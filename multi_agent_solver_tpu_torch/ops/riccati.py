@@ -56,8 +56,9 @@ BOXQP_STATS = KernelStats()
 # (nx, nu) with an instantiation of K4's explicit-terminal mode
 # (csrc/riccati_explicit*.cu), and those instantiated in clamp mode alone
 # (the LQR's: a boxqp launch raises NotImplementedError).
-EXPLICIT_DIMS = ((4, 2), (2, 1), (6, 3), (8, 4), (4, 1), (4, 4), (6, 2))
-EXPLICIT_CLAMP_ONLY = ((4, 4),)
+EXPLICIT_DIMS = ((4, 2), (2, 1), (6, 3), (8, 4), (4, 1), (4, 4), (6, 2), (3, 1), (12, 4),
+                 (16, 4))
+EXPLICIT_CLAMP_ONLY = ((4, 4), (12, 4), (16, 4))
 
 
 def reg_ladder(reg_init: float, reg_factor: float, reg_levels: int) -> tuple:

@@ -73,8 +73,10 @@ port's CPU: ``fused="auto"`` fuses context and AL solves on the card only.
 
 :func:`solve_ilqr` is the single problem's loop over the same functions
 (stop at convergence, or when ``enforce_max_ms``'s host-clock deadline has
-passed).  The ``ddp``, ``differentiable``, ``assoc`` and ``fd`` branches
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+passed).  The ``ddp``, ``differentiable`` and ``assoc`` branches raise
+``NotImplementedError`` naming the ROADMAP item that brings them;
+``derivative_mode="fd"`` runs the non-fused path on the reference's
+finite-difference oracles (``finite_differences.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -385,6 +387,11 @@ def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize:
     solves, apart or together, fuse under ``fused="auto"`` on the card
     only, as JAX fuses them off its interpreter.
 
+    The kernels differentiate in AD mode only, so ``derivative_mode="fd"``
+    takes the non-fused path with the vmapped finite-difference oracles and
+    no K7, as JAX's fused gate and ``lane_linearize`` send it; the K2
+    rollout and select and K4 still run where the problem fits them.
+
     One deliberate divergence: a context solve with ``fused=False`` and
     ``linearize="pallas"`` runs the vmapped linearizer, since K7 takes no
     context.  JAX builds K7 without the context there and raises
@@ -394,8 +401,6 @@ def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize:
         raise _not_ported("differentiable=True", "queue 1, iLQR modes")
     if config.ddp:
         raise _not_ported("ddp=True", "queue 1, iLQR modes")
-    if specs.derivative_mode != "ad":
-        raise _not_ported("derivative_mode='fd'", "queue 1, model zoo and derivative oracles")
     if linearize not in ("xla", "pallas"):
         raise ValueError(f"linearize={linearize!r}: 'xla' or 'pallas'")
     if fused in ("on", "off"):
@@ -416,10 +421,11 @@ def route(specs: OCPSpec, config: ILQRConfig, backward: str = "auto", linearize:
     interpret = dev.type == "cpu"
     lane_forward = (backward == "pallas" and specs.objective_is_default
                     and spec_supports_lane_forward(specs, dev))
-    if (fused in ("auto", True) and lane_forward
+    ad = specs.derivative_mode == "ad"
+    if (fused in ("auto", True) and lane_forward and ad
             and (specs.context is None and not al or fused is True or not interpret)):
         return Route(fused=True)
-    lane_linearize = (linearize == "pallas" and lane_forward and specs.context is None
+    lane_linearize = (linearize == "pallas" and lane_forward and ad and specs.context is None
                       and kernels_take(specs, dev))
     return Route(False, backward, lane_forward, lane_linearize)
 

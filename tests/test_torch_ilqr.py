@@ -170,14 +170,11 @@ def test_context_cost_hoists_per_stage_hessians():
     assert not torch.allclose(fixed.controls, hoisted.controls)
 
 
-@pytest.mark.parametrize("case", ["ddp", "differentiable", "fd_derivatives", "assoc",
-                                  "al_with_context"])
+@pytest.mark.parametrize("case", ["ddp", "differentiable", "assoc", "al_with_context"])
 def test_unported_branches_raise(case):
     specs = entry.bench_specs(2, device="cpu", horizon=10)
     config, kwargs = entry.BENCH_CONFIG, {}
-    if case == "fd_derivatives":
-        specs = specs.replace(derivative_mode="fd")
-    elif case == "ddp":
+    if case == "ddp":
         config = dataclasses.replace(config, ddp=True)
     elif case == "differentiable":
         config = dataclasses.replace(config, differentiable=True)

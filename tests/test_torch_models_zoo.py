@@ -242,9 +242,10 @@ def test_cartpole_swing_up_first_iteration_matches_jax():
 
 def test_cartpole_and_pendulum_routes_on_the_card():
     """On the card's terms the tagged cart-pole fuses (the general branch
-    on the kernels); an untagged cart-pole cost and the pendulum, whose
-    cost reads the stage index, take the non-fused path without the lane
-    kernels, as the router decides -- never a silent fallback."""
+    on the kernels), and so does the pendulum swing-up, whose tagged cost
+    reads the stage index that the device functions now take; an untagged
+    cart-pole cost takes the non-fused path without the lane kernels, as
+    the router decides -- never a silent fallback."""
     config = ILQRConfig(max_iterations=3, tolerance=1e-7)
     specs = entry.cartpole_specs(4, device="cpu")
     assert route(specs, config, device_type="cuda").fused
@@ -253,5 +254,4 @@ def test_cartpole_and_pendulum_routes_on_the_card():
     assert not decision.fused and not decision.lane_forward and decision.backward == "pallas"
     pend = create_pendulum_swingup_ocp(device="cpu").spec()
     pend = entry.batch_specs(pend, pend.initial_state[None].numpy())
-    decision = route(pend, config, device_type="cuda")
-    assert not decision.fused and not decision.lane_forward and decision.backward == "pallas"
+    assert route(pend, config, device_type="cuda").fused
